@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Every ``csrc/*.cu`` of the package is compiled, at first use, in ONE
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+-Xcompiler -fPIC`` call into ``build/repro_torch/lib<hash>.so`` at the
+root of the checkout, keyed by a hash of the sources and flags, so a
+rebuilt source never loads a stale library.  The sources export plain C
+entry points (no PyTorch headers), which keeps the build to seconds.  A
+failed build raises with nvcc's stderr.  Nothing is built at import: the
+CPU tests import every module of the port on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+# C entry point -> argtypes (every pointer and the stream as c_void_p)
+ENTRY_POINTS = {
+    "paxos_apply_launch": [_P, _P, _P, _P, _P, _I64, _P],
+    "paxos_propose_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+}
+
+
+class KernelLibrary:
+    """The loaded shared library plus how it was obtained."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
+                 build_log: str):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds   # 0.0 when a cached .so loaded
+        self.build_log = build_log           # nvcc/ptxas output of the build
+
+
+_loaded: Optional[KernelLibrary] = None
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda``,
+    else whatever ``nvcc`` is on the PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, "
+                           "PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
+
+
+def build() -> KernelLibrary:
+    """Build (if the sources changed) and load the kernel library once per
+    process."""
+    global _loaded
+    if _loaded is not None:
+        return _loaded
+    out = library_path()
+    seconds, log = 0.0, ""
+    if not out.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in sources()]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _loaded = KernelLibrary(lib, out, seconds, log)
+    return _loaded

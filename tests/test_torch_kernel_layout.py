@@ -1,0 +1,109 @@
+"""The CUDA sources' plane layouts and protocol constants match Python.
+
+The kernels index the packed stacks by ``enum`` field indices and compare
+against hard-coded protocol codes; neither can be compiled here, so this
+test parses the enums out of ``src/repro_torch/csrc/*.cu`` and holds them
+against the ``_fields`` order of the six plane sets and the values of the
+protocol enums.
+"""
+
+import pathlib
+import re
+
+import pytest
+
+from repro_torch.core import proposer_vector, vector
+from repro_torch.core.proposer import ABD_PAUSED, AbdPhase, Decision, Phase
+from repro_torch.core.types import KVState, MsgKind, Rep
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
+    / "csrc"
+
+_ENUM = re.compile(r"\benum\s+(\w+)\s*\{(.*?)\}", re.S)
+
+
+def _enums():
+    """``{(file stem, enum name): [(member, value or None), ...]}``."""
+    out = {}
+    for path in sorted(CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", path.read_text())
+        for name, body in _ENUM.findall(text):
+            members = []
+            for item in body.split(","):
+                item = item.strip()
+                if not item:
+                    continue
+                if "=" in item:
+                    k, v = (s.strip() for s in item.split("=", 1))
+                    members.append((k, int(v)))
+                else:
+                    members.append((item, None))
+            out[(path.stem, name)] = members
+    return out
+
+
+ENUMS = _enums()
+
+FIELD_SETS = [
+    ("paxos_apply", "KVTable", "KV_", vector.KVTable._fields),
+    ("paxos_apply", "MsgBatch", "MSG_", vector.MsgBatch._fields),
+    ("paxos_apply", "ReplyBatch", "RPL_", vector.ReplyBatch._fields),
+    ("paxos_propose", "ProposerTable", "TAB_",
+     proposer_vector.ProposerTable._fields),
+    ("paxos_propose", "IssuerReplyBatch", "IRP_",
+     proposer_vector.IssuerReplyBatch._fields),
+    ("paxos_propose", "ActionBatch", "ACT_",
+     proposer_vector.ActionBatch._fields),
+]
+
+
+@pytest.mark.parametrize("stem,enum,prefix,fields", FIELD_SETS,
+                         ids=[f"{s}:{e}" for s, e, _, _ in FIELD_SETS])
+def test_plane_enum_matches_fields(stem, enum, prefix, fields):
+    members = ENUMS[(stem, enum)]
+    assert all(v is None for _, v in members), "field enums count from 0"
+    assert [m for m, _ in members] == [prefix + f for f in fields]
+
+
+def _codes(enum_cls, prefix):
+    return {prefix + m.name: int(m.value) for m in enum_cls}
+
+
+LANE_KINDS = {"LK_NOOP": vector.NOOP, "LK_PROPOSE": vector.PROPOSE,
+              "LK_ACCEPT": vector.ACCEPT, "LK_COMMIT": vector.COMMIT,
+              "LK_WRITE_QUERY": vector.WRITE_QUERY, "LK_WRITE": vector.WRITE,
+              "LK_READ_QUERY": vector.READ_QUERY,
+              "LK_READ_COMMIT": vector.READ_COMMIT}
+
+CODE_SETS = [
+    ("paxos_apply", "LaneKind", LANE_KINDS),
+    ("paxos_apply", "KVState", _codes(KVState, "KVS_")),
+    ("paxos_apply", "Rep", _codes(Rep, "REP_")),
+    ("paxos_apply", "MsgKind", _codes(MsgKind, "MK_")),
+    ("paxos_propose", "Rep", _codes(Rep, "REP_")),
+    ("paxos_propose", "MsgKind", _codes(MsgKind, "MK_")),
+    ("paxos_propose", "Phase", _codes(Phase, "PH_")),
+    ("paxos_propose", "AbdPhase",
+     {**_codes(AbdPhase, "AP_"), "AP_PAUSED": ABD_PAUSED}),
+    ("paxos_propose", "Decision", _codes(Decision, "D_")),
+]
+
+
+@pytest.mark.parametrize("stem,enum,expected", CODE_SETS,
+                         ids=[f"{s}:{e}" for s, e, _ in CODE_SETS])
+def test_protocol_codes_match_python(stem, enum, expected):
+    members = dict(ENUMS[(stem, enum)])
+    assert members, f"{stem}.cu has no enum {enum}"
+    for name, value in members.items():
+        assert name in expected, f"{stem}.cu {enum}: unknown {name}"
+        assert value == expected[name], f"{stem}.cu {enum}.{name}"
+
+
+def test_reply_kind_table_matches_python():
+    """paxos_apply.cu maps each lane kind to its reply MsgKind in a switch;
+    every arm must agree with vector.REPLY_KIND."""
+    text = (CSRC / "paxos_apply.cu").read_text()
+    arms = dict(re.findall(r"case (LK_\w+): rep_kind = (MK_\w+);", text))
+    want = {name: "MK_" + vector.REPLY_KIND[code].name
+            for name, code in LANE_KINDS.items() if code != vector.NOOP}
+    assert arms == want
