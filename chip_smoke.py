@@ -24,10 +24,30 @@ Phases (any failure exits nonzero and prints no result):
    have launched, and a sample of the fused calls is replayed through the
    plain versions on the card.
 4. **Timings** of each kernel at the main path's shapes (CUDA events,
-   median after warm-up), its bound and its plain version's time.
+   median after warm-up), its bound and its plain version's time; the
+   card's busy share over 40 ticks of the serve path.
+5. **Float kernels vs plain** on unit-normal inputs made on the card:
+   ``flash_attention`` at zamba2's, gemma3's local, qwen1.5's ragged,
+   Sq < Sk, non-causal and MQA shapes, ``mamba2_ssd`` at zamba2's layer,
+   ragged T and G = 2, each in float32 and bfloat16.
+6. **Full-width zamba2-7b** (81 layers, d_model 3584, float32 weights from
+   a seeded ``torch.Generator`` on the card): one prefill of 2 x 128
+   tokens, the main path of both float kernels (their counts set to 0 just
+   before it and read just after: 13 and 81), held against the
+   teacher-forced ``decode_step`` loop over the same tokens (same top-1,
+   max logit error <= 1e-3 of max |logit|); a sample of its kernel calls
+   replayed through the plain versions; then ``DecodeEngine`` routes 4
+   sessions through ``PaxosRegistry(n_machines=5)`` over ``BatchedMachine``
+   (sticky across two engines) and generates 32 steps.
+7. **bf16 prefill** at 1 x 4096 tokens (cut from the dry-run's
+   ``prefill_32k``, batch 32): wall time and one ``torch.profiler`` pass.
+8. **Timings** of both float kernels at the prefill shape, their bounds,
+   plain versions and, for attention, one
+   ``scaled_dot_product_attention`` call (a yardstick the port never
+   calls).
 
 The last three lines of standard output are the ``nvidia-smi`` name and
-power limit, one JSON object describing the kernels, and
+power limit, one JSON object describing the four kernels, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -222,7 +242,8 @@ class Recorder:
             return self.fn(*args, **kw)
         ins = [a.clone() for a in args]
         outs = self.fn(*args, **kw)
-        self.samples.append((i, ins, [o.clone() for o in outs]))
+        kept = outs if isinstance(outs, (tuple, list)) else [outs]
+        self.samples.append((i, ins, kw, [o.clone() for o in kept]))
         return outs
 
 
@@ -297,7 +318,7 @@ def phase_serve(torch, mods, dev, n_ops):
 
 
 def phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok):
-    for i, ins, outs in rec_r.samples:
+    for i, ins, _, outs in rec_r.samples:
         kv, msgreg = ins[0], ins[1]
         _, m, k = kv.shape
         want = mods.apply_ops.paxos_apply_plain(kv.view(18, m * k),
@@ -306,7 +327,7 @@ def phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok):
                outs[2].view(m * k)]
         apply_ok.add(torch, got, want, f"recorded receiver call {i}")
         log(f"[replay] receiver call {i} ({m}x{k} lanes): equal to plain")
-    for i, ins, outs in rec_i.samples:
+    for i, ins, _, outs in rec_i.samples:
         tab, rep, params = ins
         _, m, s = tab.shape
         want = mods.propose_ops.paxos_propose_plain(
@@ -468,6 +489,433 @@ def phase_timings(torch, mods, pv, dev, waves_all):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the model-serving path: flash attention and Mamba2 SSD
+# ---------------------------------------------------------------------------
+
+# H100 SXM peaks used for the float kernels' bounds (NVIDIA data sheet):
+# dense bf16 tensor-core rate, and the HBM3 rate above.
+BF16_FLOPS_PER_S = 989e12
+
+# kernel vs plain tolerance over unit-normal inputs.  Attention: every
+# element within atol + rtol * |plain| with atol = rtol = the figure, as
+# tests/test_kernels_attention.py:35 holds bf16 (the plain version rounds
+# the probabilities to bf16 before the value product, the kernel does not:
+# one bf16 ulp of an output above 4 is 0.031).  The SSD, and the recorded
+# calls of the model, against max |plain output|.
+FLOAT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+# (label, B, Hq, Hkv, Sq, Sk, D, causal, window)
+FA_CASES = [
+    ("zamba2 shared attention", 1, 32, 32, 4096, 4096, 112, True, None),
+    ("gemma3-12b local", 1, 16, 8, 2048, 2048, 256, True, 1024),
+    ("qwen1.5-4b ragged", 2, 20, 20, 1000, 1000, 128, True, None),
+    ("one query, Sk 777", 1, 8, 8, 1, 777, 128, True, None),
+    ("Sq < Sk", 1, 8, 8, 300, 1000, 128, True, None),
+    ("non-causal", 1, 20, 20, 1500, 1500, 64, False, None),
+    ("MQA", 1, 8, 1, 512, 512, 128, True, None),
+]
+# (label, B, T, H, P, G, N)
+SSD_CASES = [
+    ("zamba2 Mamba2 layer", 1, 4096, 112, 64, 1, 64),
+    ("T=1", 1, 1, 112, 64, 1, 64),
+    ("T=127", 1, 127, 112, 64, 1, 64),
+    ("T=1000", 1, 1000, 112, 64, 1, 64),
+    ("G=2", 1, 512, 16, 64, 2, 64),
+]
+ZAMBA = "zamba2-7b"
+PROMPT_LEN, PROMPT_BATCH = 128, 2
+GEN_SESSIONS, GEN_STEPS = 4, 32
+PREFILL_SEQ = 4096
+
+
+class FloatAgreement:
+    """Accumulated kernel-vs-plain comparison of one float kernel."""
+
+    def __init__(self):
+        self.max_abs_err = 0.0
+        self.max_rel_err = 0.0
+        self.compared = 0
+
+    def add(self, got, want, tol, what, relative=False):
+        got, want = got.float(), want.float()
+        if not bool(got.isfinite().all()):
+            raise AssertionError(f"{what}: the kernel wrote non-finite values")
+        abs_err = float((got - want).abs().max()) if got.numel() else 0.0
+        scale = float(want.abs().max()) if want.numel() else 1.0
+        rel_err = abs_err / max(scale, 1e-30)
+        self.max_abs_err = max(self.max_abs_err, abs_err)
+        self.max_rel_err = max(self.max_rel_err, rel_err)
+        self.compared += got.numel()
+        if relative:
+            err = rel_err
+        else:             # allclose: max(|got - want| - tol |want|) <= tol
+            err = float(((got - want).abs() - tol * want.abs()).max()) \
+                if got.numel() else 0.0
+        log(f"[kernels] {what}: max abs err {abs_err:.3e}, relative to "
+            f"max|plain| {rel_err:.3e} (tolerance {tol:g}"
+            f"{' relative to max|plain|' if relative else ' + ' + format(tol, 'g') + ' |plain|'})")
+        if not err <= tol:
+            raise AssertionError(f"{what}: error {err:.3e} above {tol:g}")
+
+
+def _dtype(torch, name):
+    return getattr(torch, name)
+
+
+def fa_inputs(torch, case, dtype, seed, dev):
+    _, b, hq, hkv, sq, sk, d, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dtype)
+    return (q, k, v), dict(causal=causal, window=window)
+
+
+def ssd_inputs(torch, case, dtype, seed, dev):
+    _, b, t, h, p, g_, n = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, t, h, p), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, t, h), generator=g, device=dev)).to(dtype)
+    A = -torch.exp(torch.randn((h,), generator=g, device=dev))
+    Bm = torch.randn((b, t, g_, n), generator=g, device=dev).to(dtype)
+    Cm = torch.randn((b, t, g_, n), generator=g, device=dev).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def phase_model_kernels(torch, mods, dev):
+    fa_ok, ssd_ok = FloatAgreement(), FloatAgreement()
+    for i, case in enumerate(FA_CASES):
+        for dname in ("float32", "bfloat16"):
+            args, kw = fa_inputs(torch, case, _dtype(torch, dname), 300 + i,
+                                 dev)
+            got = mods.fa_ops.flash_attention(*args, **kw)
+            want = mods.fa_ops.attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            fa_ok.add(got, want, FLOAT_TOL[dname],
+                      f"flash_attention {case[0]} {tuple(case[1:7])} "
+                      f"causal={case[7]} window={case[8]} {dname}")
+            del args, got, want
+    for i, case in enumerate(SSD_CASES):
+        for dname in ("float32", "bfloat16"):
+            args = ssd_inputs(torch, case, _dtype(torch, dname), 400 + i, dev)
+            got = mods.ssd_ops.ssd(*args)
+            want = mods.ssd_ops.ssd_plain(*args)
+            torch.cuda.synchronize()
+            ssd_ok.add(got, want, FLOAT_TOL[dname],
+                       f"mamba2_ssd {case[0]} {tuple(case[1:])} {dname}",
+                       relative=True)
+            del args, got, want
+    torch.cuda.empty_cache()
+    return fa_ok, ssd_ok
+
+
+def _zamba_params(torch, model, dtype, dev, seed):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init(gen, dtype, dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"[zamba2] {model.cfg.name}: {model.cfg.n_layers} layers "
+        f"({model.repeats} x {len(model.unit)} Mamba2 + shared attention "
+        f"+ {len(model.tail)} tail), d_model {model.cfg.d_model}, {n} "
+        f"parameters, {n * params['embed'].element_size() / 1e9:.2f} GB "
+        f"{dtype} on {params['embed'].device}, drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _prefill_counted(torch, mods, model, params, tokens, rec_fa=None,
+                     rec_ssd=None):
+    """One prefill with both kernels' counts set to 0 just before it and
+    read just after; optionally through call recorders."""
+    blocks = mods.blocks
+    mods.fa_ops.flash_attention.launches = 0
+    mods.ssd_ops.ssd.launches = 0
+    if rec_fa is not None:
+        blocks.flash_attention, blocks.ssd = rec_fa, rec_ssd
+    try:
+        logits = model.prefill(params, tokens)
+        torch.cuda.synchronize()
+    finally:
+        blocks.flash_attention = mods.fa_ops.flash_attention
+        blocks.ssd = mods.ssd_ops.ssd
+    launches = {"flash_attention": mods.fa_ops.flash_attention.launches,
+                "mamba2_ssd": mods.ssd_ops.ssd.launches}
+    want = {"flash_attention": model.repeats,
+            "mamba2_ssd": model.cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"prefill launched {launches}, expected {want} "
+                             f"(one flash attention a shared-block call, "
+                             f"one SSD a Mamba2 layer)")
+    return logits, launches
+
+
+def phase_zamba2(torch, mods, dev, fa_ok, ssd_ok):
+    """Full-width zamba2-7b in float32: prefill (the kernels' main path)
+    against its teacher-forced decode, then the Paxos-routed engine."""
+    cfg = mods.ARCHS[ZAMBA]
+    model = mods.build_model(cfg)
+    params = _zamba_params(torch, model, torch.float32, dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(1, cfg.vocab, (PROMPT_BATCH, PROMPT_LEN),
+                           generator=gen, device=dev, dtype=torch.int32)
+    rec_fa = Recorder(torch, mods.fa_ops.flash_attention, (0, 6, 12))
+    rec_ssd = Recorder(torch, mods.ssd_ops.ssd, (0, 40, 80))
+    t0 = time.perf_counter()
+    logits, launches = _prefill_counted(torch, mods, model, params, tokens,
+                                        rec_fa, rec_ssd)
+    t_prefill = time.perf_counter() - t0
+    log(f"[zamba2] main-path launches of one prefill "
+        f"({PROMPT_BATCH} x {PROMPT_LEN} tokens, float32): "
+        f"{json.dumps(launches)}; {t_prefill:.3f} s with recording")
+    if tuple(logits.shape) != (PROMPT_BATCH, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} are "
+                             f"not finite [{PROMPT_BATCH}, {cfg.vocab}]")
+
+    # recorded prefill calls replayed through the plain versions
+    for i, ins, kw, outs in rec_fa.samples:
+        want = mods.fa_ops.attention_plain(*ins, **kw)
+        fa_ok.add(outs[0], want, FLOAT_TOL["float32"],
+                  f"recorded prefill flash_attention call {i} "
+                  f"{tuple(ins[0].shape)}", relative=True)
+    for i, ins, kw, outs in rec_ssd.samples:
+        want = mods.ssd_ops.ssd_plain(*ins, **kw)
+        ssd_ok.add(outs[0], want, FLOAT_TOL["float32"],
+                   f"recorded prefill mamba2_ssd call {i} "
+                   f"{tuple(ins[0].shape)}", relative=True)
+    del rec_fa, rec_ssd
+
+    # teacher-forced decode over the same tokens: kernel-free, plain torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches = model.init_cache(PROMPT_BATCH, PROMPT_LEN, dtype=torch.float32,
+                              device=dev)
+    for t in range(PROMPT_LEN):
+        dec, caches = model.decode_step(params, caches, tokens[:, t:t + 1])
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    step_caches = model.init_cache(PROMPT_BATCH, PROMPT_LEN,
+                                   dtype=torch.float32, device=dev)
+    rows, step_ms = profile_device(torch, lambda: model.decode_step(
+        params, step_caches, tokens[:, :1]))
+    dev_rows = [r for r in rows if _is_device_row(r) and _device_us(r) > 0]
+    step_dev = sum(_device_us(r) for r in dev_rows) / 1e3
+    log(f"[zamba2] one float32 decode step profiled: wall {step_ms:.2f} ms, "
+        f"device busy {step_dev:.2f} ms over "
+        f"{sum(r.count for r in dev_rows)} device ops")
+    for r in sorted(dev_rows, key=_device_us, reverse=True)[:6]:
+        log(f"[zamba2]   {_device_us(r) / 1e3:9.3f} ms  x{r.count:<5d} "
+            f"{r.key[:90]}")
+    del step_caches
+    scale = float(logits.abs().max())
+    err = float((dec - logits).abs().max())
+    top_p, top_d = logits.argmax(-1), dec.argmax(-1)
+    log(f"[zamba2] prefill vs teacher-forced decode ({PROMPT_LEN} steps, "
+        f"{t_decode:.2f} s): max abs logit err {err:.3e}, relative "
+        f"{err / scale:.3e} (tolerance 1e-3), top-1 "
+        f"{top_p.tolist()} vs {top_d.tolist()}")
+    if not (err / scale <= 1e-3 and torch.equal(top_p, top_d)):
+        raise AssertionError("prefill and teacher-forced decode disagree")
+    del caches, dec
+
+    # DecodeEngine: routes through PaxosRegistry over BatchedMachine
+    mods.apply_ops.paxos_apply.launches = 0
+    mods.propose_ops.paxos_propose.launches = 0
+    t0 = time.perf_counter()
+    registry = mods.PaxosRegistry(
+        n_machines=5, all_aboard=True,
+        machine_cls=functools.partial(mods.BatchedMachine, device=dev))
+    engines = [mods.DecodeEngine(model, params,
+                                 mods.ServeConfig(max_seq=64),
+                                 registry, replica_id=r, device=dev)
+               for r in range(2)]
+    sessions = list(range(101, 101 + GEN_SESSIONS))
+    routes = {s: engines[s % 2].route(s) for s in sessions}
+    for s in sessions:
+        if not engines[0].route(s) == engines[1].route(s) == routes[s]:
+            raise AssertionError(f"session {s}: routes are not sticky")
+    t_route = time.perf_counter() - t0
+    paxos = {"paxos_apply": mods.apply_ops.paxos_apply.launches,
+             "paxos_propose": mods.propose_ops.paxos_propose.launches}
+    rng = mods.np.random.default_rng(2)
+    prompts = [[int(v) for v in rng.integers(1, cfg.vocab,
+                                             int(rng.integers(5, 21)))]
+               for _ in sessions]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engines[0].generate(prompts, steps=GEN_STEPS)
+    t_gen = time.perf_counter() - t0
+    if out.shape != (GEN_SESSIONS, GEN_STEPS) or out.min() < 0 or \
+            out.max() >= cfg.vocab:
+        raise AssertionError(f"generate returned {out.shape} tokens outside "
+                             f"[0, {cfg.vocab})")
+    log(f"[zamba2] routes {routes} sticky across 2 engines "
+        f"({t_route:.2f} s, Paxos kernel launches {json.dumps(paxos)}); "
+        f"generate {GEN_SESSIONS} sessions (prompts "
+        f"{[len(p) for p in prompts]} tokens) x {GEN_STEPS} steps in "
+        f"{t_gen:.2f} s; first row {out[0].tolist()}")
+    del engines, registry, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_prefill_bf16(torch, mods, dev):
+    """bfloat16 zamba2-7b prefill at 1 x PREFILL_SEQ tokens: wall time, one
+    profiled pass, and the kernels' timings at the prefill shape."""
+    cfg = mods.ARCHS[ZAMBA]
+    model = mods.build_model(cfg)
+    params = _zamba_params(torch, model, torch.bfloat16, dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(1, cfg.vocab, (1, PREFILL_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    logits, launches = _prefill_counted(torch, mods, model, params, tokens)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("bf16 prefill logits are not finite")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, tokens)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows, prof_ms = profile_device(torch, lambda: model.prefill(params,
+                                                                tokens))
+    dev_rows = [r for r in rows if _is_device_row(r) and _device_us(r) > 0]
+    dev_ms = sum(_device_us(r) for r in dev_rows) / 1e3
+    log(f"[prefill] bf16 1 x {PREFILL_SEQ} tokens: {json.dumps(launches)} "
+        f"launches; wall {wall_ms:.2f} ms (median of 3: "
+        f"{', '.join(f'{w:.2f}' for w in walls)}), profiled wall "
+        f"{prof_ms:.2f} ms, device busy {dev_ms:.2f} ms (busy share "
+        f"{dev_ms / prof_ms:.4f}), peak memory {peak_gb:.2f} GB")
+    groups = {}
+    for r in dev_rows:
+        key = r.key
+        if "flash_attention_kernel" in key:
+            g = "flash_attention_kernel"
+        elif "mamba2_ssd_kernel" in key:
+            g = "mamba2_ssd_kernel"
+        elif any(w in key.lower() for w in ("gemm", "xmma", "cutlass",
+                                            "sm90", "nvjet")):
+            g = "matmul (cuBLAS)"
+        else:
+            g = "other torch kernels"
+        t_ms, cnt = groups.get(g, (0.0, 0))
+        groups[g] = (t_ms + _device_us(r) / 1e3, cnt + r.count)
+    for g, (t_ms, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"[prefill]   {t_ms:10.3f} ms  x{cnt:<6d} {g} "
+            f"({t_ms / dev_ms:.3f} of device time)")
+    for r in sorted(dev_rows, key=_device_us, reverse=True)[:10]:
+        log(f"[prefill]     {_device_us(r) / 1e3:9.3f} ms  x{r.count:<5d} "
+            f"{r.key[:100]}")
+    per_launch = {}
+    for name in ("flash_attention", "mamba2_ssd"):
+        t_ms, cnt = groups.get(f"{name}_kernel", (0.0, 0))
+        per_launch[name] = t_ms / cnt if cnt else None
+    del params, logits
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall_ms, device_ms=dev_ms, launches=launches,
+                per_launch_ms=per_launch)
+
+
+def fa_visible_pairs(sq, sk, causal, window):
+    """(query, key) pairs the mask leaves visible, per (batch, head)."""
+    import numpy as np
+    qpos = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None \
+        else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def phase_model_timings(torch, mods, dev, prefill_per_launch):
+    """Each kernel at zamba2's prefill shape in bf16 (CUDA events, median
+    after warm-up), its bound, its plain version and the library call.
+    The kernel's time is the profiler's device time per launch in the bf16
+    prefill (``prefill_per_launch``, same shapes, the model's own inputs)
+    where the profiler saw it, else the event time."""
+    F = torch.nn.functional
+    out = {}
+    case = FA_CASES[0]
+    (q, k, v), kw = fa_inputs(torch, case, torch.bfloat16, 7, dev)
+    _, b, hq, hkv, sq, sk, d, causal, window = case
+    call = lambda: mods.fa_ops.flash_attention(q, k, v, **kw)
+    pairs = fa_visible_pairs(sq, sk, causal, window)
+    out["flash_attention"] = dict(
+        shape=f"(B, Hq, S, D) = ({b}, {hq}, {sq}, {d}) causal bf16",
+        event_ms=cuda_ms(torch, call, 10),
+        device_ms=prefill_per_launch["flash_attention"],
+        plain_ms=cuda_ms(torch, lambda: mods.fa_ops.attention_plain(
+            q, k, v, **kw), 3, warmup=1),
+        # a yardstick only: the port never calls it
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 10),
+        flops=4 * d * pairs * b * hq,
+        bytes=(2 * b * hq * sq + 2 * b * hkv * sk) * d * 2)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    f32_ms = cuda_ms(torch, lambda: mods.fa_ops.flash_attention(
+        qf, kf, vf, **kw), 5)
+    log(f"[time] flash_attention float32 at the same shape: {f32_ms:.4f} ms "
+        f"a wrapper call (cuda events)")
+    del q, k, v, qf, kf, vf
+
+    case = SSD_CASES[0]
+    x, dt, A, Bm, Cm = ssd_inputs(torch, case, torch.bfloat16, 8, dev)
+    _, b, t, h, p, g, n = case
+    call = lambda: mods.ssd_ops.ssd(x, dt, A, Bm, Cm)
+    out["mamba2_ssd"] = dict(
+        shape=f"(B, T, H, P, G, N) = ({b}, {t}, {h}, {p}, {g}, {n}) bf16",
+        event_ms=cuda_ms(torch, call, 20),
+        device_ms=prefill_per_launch["mamba2_ssd"],
+        plain_ms=cuda_ms(torch, lambda: mods.ssd_ops.ssd_plain(
+            x, dt, A, Bm, Cm), 2, warmup=1),
+        library_ms=None,
+        # per (b, t, h): decay * S + B (dt x) and C^T S over N x P, dt x
+        flops=(5 * n * p + p) * b * t * h,
+        bytes=(2 * b * t * h * p + b * t * h + 2 * b * t * g * n) * 2
+        + 4 * h)
+    xf, dtf, Bf, Cf = (a.float() for a in (x, dt, Bm, Cm))
+    f32_ms = cuda_ms(torch, lambda: mods.ssd_ops.ssd(xf, dtf, A, Bf, Cf), 10)
+    log(f"[time] mamba2_ssd float32 at the same shape: {f32_ms:.4f} ms a "
+        f"wrapper call (cuda events)")
+
+    for name, r in out.items():
+        r["ms"] = r["device_ms"] if r["device_ms"] is not None \
+            else r["event_ms"]
+        r["ms_source"] = ("profiler, bf16 prefill"
+                          if r["device_ms"] is not None else "cuda events")
+        t_ops = r["flops"] / BF16_FLOPS_PER_S
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S
+        r["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.6f} ms")
+        log(f"[time] {name} {r['shape']}: kernel {r['ms']:.6f} ms "
+            f"({r['ms_source']}; {r['event_ms']:.6f} ms a wrapper call by "
+            f"cuda events), bound {r['bound_ms']:.6f} ms ({r['bound_by']}: "
+            f"{r['flops']} flop, {r['bytes']} B; "
+            f"{r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s achieved), plain "
+            f"{r['plain_ms']:.6f} ms, library {lib}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-ops", type=int, default=N_OPS,
@@ -486,14 +934,23 @@ def main(argv=None) -> int:
               "script measures the port on a CUDA card", file=sys.stderr)
         return 1
 
+    import numpy as np
+
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.coord.registry import PaxosRegistry
     from repro_torch.core import checkers
     from repro_torch.core import proposer_vector as pv
     from repro_torch.core.node import Machine, ProtocolConfig
     from repro_torch.core.sim import Cluster, NetConfig, completion_tuples, \
         workload
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.paxos_apply import ops as apply_ops
     from repro_torch.kernels.paxos_propose import ops as propose_ops
+    from repro_torch.models import blocks
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import DecodeEngine, ServeConfig
     from repro_torch.serve.paxos import BatchedMachine, cluster_engine
 
     mods = argparse.Namespace(
@@ -501,9 +958,16 @@ def main(argv=None) -> int:
         Cluster=Cluster, NetConfig=NetConfig,
         completion_tuples=completion_tuples, workload=workload,
         apply_ops=apply_ops, propose_ops=propose_ops,
-        BatchedMachine=BatchedMachine, cluster_engine=cluster_engine)
+        BatchedMachine=BatchedMachine, cluster_engine=cluster_engine,
+        np=np, ARCHS=ARCHS, PaxosRegistry=PaxosRegistry, blocks=blocks,
+        build_model=build_model, fa_ops=fa_ops, ssd_ops=ssd_ops,
+        DecodeEngine=DecodeEngine, ServeConfig=ServeConfig)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # float32 products in full float32 (the model checks' tolerances
+    # assume it; these are PyTorch's defaults for matmul, not for cuDNN)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = nvidia_smi_line()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -520,6 +984,11 @@ def main(argv=None) -> int:
     phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
     times = phase_timings(torch, mods, pv, dev, waves_all)
     phase_idle(torch, mods, dev, args.n_ops)
+    fa_ok, ssd_ok = phase_model_kernels(torch, mods, dev)
+    model_launches = phase_zamba2(torch, mods, dev, fa_ok, ssd_ok)
+    prefill = phase_prefill_bf16(torch, mods, dev)
+    times.update(phase_model_timings(torch, mods, dev,
+                                     prefill["per_launch_ms"]))
     torch.cuda.synchronize()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -539,6 +1008,23 @@ def main(argv=None) -> int:
             "max_abs_err": agree.max_abs_err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    model_sources = {
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:34",
+                            "_fa_kernel", fa_ok),
+        "mamba2_ssd": ("src/repro_torch/csrc/mamba2_ssd.cu",
+                       "src/repro/kernels/mamba2_ssd/kernel.py:36",
+                       "_ssd_kernel", ssd_ok)}
+    for name, (src, replaces, fn, agree) in model_sources.items():
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "replaces_function": fn,
+            "launches": model_launches[name],
+            "max_abs_err": agree.max_abs_err,
+            "max_rel_err": agree.max_rel_err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,12 @@ from .types import (
 # and the registry is striped per incarnation (`ProtocolConfig.num_gsess`).
 MAX_INCARNATIONS = 128
 
+# Live reconfiguration's join/leave controller and snapshot catch-up
+# (repro.reconfig) are not ported yet.
+RECONFIG_NOT_PORTED = ("live reconfiguration (join / leave / snapshot "
+                       "catch-up) is not ported to repro_torch yet (ROADMAP, "
+                       "Queue 1 item 1: checkpoint/store.py + reconfig/)")
+
 
 @dataclasses.dataclass
 class ProtocolConfig:
@@ -473,23 +479,15 @@ class Machine:
 
     def _serve_sync(self, dst: int) -> None:
         """Answer a JOIN_REQ with a snapshot of our committed state."""
-        from repro_torch.reconfig.catchup import take_snapshot
-        self.bump("syncs_served")
-        self._send(self.mid, dst,
-                   Msg(MsgKind.SYNC, self.mid, value=self.view.encode(),
-                       epoch=self.view.epoch, blob=take_snapshot(self)))
+        raise NotImplementedError(
+            f"Machine._serve_sync: {RECONFIG_NOT_PORTED}")
 
     def _install_sync(self, msg: Msg) -> None:
         if not self.syncing:
             self.bump("sync_duplicate")
             return
-        from repro_torch.reconfig.catchup import install_snapshot
-        install_snapshot(self, msg.blob)
-        self.syncing = False
-        self.bump("sync_installed")
-        v = View.decode(msg.value)
-        if v is not None:
-            self._install_view(v)    # donor may be ahead of the view we joined
+        raise NotImplementedError(
+            f"Machine._install_sync: {RECONFIG_NOT_PORTED}")
 
     # -- receiver side ---------------------------------------------------------
 

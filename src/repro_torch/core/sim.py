@@ -24,7 +24,9 @@ import itertools
 import random
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from .node import Completion, Machine, ProtocolConfig, ReqKind, Request
+from .node import (
+    RECONFIG_NOT_PORTED, Completion, Machine, ProtocolConfig, ReqKind, Request,
+)
 from .proposer import PauseEvent
 from .types import Msg, MsgKind, RmwOp, View
 
@@ -325,13 +327,11 @@ class Cluster:
     def join(self, mid: Optional[int] = None, *,
              max_ticks: int = 200_000) -> int:
         """Add a machine to the membership via a CP-decided view change."""
-        from repro_torch.reconfig.controller import ReconfigController
-        return ReconfigController(self).join(mid, max_ticks=max_ticks)
+        raise NotImplementedError(f"Cluster.join: {RECONFIG_NOT_PORTED}")
 
     def leave(self, mid: int, *, max_ticks: int = 200_000) -> None:
         """Remove a machine from the membership via a CP view change."""
-        from repro_torch.reconfig.controller import ReconfigController
-        ReconfigController(self).leave(mid, max_ticks=max_ticks)
+        raise NotImplementedError(f"Cluster.leave: {RECONFIG_NOT_PORTED}")
 
     def restart(self, mid: int) -> None:
         """Crash-recover from stable storage.

@@ -30,11 +30,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_F32 = ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 ENTRY_POINTS = {
     "paxos_apply_launch": [_P, _P, _P, _P, _P, _I64, _P],
     "paxos_propose_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+    # q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, window, scale, dtype,
+    # stream
+    "flash_attention_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                               _I64, _I64, _I64, _I64, _F32, _I64, _P],
+    # x, dt, A, B, C, y, batch, T, H, P, G, N, dtype, stream
+    "mamba2_ssd_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                          _I64, _I64, _I64, _P],
 }
+
+# Element type codes the float kernels take (``enum DType`` in
+# ``csrc/flash_attention.cu`` and ``csrc/mamba2_ssd.cu``), by torch dtype
+# name.
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+
+def dtype_code(dtype) -> Optional[int]:
+    """The kernels' code for a torch dtype, None where they take none."""
+    return DTYPE_CODES.get(str(dtype).removeprefix("torch."))
 
 
 class KernelLibrary:

@@ -1,0 +1,2 @@
+"""Flash attention: the CUDA kernel's wrapper and its plain versions
+(:mod:`.ops`)."""

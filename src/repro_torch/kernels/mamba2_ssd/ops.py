@@ -1,0 +1,132 @@
+"""The Mamba2 SSD CUDA kernel's wrapper and its plain versions.
+
+Port of ``repro.kernels.mamba2_ssd.{kernel,ops,ref}``.  Per head h with an
+``[N, P]`` float32 state S (N = state size, P = head dim)::
+
+    a_t = exp(dt_t * A_h)
+    S_t = a_t * S_{t-1} + B_t (dt_t x_t)^T
+    y_t = C_t^T S_t
+
+B and C are shared across head groups: head h reads group ``h // (H/G)``.
+:func:`ssd` dispatches on the device of its inputs: CPU tensors take
+:func:`ssd_plain` (the sequential scan of ``ssd_ref``), CUDA tensors launch
+the kernel of ``csrc/mamba2_ssd.cu`` or raise.  The kernel takes any T (the
+TPU launcher's ``t % chunk`` contract does not apply).  :func:`ssd_decode`
+is one step of the recurrence, plain PyTorch on every device, as the
+reference's ``ssd_decode_ref``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_STATE = 128          # N the kernel takes (8 threads x 16 states)
+
+
+def ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """x: [B,T,H,P]; dt: [B,T,H]; A: [H]; Bm, Cm: [B,T,G,N] -> y [B,T,H,P]
+    in x's dtype, computed in float32 by a sequential scan over T."""
+    b, t, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf = Bm.float().repeat_interleave(rep, dim=2)          # [B,T,H,N]
+    Cf = Cm.float().repeat_interleave(rep, dim=2)
+    S = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(t):
+        decay = torch.exp(dtf[:, i] * Af)                   # [B,H]
+        S = decay[..., None, None] * S + Bf[:, i, :, :, None] * \
+            (dtf[:, i, :, None] * xf[:, i])[:, :, None, :]
+        ys.append((Cf[:, i, :, :, None] * S).sum(-2))       # [B,H,P]
+    if not ys:
+        return torch.empty_like(x)
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_decode(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               Bm: torch.Tensor, Cm: torch.Tensor, state: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step.  x: [B,H,P]; dt: [B,H]; Bm, Cm: [B,G,N];
+    state: [B,H,N,P] -> (y [B,H,P] in x's dtype, new state in the
+    state's dtype)."""
+    b, h, p = x.shape
+    g = Bm.shape[1]
+    rep = h // g
+    xf, dtf = x.float(), dt.float()
+    Bf = Bm.float().repeat_interleave(rep, dim=1)
+    Cf = Cm.float().repeat_interleave(rep, dim=1)
+    sf = state.float()
+    decay = torch.exp(dtf * A.float()[None, :])            # [B,H]
+    new_s = decay[..., None, None] * sf \
+        + Bf[..., :, None] * (dtf[..., None] * xf)[..., None, :]
+    y = (Cf[..., :, None] * new_s).sum(-2)
+    return y.to(x.dtype), new_s.to(state.dtype)
+
+
+def _check(x, dt, A, Bm, Cm) -> None:
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 4:
+        raise ValueError("ssd: expected x [B,T,H,P], dt [B,T,H], A [H], "
+                         "Bm/Cm [B,T,G,N]")
+    b, t, h, _ = x.shape
+    g = Bm.shape[2]
+    if tuple(dt.shape) != (b, t, h) or tuple(A.shape) != (h,) or \
+            Bm.shape != Cm.shape or tuple(Bm.shape[:2]) != (b, t) or \
+            g == 0 or h % g != 0:
+        raise ValueError(f"ssd: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
+                         f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)} do not "
+                         f"match")
+    for name, tn in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
+        if tn.device != x.device:
+            raise ValueError(f"ssd: {name} is on {tn.device}, x on "
+                             f"{x.device}")
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+        Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """Mamba2 SSD token mixing -> y [B,T,H,P] in x's dtype.  CPU:
+    :func:`ssd_plain`; CUDA: the kernel (x, dt, Bm, Cm of one dtype,
+    float32 or bfloat16; A is read as float32)."""
+    _check(x, dt, A, Bm, Cm)
+    dev = x.device
+    if dev.type == "cpu":
+        return ssd_plain(x, dt, A, Bm, Cm)
+    if dev.type != "cuda":
+        raise ValueError(f"ssd: unsupported device {dev}")
+    code = _build.dtype_code(x.dtype)
+    if code is None:
+        raise ValueError(f"ssd: the kernel takes float32 or bfloat16, got "
+                         f"{x.dtype}")
+    for name, tn in (("dt", dt), ("Bm", Bm), ("Cm", Cm)):
+        if tn.dtype != x.dtype:
+            raise ValueError(f"ssd: {name} is {tn.dtype}, x is {x.dtype}")
+    b, t, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"ssd: state size {n} outside the kernel's "
+                         f"1..{MAX_STATE}")
+    x, dt, Bm, Cm = (a.contiguous() for a in (x, dt, Bm, Cm))
+    A32 = A.to(torch.float32).contiguous()
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    lib = _build.build().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mamba2_ssd_launch(
+            x.data_ptr(), dt.data_ptr(), A32.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), b, t, h, p, g, n, code, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd: kernel launch failed with CUDA error "
+                           f"{err}")
+    ssd.launches += 1
+    return y
+
+
+ssd.launches = 0

@@ -1,0 +1,297 @@
+"""Layer blocks: attention (GQA / RoPE / sliding window), MLP and Mamba2.
+
+Port of ``repro.models.blocks``.  Every block is a pair of plain functions
+on tensors::
+
+    init_<block>(cfg, init, lead=())  -> params (a dict of tensors)
+    apply_<block>(cfg, params, x, ...) -> y  (or (y, new_cache))
+
+``lead`` prefixes every parameter's shape (the LM stacks a unit position's
+layers over ``repeats`` that way).  The full-sequence attention goes
+through :func:`repro_torch.kernels.flash_attention.ops.flash_attention` and
+the Mamba2 mixing through :func:`repro_torch.kernels.mamba2_ssd.ops.ssd`:
+on a CUDA tensor they launch the CUDA kernels.  Decode steps stay plain
+PyTorch, as the reference computes them outside Pallas.  There are no
+sharding annotations.  MoE and RWKV6 blocks are not ported yet (ROADMAP,
+Queue 1 item 6); M-RoPE waits for the VLM slice.
+
+Decode caches are updated in place where that saves a copy of the whole
+cache: :func:`apply_attention_decode` writes the new key and value into the
+cache tensors it is given and returns them with ``length + 1``;
+:func:`apply_mamba2_decode` returns new (small) tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import (
+    decode_attention, flash_attention,
+)
+from repro_torch.kernels.mamba2_ssd.ops import ssd, ssd_decode
+from .common import Init, apply_rope, rms_norm
+from .config import ModelConfig
+
+NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP, Queue 1 item 6: "
+              "the model-zoo scaffold)")
+
+CacheSpec = Tuple[Tuple[int, ...], torch.dtype]     # (shape, dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with JAX's dtype promotion (torch.matmul wants one dtype)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def norm_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layer":
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+        return y.to(x.dtype) * p["scale"] + p["bias"]
+    return rms_norm(x, p["scale"])
+
+
+def init_norm(cfg: ModelConfig, init: Init, d: Optional[int] = None,
+              lead: Sequence[int] = ()):
+    d = d or cfg.d_model
+    lead = tuple(lead)
+    if cfg.norm == "layer":
+        return {"scale": init.ones(lead + (d,)),
+                "bias": init.zeros(lead + (d,))}
+    return {"scale": init.ones(lead + (d,))}
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg: ModelConfig, init: Init, lead: Sequence[int] = ()):
+    """Projections stay 3-D, as the reference stores them: ``wq/wk/wv``
+    ``[d, H, hd]``, ``wo`` ``[H, hd, d]``."""
+    d, hd = cfg.d_model, cfg.hd
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    lead = tuple(lead)
+    p = dict(
+        wq=init.normal(lead + (d, hq, hd)),
+        wk=init.normal(lead + (d, hkv, hd)),
+        wv=init.normal(lead + (d, hkv, hd)),
+        wo=init.normal(lead + (hq, hd, d)),
+        norm=init_norm(cfg, init, lead=lead),
+    )
+    if cfg.qkv_bias:
+        p.update(bq=init.zeros(lead + (hq, hd)),
+                 bk=init.zeros(lead + (hkv, hd)),
+                 bv=init.zeros(lead + (hkv, hd)))
+    return p
+
+
+def _qkv(cfg: ModelConfig, p, x: torch.Tensor):
+    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + p["bq"][None, :, None, :]
+        k = k + p["bk"][None, :, None, :]
+        v = v + p["bv"][None, :, None, :]
+    return q, k, v
+
+
+def _rope_qk(cfg: ModelConfig, q, k, positions):
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def apply_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
+                    window: Optional[int] = None):
+    """Full-sequence causal self-attention (prefill).  The encoder's
+    non-causal and cross-attention forms come with whisper."""
+    h = norm_apply(cfg, p["norm"], x)
+    q, k, v = _qkv(cfg, p, h)
+    q, k = _rope_qk(cfg, q, k, positions)
+    o = flash_attention(q, k, v, causal=True, window=window)
+    out = torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(o.dtype))
+    return x + out
+
+
+def apply_attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
+                           cache: Dict[str, torch.Tensor], *,
+                           window: Optional[int] = None):
+    """One-token decode step.  x: [B, 1, d]; cache: dict(k, v, length)
+    with ``length`` a scalar int32 tensor (tokens so far, the whole batch).
+
+    Window layers keep a ring buffer of ``smax`` slots (``slot = length %
+    smax``); attention is order-free and RoPE is applied before caching.
+    Other layers write slot ``length``, clamped to the last slot as the
+    reference's ``dynamic_update_slice`` clamps it.
+    """
+    b = x.shape[0]
+    h = norm_apply(cfg, p["norm"], x)
+    q, k, v = _qkv(cfg, p, h)                    # [B, H, 1, hd]
+    length = cache["length"]
+    positions = length.to(torch.int32).expand(b, 1)
+    q, k = _rope_qk(cfg, q, k, positions)
+    ck, cv = cache["k"], cache["v"]
+    smax = ck.shape[2]
+    slot = length % smax if window is not None else length.clamp(max=smax - 1)
+    slot = slot.reshape(1).long()
+    ck.index_copy_(2, slot, k.to(ck.dtype))
+    cv.index_copy_(2, slot, v.to(cv.dtype))
+    valid = torch.minimum(length + 1, torch.full_like(length, smax))
+    o = decode_attention(q[:, :, 0], ck, cv, valid.expand(b))  # [B, H, hd]
+    out = torch.einsum("bhk,hkd->bd", o, p["wo"].to(o.dtype))[:, None]
+    return x + out, {"k": ck, "v": cv, "length": length + 1}
+
+
+def attn_cache_spec(cfg: ModelConfig, b: int, s: int,
+                    window: Optional[int] = None,
+                    dtype: torch.dtype = torch.bfloat16
+                    ) -> Dict[str, CacheSpec]:
+    smax = min(s, window) if window else s
+    shape = (b, cfg.n_kv_heads, smax, cfg.hd)
+    return {"k": (shape, dtype), "v": (shape, dtype),
+            "length": ((), torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP (SwiGLU / GeGLU / GELU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg: ModelConfig, init: Init, d_ff: Optional[int] = None,
+             lead: Sequence[int] = ()):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    lead = tuple(lead)
+    p = dict(w_up=init.normal(lead + (d, f)),
+             w_down=init.normal(lead + (f, d)),
+             norm=init_norm(cfg, init, lead=lead))
+    if cfg.act in ("silu", "geglu"):
+        p["w_gate"] = init.normal(lead + (d, f))
+    return p
+
+
+def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    h = norm_apply(cfg, p["norm"], x)
+    up = _mm(h, p["w_up"])
+    if cfg.act == "silu":          # SwiGLU
+        up = F.silu(_mm(h, p["w_gate"])) * up
+    elif cfg.act == "geglu":       # gemma GeGLU
+        up = _gelu(_mm(h, p["w_gate"])) * up
+    else:                          # plain GELU (whisper)
+        up = _gelu(up)
+    return x + _mm(up, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (zamba2 backbone)
+# ---------------------------------------------------------------------------
+
+def init_mamba2(cfg: ModelConfig, init: Init, lead: Sequence[int] = ()):
+    d, h = cfg.d_model, cfg.ssm_heads
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    inner = h * cfg.ssm_head_dim
+    lead = tuple(lead)
+    return dict(
+        w_in=init.normal(lead + (d, 2 * inner + 2 * g * n + h)),
+        conv_w=init.normal(lead + (cfg.conv_kernel, inner + 2 * g * n)),
+        A_log=init.zeros(lead + (h,)),
+        D=init.ones(lead + (h,)),
+        dt_bias=init.zeros(lead + (h,)),
+        norm=init_norm(cfg, init, lead=lead),
+        gate_norm=init_norm(cfg, init, inner, lead=lead),
+        w_out=init.normal(lead + (inner, d)),
+    )
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x: [B, S, C]; w: [K, C].
+
+    Returns (y, new_state) where state is the last K-1 inputs."""
+    k = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    dt = torch.promote_types(state.dtype, x.dtype)
+    xp = torch.cat([state.to(dt), x.to(dt)], dim=1)
+    ys = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
+    return ys, xp[:, -(k - 1):]
+
+
+def _mamba_split(cfg: ModelConfig, p, x: torch.Tensor):
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    inner = cfg.ssm_heads * cfg.ssm_head_dim
+    zxbcdt = _mm(x, p["w_in"])
+    return torch.split(zxbcdt, [inner, inner, g * n, g * n, cfg.ssm_heads],
+                       dim=-1)
+
+
+def apply_mamba2(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    h_heads, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
+    p_dim = cfg.ssm_head_dim
+    hidden = norm_apply(cfg, p["norm"], x)
+    z, xc, Bc, Cc, dt = _mamba_split(cfg, p, hidden)
+    conv_in = torch.cat([xc, Bc, Cc], -1)
+    conv_out, _ = _causal_conv(conv_in, p["conv_w"])
+    conv_out = F.silu(conv_out)
+    xc, Bc, Cc = torch.split(conv_out, [xc.shape[-1], Bc.shape[-1],
+                                        Cc.shape[-1]], dim=-1)
+    xh = xc.reshape(b, s, h_heads, p_dim)
+    Bm = Bc.reshape(b, s, g, n)
+    Cm = Cc.reshape(b, s, g, n)
+    dt = _softplus(dt + p["dt_bias"])                       # [B,S,H]
+    A = -torch.exp(p["A_log"].float())
+    y = ssd(xh, dt, A, Bm, Cm)                              # [B,S,H,P]
+    y = y + p["D"][None, None, :, None] * xh
+    y = y.reshape(b, s, h_heads * p_dim)
+    y = rms_norm(y * F.silu(z), p["gate_norm"]["scale"])
+    return x + _mm(y, p["w_out"])
+
+
+def apply_mamba2_decode(cfg: ModelConfig, p, x: torch.Tensor,
+                        cache: Dict[str, torch.Tensor]):
+    """x: [B, 1, d]; cache: dict(conv [B,K-1,C], ssm [B,H,N,P])."""
+    b = x.shape[0]
+    h_heads, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
+    p_dim = cfg.ssm_head_dim
+    hidden = norm_apply(cfg, p["norm"], x)
+    z, xc, Bc, Cc, dt = _mamba_split(cfg, p, hidden)
+    conv_in = torch.cat([xc, Bc, Cc], -1)
+    conv_out, conv_state = _causal_conv(conv_in, p["conv_w"], cache["conv"])
+    conv_out = F.silu(conv_out)
+    xc, Bc, Cc = torch.split(conv_out, [xc.shape[-1], Bc.shape[-1],
+                                        Cc.shape[-1]], dim=-1)
+    dt = _softplus(dt + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    y, ssm = ssd_decode(xc.reshape(b, h_heads, p_dim),
+                        dt.reshape(b, h_heads), A,
+                        Bc.reshape(b, g, n), Cc.reshape(b, g, n),
+                        cache["ssm"])
+    y = y + p["D"][None, :, None] * xc.reshape(b, h_heads, p_dim)
+    y = y.reshape(b, 1, h_heads * p_dim)
+    y = rms_norm(y * F.silu(z), p["gate_norm"]["scale"])
+    return x + _mm(y, p["w_out"]), {"conv": conv_state, "ssm": ssm}
+
+
+def mamba_cache_spec(cfg: ModelConfig, b: int,
+                     dtype: torch.dtype = torch.bfloat16
+                     ) -> Dict[str, CacheSpec]:
+    h, p_dim = cfg.ssm_heads, cfg.ssm_head_dim
+    c = h * p_dim + 2 * cfg.ssm_groups * cfg.ssm_state
+    return {"conv": ((b, cfg.conv_kernel - 1, c), dtype),
+            "ssm": ((b, h, cfg.ssm_state, p_dim), torch.float32)}

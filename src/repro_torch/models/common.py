@@ -1,0 +1,90 @@
+"""Shared model primitives: norms, RoPE, positions and parameter init.
+
+Port of ``repro.models.common``.  Parameters are plain nested dicts of
+tensors with the reference's keys and layouts; there are no sharding specs.
+The init helpers draw from an explicit ``torch.Generator`` (normal with
+std 0.02, zeros, ones).  M-RoPE (``apply_mrope``) is not ported yet: it
+comes with the VLM slice (ROADMAP, Queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+Params = Dict[str, Any]
+
+
+class Init:
+    """Draws parameters of one dtype on one device from ``generator``.
+
+    On the ``meta`` device nothing is drawn: the helpers return tensors
+    that carry only shapes and dtypes (used to check converted weights).
+    """
+
+    def __init__(self, generator: Optional[torch.Generator],
+                 dtype: torch.dtype, device: torch.device):
+        self.generator = generator
+        self.dtype = dtype
+        self.device = torch.device(device)
+
+    def normal(self, shape: Sequence[int], *, std: float = 0.02
+               ) -> torch.Tensor:
+        if self.device.type == "meta":
+            return torch.empty(tuple(shape), dtype=self.dtype,
+                               device=self.device)
+        t = torch.randn(tuple(shape), generator=self.generator,
+                        device=self.device, dtype=torch.float32)
+        return t.mul_(std).to(self.dtype)
+
+    def zeros(self, shape: Sequence[int]) -> torch.Tensor:
+        return torch.zeros(tuple(shape), dtype=self.dtype,
+                           device=self.device)
+
+    def ones(self, shape: Sequence[int]) -> torch.Tensor:
+        return torch.ones(tuple(shape), dtype=self.dtype, device=self.device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm: the variance reduction in float32, the multiply in x's
+    dtype (``inv`` is cast to x's dtype first, as the reference does)."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * scale
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: [B, H, S, D]; positions: [B, S] int.  Angles in float32, cast to
+    x's dtype before the rotation."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                      # [D/2]
+    ang = positions[:, None, :, None].float() * freqs           # [B,1,S,D/2]
+    cos = torch.cos(ang).to(x.dtype)
+    sin = torch.sin(ang).to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+
+def default_positions(b: int, s: int, offset=0,
+                      device: Optional[torch.device] = None) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None, :] + \
+        offset + torch.zeros((b, 1), dtype=torch.int32, device=device)

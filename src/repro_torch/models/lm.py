@@ -1,0 +1,299 @@
+"""Decoder-only LM: dense / GQA / gemma local:global / Mamba2 hybrid
+(zamba2).
+
+Port of ``repro.models.lm``.  The layer stack is ``repeats`` x ``unit``
+(+ tail), where ``unit`` is the repeating pattern (gemma3: 5 local + 1
+global; zamba2: 6 Mamba2 layers).  Each unit position's parameters are
+stacked over ``repeats`` (the reference's layout, so converted weights
+compare leaf for leaf); the reference's ``lax.scan`` over ``repeats``
+becomes a Python loop.  Zamba2's *shared* attention block (the same
+weights every unit) runs after each unit, and its per-invocation KV caches
+are stacked over ``repeats``.
+
+Entry points::
+
+    init(generator, dtype, device)     -> params
+    prefill(params, tokens)            -> last-position logits [B, vocab]
+    decode_step(params, caches, tokens) -> (logits [B, vocab], caches)
+
+On a CUDA device ``prefill`` runs the flash-attention and Mamba2 SSD CUDA
+kernels; ``decode_step`` is plain PyTorch (one token against the caches).
+MoE, RWKV6 and M-RoPE layers raise ``NotImplementedError`` (ROADMAP,
+Queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Union
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from .blocks import (
+    NOT_PORTED, apply_attention, apply_attention_decode, apply_mamba2,
+    apply_mamba2_decode, apply_mlp, attn_cache_spec, init_attention,
+    init_mamba2, init_mlp, init_norm, mamba_cache_spec, norm_apply,
+)
+from .common import Init, default_positions
+from .config import ModelConfig
+
+ATTN_KINDS = ("attn", "swa", "local", "global")
+
+
+def derive_unit(cfg: ModelConfig) -> List[str]:
+    if cfg.family == "ssm":
+        return ["rwkv"]
+    if cfg.family == "hybrid":
+        return ["mamba"] * max(cfg.shared_attn_every, 1)
+    if cfg.local_ratio:
+        return ["local"] * cfg.local_ratio + ["global"]
+    if cfg.n_experts:
+        return ["moe_swa" if cfg.window else "moe"]
+    return ["swa" if cfg.window else "attn"]
+
+
+def _layer_kinds(cfg: ModelConfig):
+    unit = derive_unit(cfg)
+    repeats = cfg.n_layers // len(unit)
+    tail = cfg.n_layers - repeats * len(unit)
+    return unit, repeats, unit[:tail]
+
+
+def _not_ported(kind: str):
+    return NotImplementedError(f"layer kind {kind!r} {NOT_PORTED}")
+
+
+def _init_layer(cfg: ModelConfig, kind: str, init: Init, lead=()):
+    if kind in ATTN_KINDS:
+        return {"attn": init_attention(cfg, init, lead),
+                "mlp": init_mlp(cfg, init, lead=lead)}
+    if kind == "mamba":
+        return init_mamba2(cfg, init, lead)
+    raise _not_ported(kind)
+
+
+def _kind_window(cfg: ModelConfig, kind: str) -> Optional[int]:
+    if kind in ("swa", "local"):
+        return cfg.window
+    return None
+
+
+def _apply_layer(cfg, kind, p, x, *, positions):
+    if kind in ATTN_KINDS:
+        x = apply_attention(cfg, p["attn"], x, positions=positions,
+                            window=_kind_window(cfg, kind))
+        return apply_mlp(cfg, p["mlp"], x)
+    if kind == "mamba":
+        return apply_mamba2(cfg, p, x)
+    raise _not_ported(kind)
+
+
+def _apply_layer_decode(cfg, kind, p, x, cache):
+    if kind in ATTN_KINDS:
+        x, new = apply_attention_decode(cfg, p["attn"], x, cache,
+                                        window=_kind_window(cfg, kind))
+        return apply_mlp(cfg, p["mlp"], x), new
+    if kind == "mamba":
+        return apply_mamba2_decode(cfg, p, x, cache)
+    raise _not_ported(kind)
+
+
+def _layer_cache_spec(cfg, kind, b, s, dtype):
+    if kind in ("attn", "global"):
+        return attn_cache_spec(cfg, b, s, None, dtype)
+    if kind in ("swa", "local"):
+        return attn_cache_spec(cfg, b, s, cfg.window, dtype)
+    if kind == "mamba":
+        return mamba_cache_spec(cfg, b, dtype)
+    raise _not_ported(kind)
+
+
+def _index(tree, r: int):
+    """The ``r``-th slice of every tensor of a tree stacked over repeats
+    (views, so in-place cache writes land in the stack)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _restack(old, trees):
+    """Inverse of :func:`_index` over a list of per-repeat trees: a leaf
+    whose every slice is still a view of ``old``'s (written in place) keeps
+    ``old``'s tensor; the others are stacked anew."""
+    if not trees:
+        return old
+    if isinstance(old, dict):
+        return {k: _restack(old[k], [t[k] for t in trees]) for k in old}
+    if all(t.data_ptr() == old[r].data_ptr() and t.shape == old[r].shape
+           for r, t in enumerate(trees)):
+        return old
+    return torch.stack(trees)
+
+
+def _zeros(spec, lead, device):
+    if isinstance(spec, dict):
+        return {k: _zeros(v, lead, device) for k, v in spec.items()}
+    shape, dtype = spec
+    return torch.zeros(tuple(lead) + tuple(shape), dtype=dtype,
+                       device=device)
+
+
+class LM:
+    """Functional model object: init / logits / prefill / decode_step."""
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family == "encdec":
+            raise NotImplementedError(f"the encoder-decoder family "
+                                      f"(whisper) {NOT_PORTED}")
+        self.cfg = cfg
+        self.unit, self.repeats, self.tail = _layer_kinds(cfg)
+        for kind in self.unit:
+            if kind not in ATTN_KINDS and kind != "mamba":
+                raise _not_ported(kind)
+
+    # -- init ----------------------------------------------------------------
+
+    def init(self, generator: Union[None, int, torch.Generator] = None,
+             dtype: torch.dtype = torch.float32,
+             device: DeviceLike = None) -> Dict[str, Any]:
+        """Random parameters (normal std 0.02 / zeros / ones, as the
+        reference draws them) from ``generator``: a ``torch.Generator`` on
+        ``device``, or an int seed (``None`` = 0).  ``device=None`` means
+        ``"cuda"``."""
+        dev = resolve_device(device)
+        return self._init(generator, dtype, dev)
+
+    def _init(self, generator, dtype, dev: torch.device):
+        if dev.type != "meta" and not isinstance(generator, torch.Generator):
+            generator = torch.Generator(device=dev).manual_seed(
+                0 if generator is None else int(generator))
+        cfg = self.cfg
+        init = Init(generator, dtype, dev)
+        params: Dict[str, Any] = {
+            "embed": init.normal((cfg.vocab, cfg.d_model))}
+        if not cfg.tie_embeddings:
+            params["unembed"] = init.normal((cfg.d_model, cfg.vocab))
+        params["final_norm"] = init_norm(cfg, init)
+        params["units"] = tuple(
+            _init_layer(cfg, kind, init, lead=(self.repeats,))
+            for kind in self.unit)
+        if self.tail:
+            params["tail"] = tuple(_init_layer(cfg, kind, init)
+                                   for kind in self.tail)
+        if cfg.family == "hybrid":
+            params["shared_attn"] = {"attn": init_attention(cfg, init),
+                                     "mlp": init_mlp(cfg, init)}
+        return params
+
+    def param_shapes(self, dtype: torch.dtype = torch.float32):
+        """The parameter tree on the ``meta`` device: shapes and dtypes
+        only, nothing allocated."""
+        return self._init(None, dtype, torch.device("meta"))
+
+    # -- forward (prefill) ---------------------------------------------------
+
+    def _backbone(self, params, x, positions):
+        cfg = self.cfg
+        shared = params.get("shared_attn")
+        for r in range(self.repeats):
+            for i, kind in enumerate(self.unit):
+                x = _apply_layer(cfg, kind, _index(params["units"][i], r), x,
+                                 positions=positions)
+            if shared is not None:
+                x = apply_attention(cfg, shared["attn"], x,
+                                    positions=positions)
+                x = apply_mlp(cfg, shared["mlp"], x)
+        for i, kind in enumerate(self.tail):
+            x = _apply_layer(cfg, kind, params["tail"][i], x,
+                             positions=positions)
+        return x
+
+    def _embed(self, params, tokens):
+        return params["embed"][tokens.long()] * 1.0
+
+    def logits(self, params, x):
+        cfg = self.cfg
+        h = norm_apply(cfg, params["final_norm"], x)
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        return (h @ w.to(h.dtype)).float()
+
+    def prefill(self, params, tokens: torch.Tensor, vision_embeds=None,
+                mrope_positions=None) -> torch.Tensor:
+        """Full-sequence forward of ``tokens`` [B, S]; returns the
+        last-position logits [B, vocab] in float32."""
+        if vision_embeds is not None or mrope_positions is not None:
+            raise NotImplementedError(f"VLM inputs {NOT_PORTED}")
+        x = self._embed(params, tokens)
+        b, s, _ = x.shape
+        positions = default_positions(b, s, device=x.device)
+        x = self._backbone(params, x, positions)
+        return self.logits(params, x[:, -1:])[:, 0]
+
+    # -- serving -------------------------------------------------------------
+
+    def cache_specs(self, b: int, s: int, dtype: torch.dtype = torch.bfloat16):
+        """The cache tree as ``(shape, dtype)`` leaves: per unit position
+        stacked over ``repeats``, the tail, and zamba2's shared-block
+        caches (stacked over ``repeats``)."""
+        def stacked(spec):
+            if isinstance(spec, dict):
+                return {k: stacked(v) for k, v in spec.items()}
+            shape, dt = spec
+            return ((self.repeats,) + tuple(shape), dt)
+
+        out: Dict[str, Any] = {"units": tuple(
+            stacked(_layer_cache_spec(self.cfg, kind, b, s, dtype))
+            for kind in self.unit)}
+        if self.tail:
+            out["tail"] = tuple(_layer_cache_spec(self.cfg, k, b, s, dtype)
+                                for k in self.tail)
+        if self.cfg.family == "hybrid":
+            out["shared"] = stacked(attn_cache_spec(self.cfg, b, s, None,
+                                                    dtype))
+        return out
+
+    def init_cache(self, b: int, s: int, dtype: torch.dtype = torch.bfloat16,
+                   device: DeviceLike = None):
+        dev = resolve_device(device)
+        specs = self.cache_specs(b, s, dtype)
+        out = {"units": tuple(_zeros(u, (), dev) for u in specs["units"])}
+        if "tail" in specs:
+            out["tail"] = tuple(_zeros(t, (), dev) for t in specs["tail"])
+        if "shared" in specs:
+            out["shared"] = _zeros(specs["shared"], (), dev)
+        return out
+
+    def decode_step(self, params, caches, tokens: torch.Tensor):
+        """tokens: [B, 1] -> (logits [B, vocab] float32, new caches).
+
+        Attention caches are written in place (see
+        :mod:`repro_torch.models.blocks`); the returned tree holds them
+        with advanced lengths and the new Mamba2 states."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        shared = params.get("shared_attn")
+        unit_new: List[List[Any]] = [[] for _ in self.unit]
+        shared_new = []
+        for r in range(self.repeats):
+            for i, kind in enumerate(self.unit):
+                x, nc = _apply_layer_decode(
+                    cfg, kind, _index(params["units"][i], r), x,
+                    _index(caches["units"][i], r))
+                unit_new[i].append(nc)
+            if shared is not None:
+                x, nc = apply_attention_decode(
+                    cfg, shared["attn"], x, _index(caches["shared"], r))
+                x = apply_mlp(cfg, shared["mlp"], x)
+                shared_new.append(nc)
+        new: Dict[str, Any] = {"units": tuple(
+            _restack(old, u) for old, u in zip(caches["units"], unit_new))}
+        if self.tail:
+            tails = []
+            for i, kind in enumerate(self.tail):
+                x, nc = _apply_layer_decode(cfg, kind, params["tail"][i], x,
+                                            caches["tail"][i])
+                tails.append(nc)
+            new["tail"] = tuple(tails)
+        if shared is not None:
+            new["shared"] = _restack(caches["shared"], shared_new)
+        return self.logits(params, x)[:, 0], new

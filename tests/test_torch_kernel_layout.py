@@ -7,14 +7,17 @@ against the ``_fields`` order of the six plane sets and the values of the
 protocol enums.
 """
 
+import ctypes
 import pathlib
 import re
 
 import pytest
+import torch
 
 from repro_torch.core import proposer_vector, vector
 from repro_torch.core.proposer import ABD_PAUSED, AbdPhase, Decision, Phase
 from repro_torch.core.types import KVState, MsgKind, Rep
+from repro_torch.kernels import _build
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
     / "csrc"
@@ -107,3 +110,58 @@ def test_reply_kind_table_matches_python():
     want = {name: "MK_" + vector.REPLY_KIND[code].name
             for name, code in LANE_KINDS.items() if code != vector.NOOP}
     assert arms == want
+
+
+# ---------------------------------------------------------------------------
+# C entry points and element-type codes of the float kernels
+# ---------------------------------------------------------------------------
+
+_EXTERN = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\((.*?)\)\s*\{', re.S)
+
+
+def _c_entry_points():
+    """``{name: [argument types as 'ptr' / 'i64' / 'f32']}`` of every
+    ``extern "C"`` function in ``csrc/*.cu``."""
+    out = {}
+    for path in sorted(CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", path.read_text())
+        for name, args in _EXTERN.findall(text):
+            kinds = []
+            for arg in args.split(","):
+                arg = " ".join(arg.split())
+                if "*" in arg:
+                    kinds.append("ptr")
+                elif arg.startswith("int64_t"):
+                    kinds.append("i64")
+                elif arg.startswith("float"):
+                    kinds.append("f32")
+                else:
+                    kinds.append(arg)
+            out[name] = kinds
+    return out
+
+
+C_ENTRY_POINTS = _c_entry_points()
+_CTYPE_KIND = {ctypes.c_void_p: "ptr", ctypes.c_int64: "i64",
+               ctypes.c_float: "f32"}
+
+
+@pytest.mark.parametrize("name", sorted(_build.ENTRY_POINTS))
+def test_entry_point_signature_matches_build(name):
+    assert name in C_ENTRY_POINTS, f"no extern \"C\" {name} in csrc/"
+    want = [_CTYPE_KIND[t] for t in _build.ENTRY_POINTS[name]]
+    assert C_ENTRY_POINTS[name] == want
+
+
+def test_every_c_entry_point_is_bound():
+    assert set(C_ENTRY_POINTS) == set(_build.ENTRY_POINTS)
+
+
+@pytest.mark.parametrize("stem", ["flash_attention", "mamba2_ssd"])
+def test_dtype_codes_match_the_wrappers(stem):
+    members = dict(ENUMS[(stem, "DType")])
+    assert members == {"DT_F32": _build.dtype_code(torch.float32),
+                       "DT_BF16": _build.dtype_code(torch.bfloat16)}
+    assert _build.dtype_code(torch.float16) is None
+    ops_src = (CSRC.parent / "kernels" / stem / "ops.py").read_text()
+    assert "_build.dtype_code(" in ops_src
