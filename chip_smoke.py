@@ -7,9 +7,10 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 Phases (any failure exits nonzero and prints no result):
 
-1. **Build** the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   call) and print the build time, ptxas' register/spill report and the
-   card's name and power limit.
+1. **Build** the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc
+   -c`` per source, all started together, then one link) and print the
+   build time, ptxas' register/spill report per kernel and the card's
+   name and power limit.
 2. **Kernel vs plain** on random planes made from a seed on the card:
    ``paxos_apply`` at 5 x 2^20 lanes and at ragged lane counts,
    ``paxos_propose`` at 5 x 800 lanes and ragged counts, idle lanes and
@@ -29,25 +30,32 @@ Phases (any failure exits nonzero and prints no result):
 5. **Float kernels vs plain** on unit-normal inputs made on the card:
    ``flash_attention`` at zamba2's, gemma3's local, qwen1.5's ragged,
    Sq < Sk, non-causal and MQA shapes, ``mamba2_ssd`` at zamba2's layer,
-   ragged T and G = 2, each in float32 and bfloat16.
+   ragged T and G = 2, ``rwkv6_wkv`` at rwkv6-7b's prefill and the smoke
+   config's heads, ragged T, ragged V and B = 2 (decays exp(-exp(x)), x
+   uniform on [-6, 1]), each in float32 and bfloat16.
 6. **Full-width zamba2-7b** (81 layers, d_model 3584, float32 weights from
    a seeded ``torch.Generator`` on the card): one prefill of 2 x 128
-   tokens, the main path of both float kernels (their counts set to 0 just
-   before it and read just after: 13 and 81), held against the
-   teacher-forced ``decode_step`` loop over the same tokens (same top-1,
-   max logit error <= 1e-3 of max |logit|); a sample of its kernel calls
-   replayed through the plain versions; then ``DecodeEngine`` routes 4
-   sessions through ``PaxosRegistry(n_machines=5)`` over ``BatchedMachine``
-   (sticky across two engines) and generates 32 steps.
-7. **bf16 prefill** at 1 x 4096 tokens (cut from the dry-run's
-   ``prefill_32k``, batch 32): wall time and one ``torch.profiler`` pass.
-8. **Timings** of both float kernels at the prefill shape, their bounds,
-   plain versions and, for attention, one
-   ``scaled_dot_product_attention`` call (a yardstick the port never
-   calls).
+   tokens, the main path of its float kernels (their counts set to 0 just
+   before it and read just after: 13 flash attention, 81 SSD), held
+   against the teacher-forced ``decode_step`` loop over the same tokens
+   (same top-1, max logit error <= 1e-3 of max |logit|); a sample of its
+   kernel calls replayed through the plain versions; then ``DecodeEngine``
+   routes 4 sessions through ``PaxosRegistry(n_machines=5)`` over
+   ``BatchedMachine`` (sticky across two engines) and generates 32 steps.
+7. **bf16 zamba2-7b prefill** at 1 x 4096 tokens (cut from the dry-run's
+   ``prefill_32k``, batch 32): wall time, peak memory and one
+   ``torch.profiler`` pass.
+8. **Full-width rwkv6-7b** (32 layers, d_model 4096, 7.5e9 float32
+   weights, drawn after zamba2's are freed): phase 6 again, with 32
+   ``rwkv6_wkv`` launches in the prefill.
+9. **bf16 rwkv6-7b prefill** at 1 x 4096 tokens, as phase 7.
+10. **Timings** of the three float kernels at their prefill shapes, their
+    bounds, plain versions and, for attention, one
+    ``scaled_dot_product_attention`` call (a yardstick the port never
+    calls).
 
 The last three lines of standard output are the ``nvidia-smi`` name and
-power limit, one JSON object describing the four kernels, and
+power limit, one JSON object describing the five kernels, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -172,9 +180,12 @@ def phase_build(build):
     lib = build.build()
     log(f"[build] nvcc {lib.build_seconds:.2f} s -> "
         f"{lib.path.relative_to(ROOT)}")
+    kernel = "?"
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            log(f"[build] {kernel[:60]}: {line.strip()}")
     return lib
 
 
@@ -490,19 +501,21 @@ def phase_timings(torch, mods, pv, dev, waves_all):
 
 
 # ---------------------------------------------------------------------------
-# the model-serving path: flash attention and Mamba2 SSD
+# the model-serving path: flash attention, Mamba2 SSD and RWKV6 WKV
 # ---------------------------------------------------------------------------
 
 # H100 SXM peaks used for the float kernels' bounds (NVIDIA data sheet):
-# dense bf16 tensor-core rate, and the HBM3 rate above.
+# dense bf16 tensor-core rate, the float32 rate of the CUDA cores, and the
+# HBM3 rate above.
 BF16_FLOPS_PER_S = 989e12
+F32_CUDA_CORE_FLOPS_PER_S = 67e12
 
 # kernel vs plain tolerance over unit-normal inputs.  Attention: every
 # element within atol + rtol * |plain| with atol = rtol = the figure, as
 # tests/test_kernels_attention.py:35 holds bf16 (the plain version rounds
 # the probabilities to bf16 before the value product, the kernel does not:
-# one bf16 ulp of an output above 4 is 0.031).  The SSD, and the recorded
-# calls of the model, against max |plain output|.
+# one bf16 ulp of an output above 4 is 0.031).  The SSD, the WKV, and the
+# recorded calls of the models, against max |plain output|.
 FLOAT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 # (label, B, Hq, Hkv, Sq, Sk, D, causal, window)
@@ -523,10 +536,28 @@ SSD_CASES = [
     ("T=1000", 1, 1000, 112, 64, 1, 64),
     ("G=2", 1, 512, 16, 64, 2, 64),
 ]
+# (label, B, H, T, K, V)
+WKV_CASES = [
+    ("rwkv6-7b prefill", 1, 64, 4096, 64, 64),
+    ("smoke config", 2, 4, 37, 32, 32),
+    ("T=1", 1, 64, 1, 64, 64),
+    ("T=127", 1, 64, 127, 64, 64),
+    ("T=1000", 1, 64, 1000, 64, 64),
+    ("ragged V", 1, 64, 300, 64, 48),
+    ("B=2", 2, 64, 256, 64, 64),
+]
 ZAMBA = "zamba2-7b"
+RWKV = "rwkv6-7b"
 PROMPT_LEN, PROMPT_BATCH = 128, 2
 GEN_SESSIONS, GEN_STEPS = 4, 32
 PREFILL_SEQ = 4096
+# the float kernels: the ops module's attribute in ``mods``, the name under
+# which both the ops module and models/blocks.py hold the wrapper, and the
+# plain version's name in the ops module
+FLOAT_KERNELS = {
+    "flash_attention": ("fa_ops", "flash_attention", "attention_plain"),
+    "mamba2_ssd": ("ssd_ops", "ssd", "ssd_plain"),
+    "rwkv6_wkv": ("wkv_ops", "wkv6", "wkv6_plain")}
 
 
 class FloatAgreement:
@@ -584,8 +615,22 @@ def ssd_inputs(torch, case, dtype, seed, dev):
     return x, dt, A, Bm, Cm
 
 
+def wkv_inputs(torch, case, dtype, seed, dev):
+    """Unit-normal r, k, v, u; decays exp(-exp(x)) with x uniform on
+    [-6, 1] (0.066 .. 0.9975: near 1 the state carries farthest)."""
+    _, b, h, t, k, v = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.randn((b, h, t, k), generator=g, device=dev).to(dtype)
+    kk = torch.randn((b, h, t, k), generator=g, device=dev).to(dtype)
+    vv = torch.randn((b, h, t, v), generator=g, device=dev).to(dtype)
+    x = torch.rand((b, h, t, k), generator=g, device=dev) * 7.0 - 6.0
+    w = torch.exp(-torch.exp(x)).to(dtype)
+    u = torch.randn((h, k), generator=g, device=dev)
+    return r, kk, vv, w, u
+
+
 def phase_model_kernels(torch, mods, dev):
-    fa_ok, ssd_ok = FloatAgreement(), FloatAgreement()
+    agree = {name: FloatAgreement() for name in FLOAT_KERNELS}
     for i, case in enumerate(FA_CASES):
         for dname in ("float32", "bfloat16"):
             args, kw = fa_inputs(torch, case, _dtype(torch, dname), 300 + i,
@@ -593,9 +638,10 @@ def phase_model_kernels(torch, mods, dev):
             got = mods.fa_ops.flash_attention(*args, **kw)
             want = mods.fa_ops.attention_plain(*args, **kw)
             torch.cuda.synchronize()
-            fa_ok.add(got, want, FLOAT_TOL[dname],
-                      f"flash_attention {case[0]} {tuple(case[1:7])} "
-                      f"causal={case[7]} window={case[8]} {dname}")
+            agree["flash_attention"].add(
+                got, want, FLOAT_TOL[dname],
+                f"flash_attention {case[0]} {tuple(case[1:7])} "
+                f"causal={case[7]} window={case[8]} {dname}")
             del args, got, want
     for i, case in enumerate(SSD_CASES):
         for dname in ("float32", "bfloat16"):
@@ -603,26 +649,46 @@ def phase_model_kernels(torch, mods, dev):
             got = mods.ssd_ops.ssd(*args)
             want = mods.ssd_ops.ssd_plain(*args)
             torch.cuda.synchronize()
-            ssd_ok.add(got, want, FLOAT_TOL[dname],
-                       f"mamba2_ssd {case[0]} {tuple(case[1:])} {dname}",
-                       relative=True)
+            agree["mamba2_ssd"].add(
+                got, want, FLOAT_TOL[dname],
+                f"mamba2_ssd {case[0]} {tuple(case[1:])} {dname}",
+                relative=True)
+            del args, got, want
+    for i, case in enumerate(WKV_CASES):
+        for dname in ("float32", "bfloat16"):
+            args = wkv_inputs(torch, case, _dtype(torch, dname), 500 + i, dev)
+            got = mods.wkv_ops.wkv6(*args)
+            want = mods.wkv_ops.wkv6_plain(*args)
+            torch.cuda.synchronize()
+            agree["rwkv6_wkv"].add(
+                got, want, FLOAT_TOL[dname],
+                f"rwkv6_wkv {case[0]} (B, H, T, K, V) = {tuple(case[1:])} "
+                f"{dname}", relative=True)
             del args, got, want
     torch.cuda.empty_cache()
-    return fa_ok, ssd_ok
+    return agree
 
 
-def _zamba_params(torch, model, dtype, dev, seed):
+def _describe(model) -> str:
+    """``81 layers (13 x 6 mamba + shared attention + 3 tail)``."""
+    cfg = model.cfg
+    unit = "+".join(sorted(set(model.unit)))
+    shared = " + shared attention" if cfg.family == "hybrid" else ""
+    return (f"{cfg.n_layers} layers ({model.repeats} x {len(model.unit)} "
+            f"{unit}{shared} + {len(model.tail)} tail)")
+
+
+def _model_params(torch, model, dtype, dev, seed, tag):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = model.init(gen, dtype, dev)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
-    log(f"[zamba2] {model.cfg.name}: {model.cfg.n_layers} layers "
-        f"({model.repeats} x {len(model.unit)} Mamba2 + shared attention "
-        f"+ {len(model.tail)} tail), d_model {model.cfg.d_model}, {n} "
-        f"parameters, {n * params['embed'].element_size() / 1e9:.2f} GB "
-        f"{dtype} on {params['embed'].device}, drawn in "
+    log(f"[{tag}] {model.cfg.name}: {_describe(model)}, d_model "
+        f"{model.cfg.d_model}, {n} parameters, "
+        f"{n * params['embed'].element_size() / 1e9:.2f} GB {dtype} on "
+        f"{params['embed'].device}, drawn in "
         f"{time.perf_counter() - t0:.2f} s")
     return params
 
@@ -638,48 +704,70 @@ def _leaves(tree):
         yield tree
 
 
-def _prefill_counted(torch, mods, model, params, tokens, rec_fa=None,
-                     rec_ssd=None):
-    """One prefill with both kernels' counts set to 0 just before it and
-    read just after; optionally through call recorders."""
-    blocks = mods.blocks
-    mods.fa_ops.flash_attention.launches = 0
-    mods.ssd_ops.ssd.launches = 0
-    if rec_fa is not None:
-        blocks.flash_attention, blocks.ssd = rec_fa, rec_ssd
+def _wrapper(mods, name):
+    ops, attr, _ = FLOAT_KERNELS[name]
+    return getattr(getattr(mods, ops), attr)
+
+
+def _plain(mods, name):
+    ops, _, attr = FLOAT_KERNELS[name]
+    return getattr(getattr(mods, ops), attr)
+
+
+def expected_launches(model):
+    """Float-kernel launches of one prefill: one flash attention per
+    attention layer and shared-block call, one SSD per Mamba2 layer, one
+    WKV per RWKV6 layer."""
+    kinds = list(model.unit) * model.repeats + list(model.tail)
+    shared = model.repeats if model.cfg.family == "hybrid" else 0
+    return {"flash_attention": shared + sum(k not in ("mamba", "rwkv")
+                                            for k in kinds),
+            "mamba2_ssd": kinds.count("mamba"),
+            "rwkv6_wkv": kinds.count("rwkv")}
+
+
+def _prefill_counted(torch, mods, model, params, tokens, recorders=None):
+    """One prefill with every float kernel's count set to 0 just before it
+    and read just after; optionally through call recorders."""
+    recorders = recorders or {}
+    for name in FLOAT_KERNELS:
+        _wrapper(mods, name).launches = 0
+    for name, rec in recorders.items():
+        setattr(mods.blocks, FLOAT_KERNELS[name][1], rec)
     try:
         logits = model.prefill(params, tokens)
         torch.cuda.synchronize()
     finally:
-        blocks.flash_attention = mods.fa_ops.flash_attention
-        blocks.ssd = mods.ssd_ops.ssd
-    launches = {"flash_attention": mods.fa_ops.flash_attention.launches,
-                "mamba2_ssd": mods.ssd_ops.ssd.launches}
-    want = {"flash_attention": model.repeats,
-            "mamba2_ssd": model.cfg.n_layers}
+        for name in recorders:
+            setattr(mods.blocks, FLOAT_KERNELS[name][1],
+                    _wrapper(mods, name))
+    launches = {name: _wrapper(mods, name).launches for name in FLOAT_KERNELS}
+    want = expected_launches(model)
     if launches != want:
         raise AssertionError(f"prefill launched {launches}, expected {want} "
-                             f"(one flash attention a shared-block call, "
-                             f"one SSD a Mamba2 layer)")
+                             f"(one flash attention an attention call, one "
+                             f"SSD a Mamba2 layer, one WKV an RWKV6 layer)")
     return logits, launches
 
 
-def phase_zamba2(torch, mods, dev, fa_ok, ssd_ok):
-    """Full-width zamba2-7b in float32: prefill (the kernels' main path)
-    against its teacher-forced decode, then the Paxos-routed engine."""
-    cfg = mods.ARCHS[ZAMBA]
+def phase_model(torch, mods, dev, name, keep, agree):
+    """Full-width ``name`` in float32: prefill (the float kernels' main
+    path, through recorders keeping the calls ``keep[kernel]``) against
+    its teacher-forced decode, then the Paxos-routed engine."""
+    tag = name.split("-")[0]
+    cfg = mods.ARCHS[name]
     model = mods.build_model(cfg)
-    params = _zamba_params(torch, model, torch.float32, dev, seed=0)
+    params = _model_params(torch, model, torch.float32, dev, 0, tag)
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(1, cfg.vocab, (PROMPT_BATCH, PROMPT_LEN),
                            generator=gen, device=dev, dtype=torch.int32)
-    rec_fa = Recorder(torch, mods.fa_ops.flash_attention, (0, 6, 12))
-    rec_ssd = Recorder(torch, mods.ssd_ops.ssd, (0, 40, 80))
+    recs = {k: Recorder(torch, _wrapper(mods, k), calls)
+            for k, calls in keep.items()}
     t0 = time.perf_counter()
     logits, launches = _prefill_counted(torch, mods, model, params, tokens,
-                                        rec_fa, rec_ssd)
+                                        recs)
     t_prefill = time.perf_counter() - t0
-    log(f"[zamba2] main-path launches of one prefill "
+    log(f"[{tag}] main-path launches of one prefill "
         f"({PROMPT_BATCH} x {PROMPT_LEN} tokens, float32): "
         f"{json.dumps(launches)}; {t_prefill:.3f} s with recording")
     if tuple(logits.shape) != (PROMPT_BATCH, cfg.vocab) or \
@@ -688,17 +776,16 @@ def phase_zamba2(torch, mods, dev, fa_ok, ssd_ok):
                              f"not finite [{PROMPT_BATCH}, {cfg.vocab}]")
 
     # recorded prefill calls replayed through the plain versions
-    for i, ins, kw, outs in rec_fa.samples:
-        want = mods.fa_ops.attention_plain(*ins, **kw)
-        fa_ok.add(outs[0], want, FLOAT_TOL["float32"],
-                  f"recorded prefill flash_attention call {i} "
-                  f"{tuple(ins[0].shape)}", relative=True)
-    for i, ins, kw, outs in rec_ssd.samples:
-        want = mods.ssd_ops.ssd_plain(*ins, **kw)
-        ssd_ok.add(outs[0], want, FLOAT_TOL["float32"],
-                   f"recorded prefill mamba2_ssd call {i} "
-                   f"{tuple(ins[0].shape)}", relative=True)
-    del rec_fa, rec_ssd
+    for k, rec in recs.items():
+        for i, ins, kw, outs in rec.samples:
+            agree[k].add(outs[0], _plain(mods, k)(*ins, **kw),
+                         FLOAT_TOL["float32"],
+                         f"recorded prefill {k} call {i} "
+                         f"{tuple(ins[0].shape)}", relative=True)
+        if len(rec.samples) != len(keep[k]):
+            raise AssertionError(f"{k}: recorded {len(rec.samples)} calls, "
+                                 f"expected {len(keep[k])}")
+    del recs
 
     # teacher-forced decode over the same tokens: kernel-free, plain torch
     torch.cuda.synchronize()
@@ -715,17 +802,17 @@ def phase_zamba2(torch, mods, dev, fa_ok, ssd_ok):
         params, step_caches, tokens[:, :1]))
     dev_rows = [r for r in rows if _is_device_row(r) and _device_us(r) > 0]
     step_dev = sum(_device_us(r) for r in dev_rows) / 1e3
-    log(f"[zamba2] one float32 decode step profiled: wall {step_ms:.2f} ms, "
+    log(f"[{tag}] one float32 decode step profiled: wall {step_ms:.2f} ms, "
         f"device busy {step_dev:.2f} ms over "
         f"{sum(r.count for r in dev_rows)} device ops")
     for r in sorted(dev_rows, key=_device_us, reverse=True)[:6]:
-        log(f"[zamba2]   {_device_us(r) / 1e3:9.3f} ms  x{r.count:<5d} "
+        log(f"[{tag}]   {_device_us(r) / 1e3:9.3f} ms  x{r.count:<5d} "
             f"{r.key[:90]}")
     del step_caches
     scale = float(logits.abs().max())
     err = float((dec - logits).abs().max())
     top_p, top_d = logits.argmax(-1), dec.argmax(-1)
-    log(f"[zamba2] prefill vs teacher-forced decode ({PROMPT_LEN} steps, "
+    log(f"[{tag}] prefill vs teacher-forced decode ({PROMPT_LEN} steps, "
         f"{t_decode:.2f} s): max abs logit err {err:.3e}, relative "
         f"{err / scale:.3e} (tolerance 1e-3), top-1 "
         f"{top_p.tolist()} vs {top_d.tolist()}")
@@ -764,7 +851,7 @@ def phase_zamba2(torch, mods, dev, fa_ok, ssd_ok):
             out.max() >= cfg.vocab:
         raise AssertionError(f"generate returned {out.shape} tokens outside "
                              f"[0, {cfg.vocab})")
-    log(f"[zamba2] routes {routes} sticky across 2 engines "
+    log(f"[{tag}] routes {routes} sticky across 2 engines "
         f"({t_route:.2f} s, Paxos kernel launches {json.dumps(paxos)}); "
         f"generate {GEN_SESSIONS} sessions (prompts "
         f"{[len(p) for p in prompts]} tokens) x {GEN_STEPS} steps in "
@@ -774,19 +861,29 @@ def phase_zamba2(torch, mods, dev, fa_ok, ssd_ok):
     return launches
 
 
-def phase_prefill_bf16(torch, mods, dev):
-    """bfloat16 zamba2-7b prefill at 1 x PREFILL_SEQ tokens: wall time, one
-    profiled pass, and the kernels' timings at the prefill shape."""
-    cfg = mods.ARCHS[ZAMBA]
+def _kernel_group(key: str) -> str:
+    for name in FLOAT_KERNELS:
+        if f"{name}_kernel" in key:
+            return f"{name}_kernel"
+    if any(w in key.lower() for w in ("gemm", "xmma", "cutlass", "sm90",
+                                      "nvjet")):
+        return "matmul (cuBLAS)"
+    return "other torch kernels"
+
+
+def phase_prefill_bf16(torch, mods, dev, name):
+    """bfloat16 prefill of ``name`` at 1 x PREFILL_SEQ tokens: wall time,
+    one profiled pass, and its float kernels' device time per launch."""
+    cfg = mods.ARCHS[name]
     model = mods.build_model(cfg)
-    params = _zamba_params(torch, model, torch.bfloat16, dev, seed=0)
+    params = _model_params(torch, model, torch.bfloat16, dev, 0, "prefill")
     gen = torch.Generator(device=dev).manual_seed(3)
     tokens = torch.randint(1, cfg.vocab, (1, PREFILL_SEQ), generator=gen,
                            device=dev, dtype=torch.int32)
     torch.cuda.reset_peak_memory_stats()
     logits, launches = _prefill_counted(torch, mods, model, params, tokens)
     if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("bf16 prefill logits are not finite")
+        raise AssertionError(f"{name} bf16 prefill logits are not finite")
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -800,23 +897,14 @@ def phase_prefill_bf16(torch, mods, dev):
                                                                 tokens))
     dev_rows = [r for r in rows if _is_device_row(r) and _device_us(r) > 0]
     dev_ms = sum(_device_us(r) for r in dev_rows) / 1e3
-    log(f"[prefill] bf16 1 x {PREFILL_SEQ} tokens: {json.dumps(launches)} "
-        f"launches; wall {wall_ms:.2f} ms (median of 3: "
-        f"{', '.join(f'{w:.2f}' for w in walls)}), profiled wall "
+    log(f"[prefill] {name} bf16 1 x {PREFILL_SEQ} tokens: "
+        f"{json.dumps(launches)} launches; wall {wall_ms:.2f} ms (median of "
+        f"3: {', '.join(f'{w:.2f}' for w in walls)}), profiled wall "
         f"{prof_ms:.2f} ms, device busy {dev_ms:.2f} ms (busy share "
         f"{dev_ms / prof_ms:.4f}), peak memory {peak_gb:.2f} GB")
     groups = {}
     for r in dev_rows:
-        key = r.key
-        if "flash_attention_kernel" in key:
-            g = "flash_attention_kernel"
-        elif "mamba2_ssd_kernel" in key:
-            g = "mamba2_ssd_kernel"
-        elif any(w in key.lower() for w in ("gemm", "xmma", "cutlass",
-                                            "sm90", "nvjet")):
-            g = "matmul (cuBLAS)"
-        else:
-            g = "other torch kernels"
+        g = _kernel_group(r.key)
         t_ms, cnt = groups.get(g, (0.0, 0))
         groups[g] = (t_ms + _device_us(r) / 1e3, cnt + r.count)
     for g, (t_ms, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
@@ -826,9 +914,10 @@ def phase_prefill_bf16(torch, mods, dev):
         log(f"[prefill]     {_device_us(r) / 1e3:9.3f} ms  x{r.count:<5d} "
             f"{r.key[:100]}")
     per_launch = {}
-    for name in ("flash_attention", "mamba2_ssd"):
-        t_ms, cnt = groups.get(f"{name}_kernel", (0.0, 0))
-        per_launch[name] = t_ms / cnt if cnt else None
+    for k in FLOAT_KERNELS:
+        t_ms, cnt = groups.get(f"{k}_kernel", (0.0, 0))
+        if cnt:
+            per_launch[k] = t_ms / cnt
     del params, logits
     torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, device_ms=dev_ms, launches=launches,
@@ -846,11 +935,11 @@ def fa_visible_pairs(sq, sk, causal, window):
 
 
 def phase_model_timings(torch, mods, dev, prefill_per_launch):
-    """Each kernel at zamba2's prefill shape in bf16 (CUDA events, median
-    after warm-up), its bound, its plain version and the library call.
-    The kernel's time is the profiler's device time per launch in the bf16
-    prefill (``prefill_per_launch``, same shapes, the model's own inputs)
-    where the profiler saw it, else the event time."""
+    """Each float kernel at its model's prefill shape in bf16 (CUDA
+    events, median after warm-up), its bound, its plain version and the
+    library call.  The kernel's time is the profiler's device time per
+    launch in the bf16 prefill (``prefill_per_launch``, same shapes, the
+    model's own inputs) where the profiler saw it, else the event time."""
     F = torch.nn.functional
     out = {}
     case = FA_CASES[0]
@@ -861,7 +950,7 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
     out["flash_attention"] = dict(
         shape=f"(B, Hq, S, D) = ({b}, {hq}, {sq}, {d}) causal bf16",
         event_ms=cuda_ms(torch, call, 10),
-        device_ms=prefill_per_launch["flash_attention"],
+        device_ms=prefill_per_launch.get("flash_attention"),
         plain_ms=cuda_ms(torch, lambda: mods.fa_ops.attention_plain(
             q, k, v, **kw), 3, warmup=1),
         # a yardstick only: the port never calls it
@@ -883,7 +972,7 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
     out["mamba2_ssd"] = dict(
         shape=f"(B, T, H, P, G, N) = ({b}, {t}, {h}, {p}, {g}, {n}) bf16",
         event_ms=cuda_ms(torch, call, 20),
-        device_ms=prefill_per_launch["mamba2_ssd"],
+        device_ms=prefill_per_launch.get("mamba2_ssd"),
         plain_ms=cuda_ms(torch, lambda: mods.ssd_ops.ssd_plain(
             x, dt, A, Bm, Cm), 2, warmup=1),
         library_ms=None,
@@ -895,6 +984,32 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
     f32_ms = cuda_ms(torch, lambda: mods.ssd_ops.ssd(xf, dtf, A, Bf, Cf), 10)
     log(f"[time] mamba2_ssd float32 at the same shape: {f32_ms:.4f} ms a "
         f"wrapper call (cuda events)")
+    del x, dt, A, Bm, Cm, xf, dtf, Bf, Cf
+
+    case = WKV_CASES[0]
+    r, kk, vv, w, u = wkv_inputs(torch, case, torch.bfloat16, 9, dev)
+    _, b, h, t, dk, dv = case
+    call = lambda: mods.wkv_ops.wkv6(r, kk, vv, w, u)
+    out["rwkv6_wkv"] = dict(
+        shape=f"(B, H, T, K, V) = ({b}, {h}, {t}, {dk}, {dv}) bf16",
+        event_ms=cuda_ms(torch, call, 20),
+        device_ms=prefill_per_launch.get("rwkv6_wkv"),
+        plain_ms=cuda_ms(torch, lambda: mods.wkv_ops.wkv6_plain(
+            r, kk, vv, w, u), 2, warmup=1),
+        # no single PyTorch call computes the recurrence
+        library_ms=None,
+        # per (b, h, t): k v^T, u (k v^T), S + that, times r, the sum over
+        # K, then w S + k v^T: 7 K V
+        flops=7 * dk * dv * b * h * t,
+        bytes=(3 * b * h * t * dk + 2 * b * h * t * dv) * 2 + 4 * h * dk)
+    f32 = [a.float() for a in (r, kk, vv, w)]
+    f32_ms = cuda_ms(torch, lambda: mods.wkv_ops.wkv6(*f32, u), 10)
+    log(f"[time] rwkv6_wkv float32 at the same shape: {f32_ms:.4f} ms a "
+        f"wrapper call (cuda events); the sequential form on the float32 "
+        f"CUDA cores needs at least "
+        f"{out['rwkv6_wkv']['flops'] / F32_CUDA_CORE_FLOPS_PER_S * 1e3:.4f}"
+        f" ms (67 TFLOP/s)")
+    del r, kk, vv, w, u, f32
 
     for name, r in out.items():
         r["ms"] = r["device_ms"] if r["device_ms"] is not None \
@@ -911,7 +1026,8 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
             f"({r['ms_source']}; {r['event_ms']:.6f} ms a wrapper call by "
             f"cuda events), bound {r['bound_ms']:.6f} ms ({r['bound_by']}: "
             f"{r['flops']} flop, {r['bytes']} B; "
-            f"{r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s achieved), plain "
+            f"{r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s, "
+            f"{r['bytes'] / r['ms'] / 1e6:.1f} GB/s achieved), plain "
             f"{r['plain_ms']:.6f} ms, library {lib}")
     return out
 
@@ -948,6 +1064,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.paxos_apply import ops as apply_ops
     from repro_torch.kernels.paxos_propose import ops as propose_ops
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.models import blocks
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import DecodeEngine, ServeConfig
@@ -961,7 +1078,7 @@ def main(argv=None) -> int:
         BatchedMachine=BatchedMachine, cluster_engine=cluster_engine,
         np=np, ARCHS=ARCHS, PaxosRegistry=PaxosRegistry, blocks=blocks,
         build_model=build_model, fa_ops=fa_ops, ssd_ops=ssd_ops,
-        DecodeEngine=DecodeEngine, ServeConfig=ServeConfig)
+        wkv_ops=wkv_ops, DecodeEngine=DecodeEngine, ServeConfig=ServeConfig)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     # float32 products in full float32 (the model checks' tolerances
@@ -984,11 +1101,18 @@ def main(argv=None) -> int:
     phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
     times = phase_timings(torch, mods, pv, dev, waves_all)
     phase_idle(torch, mods, dev, args.n_ops)
-    fa_ok, ssd_ok = phase_model_kernels(torch, mods, dev)
-    model_launches = phase_zamba2(torch, mods, dev, fa_ok, ssd_ok)
-    prefill = phase_prefill_bf16(torch, mods, dev)
-    times.update(phase_model_timings(torch, mods, dev,
-                                     prefill["per_launch_ms"]))
+    float_ok = phase_model_kernels(torch, mods, dev)
+    # one full-width model resident at a time: each phase frees its own
+    zamba_launches = phase_model(
+        torch, mods, dev, ZAMBA,
+        {"flash_attention": (0, 6, 12), "mamba2_ssd": (0, 40, 80)}, float_ok)
+    prefill = phase_prefill_bf16(torch, mods, dev, ZAMBA)
+    rwkv_launches = phase_model(torch, mods, dev, RWKV,
+                                {"rwkv6_wkv": (0, 15, 31)}, float_ok)
+    rwkv_prefill = phase_prefill_bf16(torch, mods, dev, RWKV)
+    times.update(phase_model_timings(
+        torch, mods, dev,
+        {**prefill["per_launch_ms"], **rwkv_prefill["per_launch_ms"]}))
     torch.cuda.synchronize()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -1008,15 +1132,22 @@ def main(argv=None) -> int:
             "max_abs_err": agree.max_abs_err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    # each float kernel's launches: its model's main path (the f32 prefill)
+    model_launches = {"flash_attention": zamba_launches["flash_attention"],
+                      "mamba2_ssd": zamba_launches["mamba2_ssd"],
+                      "rwkv6_wkv": rwkv_launches["rwkv6_wkv"]}
     model_sources = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:34",
-                            "_fa_kernel", fa_ok),
+                            "_fa_kernel"),
         "mamba2_ssd": ("src/repro_torch/csrc/mamba2_ssd.cu",
                        "src/repro/kernels/mamba2_ssd/kernel.py:36",
-                       "_ssd_kernel", ssd_ok)}
-    for name, (src, replaces, fn, agree) in model_sources.items():
-        t = times[name]
+                       "_ssd_kernel"),
+        "rwkv6_wkv": ("src/repro_torch/csrc/rwkv6_wkv.cu",
+                      "src/repro/kernels/rwkv6_wkv/kernel.py:31",
+                      "_wkv6_kernel")}
+    for name, (src, replaces, fn) in model_sources.items():
+        t, agree = times[name], float_ok[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "replaces_function": fn,

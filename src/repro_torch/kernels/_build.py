@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Every ``csrc/*.cu`` of the package is compiled, at first use, in ONE
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` call into ``build/repro_torch/lib<hash>.so`` at the
-root of the checkout, keyed by a hash of the sources and flags, so a
-rebuilt source never loads a stale library.  The sources export plain C
+Every ``csrc/*.cu`` of the package is compiled, at first use, by its own
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC -c`` process, all started together, and the objects are linked by
+one ``nvcc -shared`` into ``build/repro_torch/lib<hash>.so`` at the root
+of the checkout, keyed by a hash of the sources and flags, so a rebuilt
+source never loads a stale library.  The sources export plain C
 entry points (no PyTorch headers), which keeps the build to seconds.  A
 failed build raises with nvcc's stderr.  Nothing is built at import: the
 CPU tests import every module of the port on a machine without ``nvcc``.
@@ -26,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -42,11 +43,14 @@ ENTRY_POINTS = {
     # x, dt, A, B, C, y, batch, T, H, P, G, N, dtype, stream
     "mamba2_ssd_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                           _I64, _I64, _I64, _P],
+    # r, k, v, w, u, y, batch, H, T, K, V, dtype, stream
+    "rwkv6_wkv_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                         _I64, _I64, _P],
 }
 
 # Element type codes the float kernels take (``enum DType`` in
-# ``csrc/flash_attention.cu`` and ``csrc/mamba2_ssd.cu``), by torch dtype
-# name.
+# ``csrc/flash_attention.cu``, ``csrc/mamba2_ssd.cu`` and
+# ``csrc/rwkv6_wkv.cu``), by torch dtype name.
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 
@@ -94,6 +98,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
 
 
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _finish(jobs) -> str:
+    """Wait for every ``(cmd, process)`` of ``jobs``; their output, or
+    raise with the first failure's."""
+    done = [(cmd, proc, "".join(proc.communicate())) for cmd, proc in jobs]
+    for cmd, proc, log in done:
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    return "".join(log for _, _, log in done)
+
+
+def _compile_and_link(out: Path) -> str:
+    """One ``nvcc -c`` per source, all started together, then one link
+    into ``out``; returns the compilers' output."""
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    try:
+        log = _finish([_start([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)])
+                       for src, obj in zip(sources(), objs)])
+        tmp = out.with_name(f"{tag}.tmp.so")
+        log += _finish([_start([nvcc(), "-shared", "-o", str(tmp),
+                                *map(str, objs)])])
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return log
+
+
 def build() -> KernelLibrary:
     """Build (if the sources changed) and load the kernel library once per
     process."""
@@ -104,17 +143,9 @@ def build() -> KernelLibrary:
     seconds, log = 0.0, ""
     if not out.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sources()]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile_and_link(out)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-        os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)

@@ -1,4 +1,5 @@
-"""Layer blocks: attention (GQA / RoPE / sliding window), MLP and Mamba2.
+"""Layer blocks: attention (GQA / RoPE / sliding window), MLP, Mamba2 and
+RWKV6.
 
 Port of ``repro.models.blocks``.  Every block is a pair of plain functions
 on tensors::
@@ -8,17 +9,20 @@ on tensors::
 
 ``lead`` prefixes every parameter's shape (the LM stacks a unit position's
 layers over ``repeats`` that way).  The full-sequence attention goes
-through :func:`repro_torch.kernels.flash_attention.ops.flash_attention` and
-the Mamba2 mixing through :func:`repro_torch.kernels.mamba2_ssd.ops.ssd`:
-on a CUDA tensor they launch the CUDA kernels.  Decode steps stay plain
-PyTorch, as the reference computes them outside Pallas.  There are no
-sharding annotations.  MoE and RWKV6 blocks are not ported yet (ROADMAP,
-Queue 1 item 6); M-RoPE waits for the VLM slice.
+through :func:`repro_torch.kernels.flash_attention.ops.flash_attention`,
+the Mamba2 mixing through :func:`repro_torch.kernels.mamba2_ssd.ops.ssd`
+and the RWKV6 time mixing through
+:func:`repro_torch.kernels.rwkv6_wkv.ops.wkv6`: on a CUDA tensor they
+launch the CUDA kernels.  Decode steps stay plain PyTorch, as the
+reference computes them outside Pallas.  There are no sharding
+annotations.  MoE blocks are not ported yet (ROADMAP, Queue 1 item 6);
+M-RoPE waits for the VLM slice.
 
 Decode caches are updated in place where that saves a copy of the whole
 cache: :func:`apply_attention_decode` writes the new key and value into the
 cache tensors it is given and returns them with ``length + 1``;
-:func:`apply_mamba2_decode` returns new (small) tensors.
+:func:`apply_mamba2_decode` and :func:`apply_rwkv6_decode` return new
+(small) tensors.
 """
 
 from __future__ import annotations
@@ -32,11 +36,13 @@ from repro_torch.kernels.flash_attention.ops import (
     decode_attention, flash_attention,
 )
 from repro_torch.kernels.mamba2_ssd.ops import ssd, ssd_decode
+from repro_torch.kernels.rwkv6_wkv.ops import wkv6, wkv6_decode
 from .common import Init, apply_rope, rms_norm
 from .config import ModelConfig
 
 NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP, Queue 1 item 6: "
-              "the model-zoo scaffold)")
+              "the model-zoo scaffold; MoE, M-RoPE/VLM and whisper are "
+              "left)")
 
 CacheSpec = Tuple[Tuple[int, ...], torch.dtype]     # (shape, dtype)
 
@@ -295,3 +301,114 @@ def mamba_cache_spec(cfg: ModelConfig, b: int,
     c = h * p_dim + 2 * cfg.ssm_groups * cfg.ssm_state
     return {"conv": ((b, cfg.conv_kernel - 1, c), dtype),
             "ssm": ((b, h, cfg.ssm_state, p_dim), torch.float32)}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 block
+# ---------------------------------------------------------------------------
+
+def init_rwkv6(cfg: ModelConfig, init: Init, lead: Sequence[int] = ()):
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    lora = 32
+    lead = tuple(lead)
+    return dict(
+        norm_t=init_norm(cfg, init, lead=lead),
+        norm_c=init_norm(cfg, init, lead=lead),
+        mu=init.normal(lead + (5, d), std=0.2),      # r,k,v,w,g shifts
+        wr=init.normal(lead + (d, d)),
+        wk=init.normal(lead + (d, d)),
+        wv=init.normal(lead + (d, d)),
+        wg=init.normal(lead + (d, d)),
+        w_base=init.zeros(lead + (d,)),
+        w_lora_a=init.normal(lead + (d, lora)),
+        w_lora_b=init.normal(lead + (lora, d)),
+        bonus=init.normal(lead + (d // hd, hd)),
+        ln_x=init.ones(lead + (d,)),
+        wo=init.normal(lead + (d, d)),
+        mu_c=init.normal(lead + (2, d), std=0.2),    # channel-mix shifts
+        ck=init.normal(lead + (d, cfg.d_ff)),
+        cv=init.normal(lead + (cfg.d_ff, d)),
+        cr=init.normal(lead + (d, d)),
+    )
+
+
+def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """prev-token stream: [last, x_0 .. x_{S-2}]."""
+    return torch.cat([last[:, None], x[:, :-1]], dim=1)
+
+
+def _rwkv_time_mix(cfg: ModelConfig, p, x: torch.Tensor,
+                   x_prev: torch.Tensor, state=None):
+    b, s, d = x.shape
+    hd = cfg.rwkv_head_dim
+    nh = d // hd
+    def mix(i):
+        return x + (x_prev - x) * p["mu"][i]
+
+    r = _mm(mix(0), p["wr"])
+    k = _mm(mix(1), p["wk"])
+    v = _mm(mix(2), p["wv"])
+    w_in = mix(3)
+    g = _mm(mix(4), p["wg"])
+    w = p["w_base"] + _mm(torch.tanh(_mm(w_in, p["w_lora_a"])),
+                          p["w_lora_b"])
+    # the double exp in float32, the decay cast back before the kernel
+    w = torch.exp(-torch.exp(w.float())).to(x.dtype)
+
+    def heads(t):
+        return t.reshape(b, s, nh, hd).transpose(1, 2)
+
+    if state is None:
+        y = wkv6(heads(r), heads(k), heads(v), heads(w), p["bonus"])
+        new_state = None
+    else:
+        y, new_state = wkv6_decode(
+            r.reshape(b, nh, hd), k.reshape(b, nh, hd),
+            v.reshape(b, nh, hd), w.reshape(b, nh, hd), p["bonus"], state)
+        y = y[:, :, None]                              # [B, H, 1, hd]
+    y = y.transpose(1, 2).reshape(b, s, d)
+    # the reference normalises over the whole d, not per head
+    y = rms_norm(y, p["ln_x"]) * F.silu(g)
+    return _mm(y, p["wo"]), new_state
+
+
+def _rwkv_channel_mix(cfg: ModelConfig, p, x: torch.Tensor,
+                      x_prev: torch.Tensor) -> torch.Tensor:
+    def mix(i):
+        return x + (x_prev - x) * p["mu_c"][i]
+
+    k = torch.square(F.relu(_mm(mix(0), p["ck"])))
+    r = torch.sigmoid(_mm(mix(1), p["cr"]))
+    return r * _mm(k, p["cv"])
+
+
+def apply_rwkv6(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence RWKV6 layer; the token shift starts from zeros."""
+    h = norm_apply(cfg, p["norm_t"], x)
+    last = torch.zeros_like(h[:, 0])
+    y, _ = _rwkv_time_mix(cfg, p, h, _token_shift(h, last))
+    x = x + y
+    h2 = norm_apply(cfg, p["norm_c"], x)
+    return x + _rwkv_channel_mix(cfg, p, h2, _token_shift(h2, last))
+
+
+def apply_rwkv6_decode(cfg: ModelConfig, p, x: torch.Tensor,
+                       cache: Dict[str, torch.Tensor]):
+    """x: [B, 1, d]; cache: dict(last_t, last_c [B,d], wkv [B,H,K,V]).
+    ``last_t`` and ``last_c`` hold the normed inputs of the two mixes."""
+    h = norm_apply(cfg, p["norm_t"], x)
+    y, wkv_state = _rwkv_time_mix(cfg, p, h, cache["last_t"][:, None],
+                                  state=cache["wkv"])
+    x = x + y
+    h2 = norm_apply(cfg, p["norm_c"], x)
+    x = x + _rwkv_channel_mix(cfg, p, h2, cache["last_c"][:, None])
+    return x, {"last_t": h[:, 0], "last_c": h2[:, 0], "wkv": wkv_state}
+
+
+def rwkv_cache_spec(cfg: ModelConfig, b: int,
+                    dtype: torch.dtype = torch.bfloat16
+                    ) -> Dict[str, CacheSpec]:
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    nh = d // hd
+    return {"last_t": ((b, d), dtype), "last_c": ((b, d), dtype),
+            "wkv": ((b, nh, hd, hd), torch.float32)}

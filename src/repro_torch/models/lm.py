@@ -1,14 +1,14 @@
 """Decoder-only LM: dense / GQA / gemma local:global / Mamba2 hybrid
-(zamba2).
+(zamba2) / RWKV6 (Finch).
 
 Port of ``repro.models.lm``.  The layer stack is ``repeats`` x ``unit``
 (+ tail), where ``unit`` is the repeating pattern (gemma3: 5 local + 1
-global; zamba2: 6 Mamba2 layers).  Each unit position's parameters are
-stacked over ``repeats`` (the reference's layout, so converted weights
-compare leaf for leaf); the reference's ``lax.scan`` over ``repeats``
-becomes a Python loop.  Zamba2's *shared* attention block (the same
-weights every unit) runs after each unit, and its per-invocation KV caches
-are stacked over ``repeats``.
+global; zamba2: 6 Mamba2 layers; rwkv6: one RWKV6 layer).  Each unit
+position's parameters are stacked over ``repeats`` (the reference's
+layout, so converted weights compare leaf for leaf); the reference's
+``lax.scan`` over ``repeats`` becomes a Python loop.  Zamba2's *shared*
+attention block (the same weights every unit) runs after each unit, and
+its per-invocation KV caches are stacked over ``repeats``.
 
 Entry points::
 
@@ -16,9 +16,9 @@ Entry points::
     prefill(params, tokens)            -> last-position logits [B, vocab]
     decode_step(params, caches, tokens) -> (logits [B, vocab], caches)
 
-On a CUDA device ``prefill`` runs the flash-attention and Mamba2 SSD CUDA
-kernels; ``decode_step`` is plain PyTorch (one token against the caches).
-MoE, RWKV6 and M-RoPE layers raise ``NotImplementedError`` (ROADMAP,
+On a CUDA device ``prefill`` runs the flash-attention, Mamba2 SSD and
+RWKV6 WKV CUDA kernels; ``decode_step`` is plain PyTorch (one token against
+the caches).  MoE and M-RoPE layers raise ``NotImplementedError`` (ROADMAP,
 Queue 1 item 6).
 """
 
@@ -31,13 +31,15 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from .blocks import (
     NOT_PORTED, apply_attention, apply_attention_decode, apply_mamba2,
-    apply_mamba2_decode, apply_mlp, attn_cache_spec, init_attention,
-    init_mamba2, init_mlp, init_norm, mamba_cache_spec, norm_apply,
+    apply_mamba2_decode, apply_mlp, apply_rwkv6, apply_rwkv6_decode,
+    attn_cache_spec, init_attention, init_mamba2, init_mlp, init_norm,
+    init_rwkv6, mamba_cache_spec, norm_apply, rwkv_cache_spec,
 )
 from .common import Init, default_positions
 from .config import ModelConfig
 
 ATTN_KINDS = ("attn", "swa", "local", "global")
+PORTED_KINDS = ATTN_KINDS + ("mamba", "rwkv")
 
 
 def derive_unit(cfg: ModelConfig) -> List[str]:
@@ -69,6 +71,8 @@ def _init_layer(cfg: ModelConfig, kind: str, init: Init, lead=()):
                 "mlp": init_mlp(cfg, init, lead=lead)}
     if kind == "mamba":
         return init_mamba2(cfg, init, lead)
+    if kind == "rwkv":
+        return init_rwkv6(cfg, init, lead)
     raise _not_ported(kind)
 
 
@@ -85,6 +89,8 @@ def _apply_layer(cfg, kind, p, x, *, positions):
         return apply_mlp(cfg, p["mlp"], x)
     if kind == "mamba":
         return apply_mamba2(cfg, p, x)
+    if kind == "rwkv":
+        return apply_rwkv6(cfg, p, x)
     raise _not_ported(kind)
 
 
@@ -95,6 +101,8 @@ def _apply_layer_decode(cfg, kind, p, x, cache):
         return apply_mlp(cfg, p["mlp"], x), new
     if kind == "mamba":
         return apply_mamba2_decode(cfg, p, x, cache)
+    if kind == "rwkv":
+        return apply_rwkv6_decode(cfg, p, x, cache)
     raise _not_ported(kind)
 
 
@@ -105,6 +113,8 @@ def _layer_cache_spec(cfg, kind, b, s, dtype):
         return attn_cache_spec(cfg, b, s, cfg.window, dtype)
     if kind == "mamba":
         return mamba_cache_spec(cfg, b, dtype)
+    if kind == "rwkv":
+        return rwkv_cache_spec(cfg, b, dtype)
     raise _not_ported(kind)
 
 
@@ -148,7 +158,7 @@ class LM:
         self.cfg = cfg
         self.unit, self.repeats, self.tail = _layer_kinds(cfg)
         for kind in self.unit:
-            if kind not in ATTN_KINDS and kind != "mamba":
+            if kind not in PORTED_KINDS:
                 raise _not_ported(kind)
 
     # -- init ----------------------------------------------------------------
@@ -268,7 +278,7 @@ class LM:
 
         Attention caches are written in place (see
         :mod:`repro_torch.models.blocks`); the returned tree holds them
-        with advanced lengths and the new Mamba2 states."""
+        with advanced lengths and the new Mamba2 and RWKV6 states."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         shared = params.get("shared_attn")

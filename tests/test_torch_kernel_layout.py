@@ -157,7 +157,8 @@ def test_every_c_entry_point_is_bound():
     assert set(C_ENTRY_POINTS) == set(_build.ENTRY_POINTS)
 
 
-@pytest.mark.parametrize("stem", ["flash_attention", "mamba2_ssd"])
+@pytest.mark.parametrize("stem",
+                         ["flash_attention", "mamba2_ssd", "rwkv6_wkv"])
 def test_dtype_codes_match_the_wrappers(stem):
     members = dict(ENUMS[(stem, "DType")])
     assert members == {"DT_F32": _build.dtype_code(torch.float32),

@@ -13,11 +13,12 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.mamba2_ssd import ops as sd
+from repro_torch.kernels.rwkv6_wkv import ops as wk
 
 pytestmark = pytest.mark.cuda
 
-# atol = rtol, as tests/test_kernels_attention.py holds bf16; the SSD
-# against max |plain output|
+# atol = rtol, as tests/test_kernels_attention.py holds bf16; the SSD and
+# the WKV against max |plain output|
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -76,6 +77,31 @@ def test_ssd_matches_plain(card, dtype, b, t, h, p, g, n):
     assert ((got - want).abs().max() / want.abs().max()).item() <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,t,k,v", [
+    (1, 64, 4096, 64, 64),      # rwkv6-7b's prefill
+    (2, 4, 37, 32, 32),         # the smoke config's
+    (1, 3, 1, 64, 64),
+    (1, 2, 1000, 64, 48),       # ragged V
+    (2, 2, 70, 20, 100),        # ragged K, V past one block
+])
+def test_wkv6_matches_plain(card, dtype, b, h, t, k, v):
+    rng = np.random.default_rng(2)
+    td = getattr(torch, dtype)
+    r = _randn(rng, (b, h, t, k), td, card)
+    kk = _randn(rng, (b, h, t, k), td, card)
+    vv = _randn(rng, (b, h, t, v), td, card)
+    # decays exp(-exp(x)), x uniform on [-6, 1]: 0.066 .. 0.9975
+    x = rng.uniform(-6.0, 1.0, (b, h, t, k)).astype(np.float32)
+    w = torch.from_numpy(np.exp(-np.exp(x))).to(card, td)
+    u = _randn(rng, (h, k), torch.float32, card)
+    before = wk.wkv6.launches
+    got = wk.wkv6(r, kk, vv, w, u).float()
+    want = wk.wkv6_plain(r, kk, vv, w, u).float()
+    assert wk.wkv6.launches == before + 1
+    assert ((got - want).abs().max() / want.abs().max()).item() <= TOL[dtype]
+
+
 def test_unsupported_inputs_raise(card):
     q = torch.zeros((1, 2, 4, 8), device=card, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -83,3 +109,9 @@ def test_unsupported_inputs_raise(card):
     q = torch.zeros((1, 2, 4, 300), device=card)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q)
+    r = torch.zeros((1, 2, 4, 128), device=card)
+    with pytest.raises(ValueError, match="key dim"):
+        wk.wkv6(r, r, r, r, torch.zeros((2, 128), device=card))
+    r = torch.zeros((1, 2, 4, 8), device=card)
+    with pytest.raises(ValueError, match="bfloat16"):
+        wk.wkv6(r, r, r.bfloat16(), r, torch.zeros((2, 8), device=card))

@@ -200,11 +200,40 @@ def test_mamba2_block_and_decode_match_ref(groups):
     _close(tc["conv"], rc["conv"], BLOCK_TOL)
 
 
+def test_rwkv6_block_and_decode_match_ref():
+    cfg, rcfg = _cfg("rwkv6-7b")
+    p = _ref_init(ref_blocks.init_rwkv6, rcfg, 14)
+    b, s = 2, 9
+    x = _x(15, b, s, cfg.d_model)
+    tp = _torch(p)
+    want = ref_blocks.apply_rwkv6(rcfg, _jnp(p), jnp.asarray(x))
+    got = blocks.apply_rwkv6(cfg, tp, torch.from_numpy(x))
+    _close(got, want, BLOCK_TOL)
+
+    spec = blocks.rwkv_cache_spec(cfg, b, torch.float32)
+    rspec = ref_blocks.rwkv_cache_spec(rcfg, b)
+    assert {k: v[0] for k, v in spec.items()} == \
+        {k: v.shape for k, v in rspec.items()}
+    assert spec["wkv"][1] == torch.float32
+    rc = {k: jnp.zeros(v.shape, jnp.float32) for k, v in rspec.items()}
+    tc = {k: torch.zeros(v[0]) for k, v in spec.items()}
+    rstep = jax.jit(lambda p_, x_, c_: ref_blocks.apply_rwkv6_decode(
+        rcfg, p_, x_, c_))
+    for t in range(s):
+        ry, rc = rstep(_jnp(p), jnp.asarray(x[:, t:t + 1]), rc)
+        ty, tc = blocks.apply_rwkv6_decode(
+            cfg, tp, torch.from_numpy(x[:, t:t + 1]), tc)
+        _close(ty, ry, BLOCK_TOL)
+        _close(ty, got[:, t:t + 1], BLOCK_TOL)
+    for key in ("last_t", "last_c", "wkv"):
+        _close(tc[key], rc[key], BLOCK_TOL)
+
+
 # ---------------------------------------------------------------------------
 # the whole model
 # ---------------------------------------------------------------------------
 
-MODELS = ["zamba2-7b", "gemma3-12b"]
+MODELS = ["zamba2-7b", "gemma3-12b", "rwkv6-7b"]
 
 
 def _models(name, seed=0):
@@ -263,6 +292,37 @@ def test_zamba2_layout_at_full_width():
     assert tuple(shapes["units"][0]["w_in"].shape) == (13, 3584, 14576)
 
 
+def test_rwkv6_layout_at_full_width():
+    model = LM(ARCHS["rwkv6-7b"])
+    assert (model.unit, model.repeats, model.tail) == (["rwkv"], 32, [])
+    shapes = model.param_shapes()
+    assert set(shapes) == {"embed", "unembed", "final_norm", "units"}
+    n = sum(t.numel() for t in jax.tree.leaves(
+        shapes, is_leaf=lambda t: isinstance(t, torch.Tensor)))
+    assert n == 7_526_158_336
+    layer = shapes["units"][0]
+    assert tuple(layer["wr"].shape) == (32, 4096, 4096)
+    assert tuple(layer["ck"].shape) == (32, 4096, 14336)
+    assert tuple(layer["bonus"].shape) == (32, 64, 64)
+    assert tuple(layer["mu"].shape) == (32, 5, 4096)
+    specs = model.cache_specs(2, 128, torch.float32)
+    assert set(specs) == {"units"}
+    assert specs["units"][0]["wkv"] == ((32, 2, 64, 64, 64), torch.float32)
+
+
+def test_rwkv6_generate_matches_ref():
+    cfg, ref, rp, port, tp = _models("rwkv6-7b", seed=5)
+    rng = np.random.default_rng(6)
+    prompts = [list(rng.integers(1, cfg.vocab, int(rng.integers(3, 8))))
+               for _ in range(3)]
+    want = RefEngine(ref, rp, RefServeConfig(max_seq=32)).generate(
+        prompts, steps=6)
+    got = DecodeEngine(port, tp, ServeConfig(max_seq=32),
+                       device="cpu").generate(prompts, steps=6)
+    assert got.dtype == np.int32 and got.shape == (3, 6)
+    assert np.array_equal(got, want)
+
+
 def test_generate_and_route_match_ref():
     name = "zamba2-7b"
     cfg, ref, rp, port, tp = _models(name, seed=3)
@@ -291,7 +351,7 @@ def test_generate_and_route_match_ref():
 # what is not ported raises
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["whisper-large-v3", "rwkv6-7b",
+@pytest.mark.parametrize("name", ["whisper-large-v3", "kimi-k2-1t-a32b",
                                   "mixtral-8x7b"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -318,5 +378,7 @@ def test_entry_points_default_to_the_card():
         model.init(0)
     with pytest.raises(RuntimeError, match="cuda"):
         DecodeEngine(model, None, ServeConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(ARCHS["rwkv6-7b"]).init()
     params = model.init(0, device="cpu")
     assert params["embed"].device == CPU
