@@ -29,8 +29,10 @@ Phases (any failure exits nonzero and prints no result):
    card's busy share over 40 ticks of the serve path.
 5. **Float kernels vs plain** on unit-normal inputs made on the card:
    ``flash_attention`` at zamba2's, gemma3's local, qwen1.5's ragged,
-   Sq < Sk, non-causal and MQA shapes, ``mamba2_ssd`` at zamba2's layer,
-   ragged T and G = 2, ``rwkv6_wkv`` at rwkv6-7b's prefill and the smoke
+   Sq < Sk, non-causal and MQA shapes and a window straddling key tiles,
+   ``mamba2_ssd`` at zamba2's layer, ragged T (T = 65 and 4097 are ragged
+   by one step against its 64-step chunks), G = 2 and N = 128,
+   ``rwkv6_wkv`` at rwkv6-7b's prefill and the smoke
    config's heads, ragged T, ragged V and B = 2 (decays exp(-exp(x)), x
    uniform on [-6, 1]), each in float32 and bfloat16.
 6. **Full-width zamba2-7b** (81 layers, d_model 3584, float32 weights from
@@ -44,7 +46,8 @@ Phases (any failure exits nonzero and prints no result):
    ``BatchedMachine`` (sticky across two engines) and generates 32 steps.
 7. **bf16 zamba2-7b prefill** at 1 x 4096 tokens (cut from the dry-run's
    ``prefill_32k``, batch 32): wall time, peak memory and one
-   ``torch.profiler`` pass.
+   ``torch.profiler`` pass; a float kernel's time a call is its CUDA
+   kernels' device time over its wrapper's calls in that pass.
 8. **Full-width rwkv6-7b** (32 layers, d_model 4096, 7.5e9 float32
    weights, drawn after zamba2's are freed): phase 6 again, with 32
    ``rwkv6_wkv`` launches in the prefill.
@@ -65,6 +68,8 @@ import argparse
 import functools
 import json
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -176,16 +181,59 @@ class Agreement:
 # phases
 # ---------------------------------------------------------------------------
 
+def _demangle(names, tool_dir):
+    """``{mangled: "kernel<template args>"}`` through the toolkit's
+    ``cu++filt`` (or binutils' ``c++filt``); the mangled name where
+    neither is found."""
+    tools = [pathlib.Path(tool_dir) / "cu++filt", shutil.which("cu++filt"),
+             shutil.which("c++filt")]
+    tool = next((str(t) for t in tools if t and pathlib.Path(t).is_file()),
+                None)
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    if len(out) != len(names):
+        return {n: n for n in names}
+    return {n: _short_name(d) for n, d in zip(names, out)}
+
+
+def _short_name(demangled: str) -> str:
+    """``void <unnamed>::k<(int)7, (bool)0>(float const*, ...)`` ->
+    ``k<7, 0>``: drop the return type, the namespace, the parameter list
+    and the casts ``cu++filt`` puts on template arguments."""
+    d = demangled.strip()
+    if d.endswith(")"):                     # cut the trailing (params)
+        depth = 0
+        for i in range(len(d) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(d[i], 0)
+            if depth == 0:
+                d = d[:i]
+                break
+    d = re.sub(r"\((?:unsigned )?(?:int|bool|long)\)", "", d)
+    for prefix in ("<unnamed>::", "(anonymous namespace)::"):
+        d = d.replace(prefix, "")
+    return d.removeprefix("void ").strip()
+
+
 def phase_build(build):
+    """Build the kernels; one line per kernel with ptxas' registers, static
+    shared memory, stack and spills (the float kernels' tiles live in
+    dynamic shared memory, whose size each .cu header states)."""
     lib = build.build()
     log(f"[build] nvcc {lib.build_seconds:.2f} s -> "
         f"{lib.path.relative_to(ROOT)}")
-    kernel = "?"
+    usage, kernel = {}, None
     for line in lib.build_log.splitlines():
-        if "Compiling entry function" in line:
-            kernel = line.split("'")[1] if "'" in line else line.strip()
-        elif "registers" in line or "spill" in line:
-            log(f"[build] {kernel[:60]}: {line.strip()}")
+        if "Compiling entry function" in line and "'" in line:
+            kernel = line.split("'")[1]
+            usage[kernel] = []
+        elif kernel and ("registers" in line or "spill" in line):
+            usage[kernel].append(line.replace("ptxas info    :", "").strip())
+    names = _demangle(list(usage), pathlib.Path(build.nvcc()).parent) \
+        if usage else {}
+    for mangled, parts in usage.items():
+        log(f"[build] {names[mangled]}: {'; '.join(parts)}")
     return lib
 
 
@@ -512,10 +560,11 @@ F32_CUDA_CORE_FLOPS_PER_S = 67e12
 
 # kernel vs plain tolerance over unit-normal inputs.  Attention: every
 # element within atol + rtol * |plain| with atol = rtol = the figure, as
-# tests/test_kernels_attention.py:35 holds bf16 (the plain version rounds
-# the probabilities to bf16 before the value product, the kernel does not:
-# one bf16 ulp of an output above 4 is 0.031).  The SSD, the WKV, and the
-# recorded calls of the models, against max |plain output|.
+# tests/test_kernels_attention.py:35 holds bf16 (both round the
+# probabilities to bf16 before the value product, the kernel against its
+# running maximum and the plain version against the row's: one bf16 ulp of
+# an output above 4 is 0.031).  The SSD, the WKV, and the recorded calls of
+# the models, against max |plain output|.
 FLOAT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 # (label, B, Hq, Hkv, Sq, Sk, D, causal, window)
@@ -527,6 +576,7 @@ FA_CASES = [
     ("Sq < Sk", 1, 8, 8, 300, 1000, 128, True, None),
     ("non-causal", 1, 20, 20, 1500, 1500, 64, False, None),
     ("MQA", 1, 8, 1, 512, 512, 128, True, None),
+    ("window straddles key tiles", 1, 8, 8, 129, 129, 112, True, 70),
 ]
 # (label, B, T, H, P, G, N)
 SSD_CASES = [
@@ -535,6 +585,9 @@ SSD_CASES = [
     ("T=127", 1, 127, 112, 64, 1, 64),
     ("T=1000", 1, 1000, 112, 64, 1, 64),
     ("G=2", 1, 512, 16, 64, 2, 64),
+    ("T=65, ragged by one chunk step", 1, 65, 112, 64, 1, 64),
+    ("T=4097, ragged by one chunk step", 1, 4097, 112, 64, 1, 64),
+    ("N=128, the largest state", 1, 1000, 16, 64, 2, 128),
 ]
 # (label, B, H, T, K, V)
 WKV_CASES = [
@@ -862,6 +915,9 @@ def phase_model(torch, mods, dev, name, keep, agree):
 
 
 def _kernel_group(key: str) -> str:
+    """A profiler row's group: every CUDA kernel of a float kernel's wrapper
+    carries ``<name>_kernel`` in its name (``flash_attention_kernel_mma``,
+    ``flash_attention_kernel_f32``, ...), whatever else a design launches."""
     for name in FLOAT_KERNELS:
         if f"{name}_kernel" in key:
             return f"{name}_kernel"
@@ -893,8 +949,13 @@ def phase_prefill_bf16(torch, mods, dev, name):
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for k in FLOAT_KERNELS:
+        _wrapper(mods, k).launches = 0
     rows, prof_ms = profile_device(torch, lambda: model.prefill(params,
                                                                 tokens))
+    # wrapper calls over the profiled pass: a design may launch several
+    # CUDA kernels a call, so a call's time is its group's time over these
+    prof_calls = {k: _wrapper(mods, k).launches for k in FLOAT_KERNELS}
     dev_rows = [r for r in rows if _is_device_row(r) and _device_us(r) > 0]
     dev_ms = sum(_device_us(r) for r in dev_rows) / 1e3
     log(f"[prefill] {name} bf16 1 x {PREFILL_SEQ} tokens: "
@@ -916,8 +977,10 @@ def phase_prefill_bf16(torch, mods, dev, name):
     per_launch = {}
     for k in FLOAT_KERNELS:
         t_ms, cnt = groups.get(f"{k}_kernel", (0.0, 0))
-        if cnt:
-            per_launch[k] = t_ms / cnt
+        if cnt and prof_calls[k]:
+            per_launch[k] = t_ms / prof_calls[k]
+            log(f"[prefill]   {k}: {prof_calls[k]} wrapper calls, {cnt} CUDA "
+                f"kernels, {per_launch[k]:.6f} ms a call")
     del params, logits
     torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, device_ms=dev_ms, launches=launches,

@@ -1,0 +1,93 @@
+// mma_sm90.cuh: the tensor-core and asynchronous-copy building blocks of
+// the bf16 kernels (flash_attention.cu, mamba2_ssd.cu), as inline PTX for
+// sm_90a.
+//
+//   * mma_bf16_16816: one warp-wide mma.sync.m16n8k16, bf16 operands,
+//     float32 accumulators (row-major A, column-major B).
+//   * ldmatrix_x4 / ldmatrix_x4_trans: four 8x8 bf16 tiles from shared
+//     memory into fragments; lane i gives the row address of tile i / 8.
+//   * cp_async_16: a 16-byte global -> shared copy that bypasses the
+//     registers (cp.async.cg); src_bytes < 16 zero-fills the rest, so a
+//     row past the end of a tensor lands as zeros.
+//   * fast_exp2: 2^x on the special-function unit.
+//   * pack_bf16x2: two floats rounded to bf16 into one 32-bit register,
+//     the lower address in the low half (the mma operand order).
+//
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
+// g = lane / 4 and c = lane % 4:
+//   A (16x16): a0 = (g, 2c..2c+1), a1 = (g+8, 2c..), a2 = (g, 2c+8..),
+//              a3 = (g+8, 2c+8..)
+//   B (16x8):  b0 = (k 2c..2c+1, n g), b1 = (k 2c+8.., n g)
+//   C (16x8):  c0, c1 = (g, 2c..2c+1), c2, c3 = (g+8, 2c..2c+1)
+// so the C fragments of two neighbouring n-tiles are, packed to bf16, the
+// A fragment of one k-step: a product's result feeds the next product
+// without leaving the registers.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_bf16.h>
+
+namespace mma_sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: about 2 ulp; -inf
+// gives +0), what exp2f becomes under --use_fast_math
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+}  // namespace mma_sm90

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` of the package is compiled, at first use, by its own
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
 -fPIC -c`` process, all started together, and the objects are linked by
 one ``nvcc -shared`` into ``build/repro_torch/lib<hash>.so`` at the root
-of the checkout, keyed by a hash of the sources and flags, so a rebuilt
-source never loads a stale library.  The sources export plain C
+of the checkout, keyed by a hash of the sources, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header never loads
+a stale library.  The sources export plain C
 entry points (no PyTorch headers), which keeps the build to seconds.  A
 failed build raises with nvcc's stderr.  Nothing is built at import: the
 CPU tests import every module of the port on a machine without ``nvcc``.
@@ -90,9 +91,14 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    """The headers the sources include (from their own directory)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"

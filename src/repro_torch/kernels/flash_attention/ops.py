@@ -8,7 +8,9 @@ the device of its inputs: CPU tensors take :func:`attention_plain`
 kernel of ``csrc/flash_attention.cu`` or raise.  The kernel takes any
 ``Sq`` and ``Sk`` (the TPU launcher's ``% 128`` tiling contract does not
 apply), head dims up to 256, float32 and bfloat16, and accumulates in
-float32.
+float32: bfloat16 on the tensor cores (``mma.sync``), rounding the
+probabilities to bfloat16 before the value product as
+:func:`attention_plain` does; float32 on the CUDA cores.
 
 :func:`decode_attention` (one query token against a padded cache) stays
 plain PyTorch on every device, as the reference computes it outside any

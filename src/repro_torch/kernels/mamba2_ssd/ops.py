@@ -11,7 +11,9 @@ B and C are shared across head groups: head h reads group ``h // (H/G)``.
 :func:`ssd` dispatches on the device of its inputs: CPU tensors take
 :func:`ssd_plain` (the sequential scan of ``ssd_ref``), CUDA tensors launch
 the kernel of ``csrc/mamba2_ssd.cu`` or raise.  The kernel takes any T (the
-TPU launcher's ``t % chunk`` contract does not apply).  :func:`ssd_decode`
+TPU launcher's ``t % chunk`` contract does not apply): bfloat16 inputs run
+the chunked dual form on the tensor cores (chunks of 64 steps, the state
+in float32), float32 inputs the sequential scan on the CUDA cores.  :func:`ssd_decode`
 is one step of the recurrence, plain PyTorch on every device, as the
 reference's ``ssd_decode_ref``.
 """
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_STATE = 128          # N the kernel takes (8 threads x 16 states)
+MAX_STATE = 128          # N the kernel takes (its mma tiles and registers)
 
 
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -166,3 +166,36 @@ def test_dtype_codes_match_the_wrappers(stem):
     assert _build.dtype_code(torch.float16) is None
     ops_src = (CSRC.parent / "kernels" / stem / "ops.py").read_text()
     assert "_build.dtype_code(" in ops_src
+
+
+# ---------------------------------------------------------------------------
+# the build's cache key
+# ---------------------------------------------------------------------------
+
+def test_library_path_follows_sources_headers_and_flags(tmp_path,
+                                                        monkeypatch):
+    """An edit to a source, a shared header or the flags names another
+    library, so a stale one is never loaded."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path()
+    assert _build.library_path() == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build.library_path()
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    third = _build.library_path()
+    assert third not in (first, second)
+    monkeypatch.setattr(_build, "NVCC_FLAGS",
+                        _build.NVCC_FLAGS + ("-I/usr/local/cutlass/include",))
+    assert _build.library_path() not in (first, second, third)
+
+
+def test_local_includes_are_hashed_headers():
+    """Every ``#include "..."`` of a source names a header of csrc/ that
+    the cache key covers."""
+    hashed = {p.name for p in _build.headers()}
+    for path in sorted(CSRC.glob("*.cu")):
+        for name in re.findall(r'#include\s+"([^"]+)"', path.read_text()):
+            assert name in hashed, f"{path.name} includes {name}"

@@ -40,6 +40,8 @@ def _randn(rng, shape, dtype, dev):
     (2, 4, 4, 129, 129, 256, dict(causal=True, window=40)),
     (1, 4, 1, 77, 77, 64, dict(causal=False)),
     (1, 3, 3, 1, 33, 20, dict(causal=True)),
+    (1, 8, 8, 129, 129, 112, dict(causal=True, window=70)),  # window edge
+    (1, 4, 4, 512, 512, 112, dict(causal=True)),              # zamba2's
 ])
 def test_flash_attention_matches_plain(card, dtype, b, hq, hkv, sq, sk, d,
                                        kw):
@@ -60,6 +62,10 @@ def test_flash_attention_matches_plain(card, dtype, b, hq, hkv, sq, sk, d,
     (1, 127, 8, 64, 1, 64),
     (2, 70, 6, 40, 2, 100),
     (1, 1, 4, 8, 4, 3),
+    (1, 65, 8, 64, 1, 64),      # ragged by one step against 64-step chunks
+    (1, 4097, 4, 64, 1, 64),
+    (1, 300, 4, 64, 2, 128),    # the largest state
+    (1, 256, 8, 64, 1, 64),     # zamba2's
 ])
 def test_ssd_matches_plain(card, dtype, b, t, h, p, g, n):
     rng = np.random.default_rng(1)

@@ -81,6 +81,67 @@ def test_decode_steps_rebuild_the_scan():
                                rtol=1e-5)
 
 
+def ssd_chunked(x, dt, A, Bm, Cm, chunk):
+    """The bf16 kernel's chunked dual form (``csrc/mamba2_ssd.cu``), stated
+    in float32 torch: per chunk of ``chunk`` steps, la = cumsum(dt A),
+
+        y  = ((C B^T) .* seg) (dt x) + exp(la) .* (C S)
+        S' = exp(la_L) S + (B .* exp(la_L - la))^T (dt x)
+
+    with seg[t, s] = exp(la_t - la_s) [s <= t]; the last chunk is padded
+    with dt = 0, x = 0, B = C = 0, as the kernel zero-fills it."""
+    b, t, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    pad = -t % chunk
+    F = torch.nn.functional
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    Bf = F.pad(Bm.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(rep, 2)
+    Cf = F.pad(Cm.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(rep, 2)
+    idx = torch.arange(chunk)
+    lower = (idx[:, None] >= idx[None, :])[None, :, :, None]   # [1, t, s, 1]
+    S = torch.zeros((b, h, n, p))
+    ys = []
+    for c0 in range(0, t + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        xdt = xf[:, sl] * dtf[:, sl, :, None]                     # [b, L, h, p]
+        la = torch.cumsum(dtf[:, sl] * A.float(), dim=1)          # [b, L, h]
+        seg = torch.where(lower, torch.exp(la[:, :, None] - la[:, None, :]),
+                          torch.zeros(()))                        # [b, t, s, h]
+        Bc, Cc = Bf[:, sl], Cf[:, sl]
+        scores = torch.einsum("bthn,bshn->btsh", Cc, Bc)
+        y = torch.einsum("btsh,bshp->bthp", scores * seg, xdt) + \
+            torch.exp(la)[..., None] * torch.einsum("bthn,bhnp->bthp", Cc, S)
+        total = la[:, -1]                                         # [b, h]
+        wgt = torch.exp(total[:, None] - la)                      # [b, L, h]
+        S = torch.exp(total)[..., None, None] * S + torch.einsum(
+            "bshn,bshp->bhnp", Bc * wgt[..., None], xdt)
+        ys.append(y)
+    return torch.cat(ys, 1)[:, :t]
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("t", [1, 37, 65, 128])
+@pytest.mark.parametrize("g", [1, 3])
+def test_chunked_algebra_matches_the_scan(chunk, t, g):
+    """The kernel's chunked algebra against ssd_plain and ssd_ref, with
+    strong decays (A dt down to -20) so a wrong mask or decay shows."""
+    rng = np.random.default_rng(7)
+    b, h, p, n = 2, 6, 8, 5
+    x = rng.standard_normal((b, t, h, p), dtype=np.float32)
+    dt = rng.uniform(0.01, 1.0, (b, t, h)).astype(np.float32)
+    A = -rng.uniform(0.1, 20.0, (h,)).astype(np.float32)
+    Bm = rng.standard_normal((b, t, g, n), dtype=np.float32)
+    Cm = rng.standard_normal((b, t, g, n), dtype=np.float32)
+    args = (x, dt, A, Bm, Cm)
+    got = ssd_chunked(*(torch.from_numpy(a) for a in args), chunk).numpy()
+    plain = ops.ssd_plain(*(torch.from_numpy(a) for a in args)).numpy()
+    ref = np.asarray(ssd_ref(*(jnp.asarray(a) for a in args)))
+    np.testing.assert_allclose(got, plain, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got, ref, atol=TOL, rtol=TOL)
+
+
 def test_cpu_tensors_take_the_plain_version_without_a_launch():
     args = [torch.from_numpy(a) for a in rand_ssd(5, 1, 20, 2, 8, 1, 4)]
     before = ops.ssd.launches
