@@ -33,8 +33,10 @@ Phases (any failure exits nonzero and prints no result):
    ``mamba2_ssd`` at zamba2's layer, ragged T (T = 65 and 4097 are ragged
    by one step against its 64-step chunks), G = 2 and N = 128,
    ``rwkv6_wkv`` at rwkv6-7b's prefill and the smoke
-   config's heads, ragged T, ragged V and B = 2 (decays exp(-exp(x)), x
-   uniform on [-6, 1]), each in float32 and bfloat16.
+   config's heads, ragged T (T = 65 and 4097 against its 64-step chunks),
+   ragged V, K = 40 and B = 2 (decays exp(-exp(x)), x uniform on [-6, 1]),
+   strong decays with exact zeros, and w = 1 over 4096 steps, each in
+   float32 and bfloat16.
 6. **Full-width zamba2-7b** (81 layers, d_model 3584, float32 weights from
    a seeded ``torch.Generator`` on the card): one prefill of 2 x 128
    tokens, the main path of its float kernels (their counts set to 0 just
@@ -589,15 +591,20 @@ SSD_CASES = [
     ("T=4097, ragged by one chunk step", 1, 4097, 112, 64, 1, 64),
     ("N=128, the largest state", 1, 1000, 16, 64, 2, 128),
 ]
-# (label, B, H, T, K, V)
+# (label, B, H, T, K, V, decays): see wkv_inputs
 WKV_CASES = [
-    ("rwkv6-7b prefill", 1, 64, 4096, 64, 64),
-    ("smoke config", 2, 4, 37, 32, 32),
-    ("T=1", 1, 64, 1, 64, 64),
-    ("T=127", 1, 64, 127, 64, 64),
-    ("T=1000", 1, 64, 1000, 64, 64),
-    ("ragged V", 1, 64, 300, 64, 48),
-    ("B=2", 2, 64, 256, 64, 64),
+    ("rwkv6-7b prefill", 1, 64, 4096, 64, 64, "moderate"),
+    ("smoke config", 2, 4, 37, 32, 32, "moderate"),
+    ("T=1", 1, 64, 1, 64, 64, "moderate"),
+    ("T=127", 1, 64, 127, 64, 64, "moderate"),
+    ("T=1000", 1, 64, 1000, 64, 64, "moderate"),
+    ("ragged V", 1, 64, 300, 64, 48, "moderate"),
+    ("B=2", 2, 64, 256, 64, 64, "moderate"),
+    ("T=65, ragged by one chunk step", 1, 64, 65, 64, 64, "moderate"),
+    ("T=4097, ragged by one chunk step", 1, 64, 4097, 64, 64, "moderate"),
+    ("K=40", 1, 64, 1000, 40, 64, "moderate"),
+    ("strong decays, exact zeros", 1, 64, 1000, 64, 64, "strong"),
+    ("w=1 over 4096 steps", 1, 64, 4096, 64, 64, "one"),
 ]
 ZAMBA = "zamba2-7b"
 RWKV = "rwkv6-7b"
@@ -669,15 +676,22 @@ def ssd_inputs(torch, case, dtype, seed, dev):
 
 
 def wkv_inputs(torch, case, dtype, seed, dev):
-    """Unit-normal r, k, v, u; decays exp(-exp(x)) with x uniform on
-    [-6, 1] (0.066 .. 0.9975: near 1 the state carries farthest)."""
-    _, b, h, t, k, v = case
+    """Unit-normal r, k, v, u; decays exp(-exp(x)) as the model makes them,
+    by the case's regime: x uniform on [-6, 1] ("moderate", 0.066 ..
+    0.9975: near 1 the state carries farthest), on [-1, 5] ("strong":
+    about 6 % underflow to exactly 0), or w = 1 exactly ("one": the state
+    never decays and grows largest)."""
+    _, b, h, t, k, v, regime = case
     g = torch.Generator(device=dev).manual_seed(seed)
     r = torch.randn((b, h, t, k), generator=g, device=dev).to(dtype)
     kk = torch.randn((b, h, t, k), generator=g, device=dev).to(dtype)
     vv = torch.randn((b, h, t, v), generator=g, device=dev).to(dtype)
-    x = torch.rand((b, h, t, k), generator=g, device=dev) * 7.0 - 6.0
-    w = torch.exp(-torch.exp(x)).to(dtype)
+    if regime == "one":
+        w = torch.ones((b, h, t, k), device=dev, dtype=dtype)
+    else:
+        lo, hi = {"moderate": (-6.0, 1.0), "strong": (-1.0, 5.0)}[regime]
+        x = torch.rand((b, h, t, k), generator=g, device=dev) * (hi - lo) + lo
+        w = torch.exp(-torch.exp(x)).to(dtype)
     u = torch.randn((h, k), generator=g, device=dev)
     return r, kk, vv, w, u
 
@@ -715,8 +729,8 @@ def phase_model_kernels(torch, mods, dev):
             torch.cuda.synchronize()
             agree["rwkv6_wkv"].add(
                 got, want, FLOAT_TOL[dname],
-                f"rwkv6_wkv {case[0]} (B, H, T, K, V) = {tuple(case[1:])} "
-                f"{dname}", relative=True)
+                f"rwkv6_wkv {case[0]} (B, H, T, K, V) = {tuple(case[1:6])} "
+                f"{case[6]} decays {dname}", relative=True)
             del args, got, want
     torch.cuda.empty_cache()
     return agree
@@ -1051,7 +1065,7 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
 
     case = WKV_CASES[0]
     r, kk, vv, w, u = wkv_inputs(torch, case, torch.bfloat16, 9, dev)
-    _, b, h, t, dk, dv = case
+    _, b, h, t, dk, dv, _ = case
     call = lambda: mods.wkv_ops.wkv6(r, kk, vv, w, u)
     out["rwkv6_wkv"] = dict(
         shape=f"(B, H, T, K, V) = ({b}, {h}, {t}, {dk}, {dv}) bf16",
@@ -1090,7 +1104,8 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
             f"cuda events), bound {r['bound_ms']:.6f} ms ({r['bound_by']}: "
             f"{r['flops']} flop, {r['bytes']} B; "
             f"{r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s, "
-            f"{r['bytes'] / r['ms'] / 1e6:.1f} GB/s achieved), plain "
+            f"{r['bytes'] / r['ms'] / 1e6:.1f} GB/s achieved, "
+            f"{r['ms'] / r['bound_ms']:.2f}x the bound), plain "
             f"{r['plain_ms']:.6f} ms, library {lib}")
     return out
 

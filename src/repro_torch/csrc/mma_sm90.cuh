@@ -1,6 +1,6 @@
 // mma_sm90.cuh: the tensor-core and asynchronous-copy building blocks of
-// the bf16 kernels (flash_attention.cu, mamba2_ssd.cu), as inline PTX for
-// sm_90a.
+// the bf16 kernels (flash_attention.cu, mamba2_ssd.cu, rwkv6_wkv.cu), as
+// inline PTX for sm_90a.
 //
 //   * mma_bf16_16816: one warp-wide mma.sync.m16n8k16, bf16 operands,
 //     float32 accumulators (row-major A, column-major B).
@@ -12,6 +12,7 @@
 //   * fast_exp2: 2^x on the special-function unit.
 //   * pack_bf16x2: two floats rounded to bf16 into one 32-bit register,
 //     the lower address in the low half (the mma operand order).
+//   * named_barrier_sync: bar.sync for a group of warps.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
 // g = lane / 4 and c = lane % 4:
@@ -83,6 +84,13 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// bar.sync on barrier `id` for `count` threads (a multiple of 32): a
+// barrier of some of the block's warps, or of all of them where the warps
+// reach it from different code (warp-specialised kernels)
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

@@ -6,11 +6,15 @@ with a ``[K, V]`` float32 state S (K = key dim, V = value dim)::
     y_t = (S + diag(u) k_t v_t^T)^T r_t
     S  <- diag(w_t) S + k_t v_t^T
 
-with a data-dependent decay ``w_t`` in (0, 1) and the head's bonus ``u``.
+with a data-dependent decay ``w_t`` in [0, 1] and the head's bonus ``u``.
 :func:`wkv6` dispatches on the device of its inputs: CPU tensors take
 :func:`wkv6_plain` (the sequential scan of ``wkv6_ref``), CUDA tensors
-launch the kernel of ``csrc/rwkv6_wkv.cu`` or raise.  The kernel takes any
-T (the TPU launcher's ``t % chunk`` contract does not apply).
+launch a kernel of ``csrc/rwkv6_wkv.cu`` or raise: for bfloat16 the
+chunked form on the tensor cores (64-step chunks, every pair of steps
+factored at a reference step between them, so that each decay factor
+is a product of w in [0, 1]), for float32 the sequential scan on the
+CUDA cores.  The kernels take any T (the TPU launcher's ``t % chunk``
+contract does not apply).
 :func:`wkv6_decode` is one step of the recurrence, plain PyTorch on every
 device, as the reference's ``wkv6_decode_ref``.
 """
@@ -23,7 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_KEY = 64             # K the kernel takes (8 threads x 2 float4 each)
+MAX_KEY = 64             # K the kernels take
 
 
 def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

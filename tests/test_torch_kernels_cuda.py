@@ -83,28 +83,43 @@ def test_ssd_matches_plain(card, dtype, b, t, h, p, g, n):
     assert ((got - want).abs().max() / want.abs().max()).item() <= TOL[dtype]
 
 
+def _wkv_decays(rng, shape, regime):
+    """exp(-exp(x)) as the model makes them: x uniform on [-6, 1]
+    ("moderate", 0.066 .. 0.9975), on [-1, 5] ("strong": about 6 % of them
+    underflow to exactly 0), or w = 1 exactly ("one": the state never
+    decays and grows largest)."""
+    if regime == "one":
+        return np.ones(shape, np.float32)
+    lo, hi = {"moderate": (-6.0, 1.0), "strong": (-1.0, 5.0)}[regime]
+    return np.exp(-np.exp(rng.uniform(lo, hi, shape))).astype(np.float32)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,h,t,k,v", [
-    (1, 64, 4096, 64, 64),      # rwkv6-7b's prefill
-    (2, 4, 37, 32, 32),         # the smoke config's
-    (1, 3, 1, 64, 64),
-    (1, 2, 1000, 64, 48),       # ragged V
-    (2, 2, 70, 20, 100),        # ragged K, V past one block
+@pytest.mark.parametrize("b,h,t,k,v,regime", [
+    (1, 64, 4096, 64, 64, "moderate"),   # rwkv6-7b's prefill
+    (2, 4, 37, 32, 32, "moderate"),      # the smoke config's
+    (1, 3, 1, 64, 64, "moderate"),
+    (1, 2, 1000, 64, 48, "moderate"),    # ragged V
+    (2, 2, 70, 20, 100, "moderate"),     # ragged K, V past one block
+    (1, 8, 65, 64, 64, "moderate"),      # ragged by one chunk step
+    (1, 8, 4097, 64, 64, "moderate"),
+    (1, 8, 300, 40, 64, "moderate"),     # K not a multiple of 16
+    (1, 8, 1000, 64, 64, "strong"),      # exact zero decays
+    (1, 8, 4096, 64, 64, "one"),         # no decay over 4096 steps
 ])
-def test_wkv6_matches_plain(card, dtype, b, h, t, k, v):
+def test_wkv6_matches_plain(card, dtype, b, h, t, k, v, regime):
     rng = np.random.default_rng(2)
     td = getattr(torch, dtype)
     r = _randn(rng, (b, h, t, k), td, card)
     kk = _randn(rng, (b, h, t, k), td, card)
     vv = _randn(rng, (b, h, t, v), td, card)
-    # decays exp(-exp(x)), x uniform on [-6, 1]: 0.066 .. 0.9975
-    x = rng.uniform(-6.0, 1.0, (b, h, t, k)).astype(np.float32)
-    w = torch.from_numpy(np.exp(-np.exp(x))).to(card, td)
+    w = torch.from_numpy(_wkv_decays(rng, (b, h, t, k), regime)).to(card, td)
     u = _randn(rng, (h, k), torch.float32, card)
     before = wk.wkv6.launches
     got = wk.wkv6(r, kk, vv, w, u).float()
     want = wk.wkv6_plain(r, kk, vv, w, u).float()
     assert wk.wkv6.launches == before + 1
+    assert bool(got.isfinite().all())
     assert ((got - want).abs().max() / want.abs().max()).item() <= TOL[dtype]
 
 

@@ -4,8 +4,9 @@ reference's ``wkv6_ref`` / ``wkv6_decode_ref``.
 Inputs come from numpy with a seed; decays are ``exp(-exp(x))`` with x
 uniform on [-6, 1] (0.066 .. 0.9975, where the state carries farthest).
 The reference's Pallas ``wkv6`` is not used: it does not trace on the
-installed JAX.  The kernel runs only on a card
-(``tests/test_torch_kernels_cuda.py``).
+installed JAX.  The kernels run only on a card
+(``tests/test_torch_kernels_cuda.py``); ``wkv6_chunked`` below states the
+bf16 kernel's chunked algebra in float32 torch, held here against both.
 """
 
 import jax.numpy as jnp
@@ -112,3 +113,115 @@ def test_bad_shapes_and_devices_raise():
         ops.wkv6(r, k, v, w.to("meta"), u)
     with pytest.raises(ValueError, match="unsupported device"):
         ops.wkv6(*(a.to("meta") for a in (r, k, v, w, u)))
+
+
+def _decays(rng, shape, regime):
+    """exp(-exp(x)) as the model makes them: x uniform on [-6, 1]
+    ("moderate"), on [-1, 5] ("strong": about 6 % underflow to exactly 0),
+    or w = 1 exactly ("one": the state never decays)."""
+    if regime == "one":
+        return np.ones(shape, np.float32)
+    lo, hi = {"moderate": (-6.0, 1.0), "strong": (-1.0, 5.0)}[regime]
+    return np.exp(-np.exp(rng.uniform(lo, hi, shape))).astype(np.float32)
+
+
+def _excl_cumprod(x, dim, reverse=False):
+    """prod of x over the indices before (after, with reverse) each one."""
+    if reverse:
+        return _excl_cumprod(x.flip(dim), dim).flip(dim)
+    ones = torch.ones_like(x.narrow(dim, 0, 1))
+    body = torch.cumprod(x, dim).narrow(dim, 0, x.shape[dim] - 1)
+    return torch.cat([ones, body], dim)
+
+
+def wkv6_chunked(r, k, v, w, u, chunk, sub):
+    """The bf16 kernel's chunked form (``csrc/rwkv6_wkv.cu``), stated in
+    float32 torch.  Per chunk of ``chunk`` steps entering with state S,
+    with P_t the product of w over the chunk's steps before t and Q_s over
+    those after s::
+
+        y  = A v + (r .* P) S,   S' = P_L .* S + (k .* Q)^T v
+        A[t, s] = sum_k r_t k_s prod_{s<i<t} w_i   (s < t)
+        A[t, t] = sum_k r_t u k_t
+
+    A pair s < t whose highest differing bit b = msb(t ^ s) is at least
+    ``sub`` is factored at ref, the start of the upper half of the aligned
+    2b-block holding both: X_b[t] = r_t prod_{ref<=i<t} w_i and X_b[s] =
+    k_s prod_{s<i<ref} w_i, one tile a level, entries of X_b X_b^T.  The
+    pairs closer than ``sub`` are taken elementwise, per (t, s, k): sub = 1
+    is the kernel's form, sub = 16 that of Yang et al.'s sub-chunks.  Every
+    factor is a product of w in [0, 1].  The last chunk is padded with
+    r = k = v = 0 and w = 0, as the kernel reads steps past T."""
+    b, h, t, dk = r.shape
+    pad = -t % chunk
+    F = torch.nn.functional
+    rf, kf, wf = (F.pad(a.float(), (0, 0, 0, pad)) for a in (r, k, w))
+    vf = F.pad(v.float(), (0, 0, 0, pad))
+    uf = u.float()[None, :, None, :]
+    idx = torch.arange(chunk)
+    lower = idx[:, None] > idx[None, :]
+    S = torch.zeros((b, h, dk, v.shape[-1]))
+    ys = []
+    for c0 in range(0, t + pad, chunk):
+        rc, kc, wc, vc = (a[:, :, c0:c0 + chunk] for a in (rf, kf, wf, vf))
+        A = torch.zeros((b, h, chunk, chunk))
+        lvl = chunk // 2
+        while lvl >= sub:
+            halves = wc.reshape(b, h, chunk // lvl, lvl, dk)
+            from_ref = _excl_cumprod(halves, 3).reshape(b, h, chunk, dk)
+            to_ref = _excl_cumprod(halves, 3, True).reshape(b, h, chunk, dk)
+            upper = ((idx // lvl) % 2 == 1)[None, None, :, None]
+            X = torch.where(upper, rc * from_ref, kc * to_ref)
+            x = idx[:, None] ^ idx[None, :]
+            pick = lower & (x >= lvl) & (x < 2 * lvl)
+            A = A + torch.where(pick, X @ X.transpose(-1, -2), 0.0)
+            lvl //= 2
+        for tt in range(chunk):           # pairs closer than sub
+            for s in range(tt - tt % sub, tt):
+                f = torch.prod(wc[:, :, s + 1:tt], dim=2)
+                A[:, :, tt, s] = (rc[:, :, tt] * kc[:, :, s] * f).sum(-1)
+        A = A + torch.diag_embed((rc * uf * kc).sum(-1))
+        P = _excl_cumprod(wc, 2)
+        Q = _excl_cumprod(wc, 2, reverse=True)
+        ys.append(A @ vc + (rc * P) @ S)
+        S = torch.prod(wc, 2)[..., None] * S + (kc * Q).transpose(-1, -2) @ vc
+    return torch.cat(ys, 2)[:, :, :t]
+
+
+@pytest.mark.parametrize("regime", ["moderate", "strong", "one"])
+@pytest.mark.parametrize("t", [1, 37, 65, 128])
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("sub", [1, 16])
+def test_chunked_algebra_matches_the_scan(sub, chunk, t, regime):
+    """The kernel's chunked algebra (sub = 1) and the sub-chunked one
+    against wkv6_plain and wkv6_ref, in three decay regimes."""
+    rng = np.random.default_rng(8)
+    b, h, dk, dv = 2, 3, 16, 12
+    r, kk, vv, _, u = rand_wkv(8, b, h, t, dk, dv)
+    w = _decays(rng, (b, h, t, dk), regime)
+    if regime == "strong":
+        assert (w == 0).any()
+    args = (r, kk, vv, w, u)
+    got = wkv6_chunked(*(torch.from_numpy(a) for a in args), chunk,
+                       sub).numpy()
+    plain = ops.wkv6_plain(*(torch.from_numpy(a) for a in args)).numpy()
+    ref = np.asarray(wkv6_ref(*(jnp.asarray(a) for a in args)))
+    assert np.isfinite(got).all()
+    assert _rel_err(got, plain) <= TOL
+    assert _rel_err(got, ref) <= TOL
+
+
+def test_one_reference_a_chunk_is_not_finite_with_zero_decays():
+    """The factorization the hierarchy avoids: the chunk start as the one
+    reference, A[t, s] = (r_t P_t) . (k_s / P_{s+1}), divides by P = 0 once
+    a decay is exactly 0, so the test above is known to bite."""
+    rng = np.random.default_rng(9)
+    r, kk, _, _, _ = (torch.from_numpy(a)
+                      for a in rand_wkv(9, 1, 2, 64, 16, 8))
+    w = torch.from_numpy(_decays(rng, (1, 2, 64, 16), "strong"))
+    assert bool((w == 0).any())
+    P = _excl_cumprod(w, 2)
+    P_next = torch.cumprod(w, 2)        # P_{s+1}
+    A = (r * P) @ (kk / P_next).transpose(-1, -2)
+    lower = torch.ones(64, 64).tril(-1).bool()
+    assert not bool(A[..., lower].isfinite().all())
