@@ -14,19 +14,30 @@ Phases (any failure exits nonzero and prints no result):
 2. **Kernel vs plain** on random planes made from a seed on the card:
    ``paxos_apply`` at 5 x 2^20 lanes and at ragged lane counts,
    ``paxos_propose`` at 5 x 800 lanes and ragged counts, idle lanes and
-   mixed per-machine quorum parameters.  Every output plane must equal the
-   plain PyTorch version run on the card (0 mismatches).
+   mixed per-machine quorum parameters; its staged entry
+   ``paxos_propose_staged`` at 5 x 800 with 0, 1, 19, 127 and all 4000
+   lanes staged, at 3 x 1667 and 12289 x 1 with ragged counts (the whole
+   table compared after each in-place call, all lanes staged equal to the
+   whole-stack kernel, a duplicate or out-of-range coordinate refused).
+   Every output plane must equal the plain PyTorch version run on the card
+   (0 mismatches).
 3. **Full-width serve**: ``Cluster(machine_cls=BatchedMachine)`` on the
    card at 5 replicas x 800 sessions x 2^20 key lanes, the kv_mixed
    10/20/70 rmw/write/read mix over 2^20 keys, batched-smoke network
    faults; one plain seed and one all-aboard seed with a crash/restart of
    machine 4 mid-run.  Completions must equal the port's scalar cluster
    on the same seed, the safety checkers must be green, both kernels must
-   have launched, and a sample of the fused calls is replayed through the
-   plain versions on the card.
+   have launched (``paxos_propose`` through its staged entry, once an
+   issuer wave), and a sample of the fused calls is replayed through the
+   plain versions on the card (a staged call against the whole-stack
+   plain version).
 4. **Timings** of each kernel at the main path's shapes (CUDA events,
    median after warm-up), its bound and its plain version's time; the
-   card's busy share over 40 ticks of the serve path.
+   staged entry at 19 and 4000 lanes; the whole-stack issuer wave (the
+   whole-stack step, scatters, gather, pull) against the staged wave in
+   turns on the card, and one profiled pass counting the staged wave's
+   device operations; the card's busy share over 40 ticks of the serve
+   path.
 5. **Float kernels vs plain** on unit-normal inputs made on the card:
    ``flash_attention`` at zamba2's, gemma3's local, qwen1.5's ragged,
    Sq < Sk, non-causal and MQA shapes and a window straddling key tiles,
@@ -87,6 +98,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # straight-line CUDA source (compares, logic, selects, address math)
 APPLY_OPS_PER_LANE = 260
 PROPOSE_OPS_PER_LANE = 520
+# table planes the issuer network reads (all 65 but ts_v, ts_m, has_value)
+PROPOSE_TAB_READ = 62
 
 M, SESSIONS, KEYS = 5, 800, 2 ** 20
 N_OPS = 4000
@@ -158,6 +171,23 @@ def propose_inputs(torch, pv, m, s, seed, dev):
     params = torch.stack([n_machines, majority, commit_need, lth]).to(
         torch.int32).contiguous()
     return tab, rep, params
+
+
+def staged_inputs(torch, rep, m, s, n_staged, seed, dev):
+    """``n_staged`` distinct lanes of an ``m x s`` stack in random order and
+    the packed ``(2 + 13, n_staged)`` buffer staging ``rep``'s columns
+    there: (flat lane indices, staged buffer, host coordinates)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randperm(m * s, generator=g, device=dev)[:n_staged]
+    staged = torch.cat([(idx // s)[None].to(torch.int32),
+                        (idx % s)[None].to(torch.int32),
+                        rep[:, idx]]).contiguous()
+    return idx, staged, staged[:2].cpu().numpy()
+
+
+# (m, s) of the stack, staged lane counts
+STAGED_CASES = [((M, SESSIONS), (0, 1, 19, 127, M * SESSIONS)),
+                ((3, 1667), (65, 777)), ((12289, 1), (4099,))]
 
 
 class Agreement:
@@ -260,7 +290,70 @@ def phase_kernels(torch, apply_ops, propose_ops, pv, dev):
         log(f"[kernels] paxos_propose {m}x{s}: 0 mismatches over "
             f"{sum(t.numel() for t in got)} outputs, {decisions} distinct "
             f"decisions")
+    for i, ((m, s), counts) in enumerate(STAGED_CASES):
+        tab, rep, params = propose_inputs(torch, pv, m, s, 250 + i, dev)
+        for j, n_staged in enumerate(counts):
+            phase_staged_case(torch, propose_ops, tab, rep, params, m, s,
+                              n_staged, 260 + 10 * i + j, propose_ok, dev)
+    _staged_refusals(torch, propose_ops, pv, dev)
     return apply_ok, propose_ok
+
+
+def phase_staged_case(torch, propose_ops, tab, rep, params, m, s, n_staged,
+                      seed, propose_ok, dev):
+    """The staged kernel against its plain version on clones of one table:
+    the compact outputs and the whole table after the in-place call (the
+    unstaged lanes untouched); with every lane staged, also against the
+    whole-stack kernel."""
+    idx, staged, coords = staged_inputs(torch, rep, m, s, n_staged, seed, dev)
+    tab_k, tab_p = tab.clone(), tab.clone()
+    got = propose_ops.paxos_propose_staged(tab_k, staged, params, s,
+                                           coords=coords)
+    want = propose_ops.paxos_propose_staged_plain(tab_p, staged, params, s)
+    torch.cuda.synchronize()
+    what = f"paxos_propose_staged {m}x{s} L={n_staged}"
+    pairs = [(tab_k, tab_p)] + ([(got, want)] if n_staged else [])
+    propose_ok.add(torch, *zip(*pairs), what)
+    note = ""
+    if n_staged == m * s:
+        whole_tab, whole_act = propose_ops.paxos_propose(
+            tab, propose_ops.dense_replies(staged, m, s), params, s)
+        rows = torch.from_numpy(propose_ops.CHANGED_ROWS).to(dev)
+        torch.cuda.synchronize()
+        propose_ok.add(torch, [tab_k, got[:14], got[14:]],
+                       [whole_tab, whole_act[:, idx],
+                        whole_tab[rows][:, idx]],
+                       f"{what} vs the whole-stack kernel")
+        note = "; equal to the whole-stack kernel"
+    changed = int((tab_k != tab).any(0).sum())
+    log(f"[kernels] {what}: 0 mismatches over {got.numel()} outputs and "
+        f"the whole {tuple(tab.shape)} table ({changed} lanes changed, "
+        f"{torch.unique(got[0]).numel() if n_staged else 0} distinct "
+        f"decisions){note}")
+
+
+def _staged_refusals(torch, propose_ops, pv, dev):
+    """A duplicate or out-of-range staged coordinate raises before any
+    launch."""
+    import numpy as np
+
+    tab, rep, params = propose_inputs(torch, pv, 2, 4, 290, dev)
+    for what, coords in (("duplicate", [[1, 0, 1], [3, 2, 3]]),
+                         ("row out of range", [[0, 2], [0, 1]]),
+                         ("lane out of range", [[0, 1], [4, 1]])):
+        c = np.array(coords, np.int32)
+        staged = torch.cat([torch.from_numpy(c).to(dev),
+                            rep[:, :c.shape[1]]]).contiguous()
+        before = propose_ops.paxos_propose.launches
+        try:
+            propose_ops.paxos_propose_staged(tab, staged, params, 4, coords=c)
+        except ValueError as exc:
+            if propose_ops.paxos_propose.launches != before:
+                raise AssertionError(f"staged {what}: launched before "
+                                     f"refusing")
+            log(f"[kernels] paxos_propose_staged {what}: refused ({exc})")
+            continue
+        raise AssertionError(f"paxos_propose_staged accepted a {what}")
 
 
 def _make_cluster(mods, machine_cls, seed, aboard, n_ops):
@@ -288,11 +381,21 @@ def _serve_cluster(mods, machine_cls, seed, aboard, crash, n_ops):
     return cl, time.perf_counter() - t0
 
 
-class Recorder:
-    """Clones the inputs and outputs of a few fused calls on the card."""
+def _snapshot(v):
+    """A copy of a tensor or array argument; other values as they are."""
+    if hasattr(v, "clone"):
+        return v.clone()
+    return v.copy() if hasattr(v, "copy") else v
 
-    def __init__(self, torch, fn, keep):
+
+class Recorder:
+    """Clones the inputs and outputs of a few fused calls on the card;
+    ``after`` names positional arguments updated in place, which are
+    cloned again after the call and kept after the outputs."""
+
+    def __init__(self, torch, fn, keep, after=()):
         self.torch, self.fn, self.keep = torch, fn, set(keep)
+        self.after = tuple(after)
         self.calls = 0
         self.samples = []
 
@@ -301,23 +404,28 @@ class Recorder:
         self.calls += 1
         if i not in self.keep:
             return self.fn(*args, **kw)
-        ins = [a.clone() for a in args]
+        ins = [_snapshot(a) for a in args]
+        kw_in = {k: _snapshot(v) for k, v in kw.items()}
         outs = self.fn(*args, **kw)
         kept = outs if isinstance(outs, (tuple, list)) else [outs]
-        self.samples.append((i, ins, kw, [o.clone() for o in kept]))
+        self.samples.append((i, ins, kw_in,
+                             [o.clone() for o in kept]
+                             + [args[j].clone() for j in self.after]))
         return outs
 
 
 def phase_serve(torch, mods, dev, n_ops):
     ce = mods.cluster_engine
     rec_r = Recorder(torch, ce._fused_receiver_step, (0, 7, 70, 400))
-    rec_i = Recorder(torch, ce._fused_issuer_step, (0, 7, 70, 400))
+    # the staged issuer step updates the table (argument 0) in place
+    rec_i = Recorder(torch, ce.paxos_propose_staged, (0, 7, 70, 400),
+                     after=(0,))
     batched_cls = functools.partial(mods.BatchedMachine, device=dev)
     runs = []
     # the main path: counts start at 0 here and are read right after
     mods.apply_ops.paxos_apply.launches = 0
     mods.propose_ops.paxos_propose.launches = 0
-    ce._fused_receiver_step, ce._fused_issuer_step = rec_r, rec_i
+    ce._fused_receiver_step, ce.paxos_propose_staged = rec_r, rec_i
     try:
         for seed, aboard, crash in ((0, False, False), (1, True, True)):
             torch.cuda.synchronize()
@@ -327,13 +435,22 @@ def phase_serve(torch, mods, dev, n_ops):
             runs.append((seed, aboard, crash, batched, t_b))
     finally:
         ce._fused_receiver_step = rec_r.fn
-        ce._fused_issuer_step = rec_i.fn
+        ce.paxos_propose_staged = rec_i.fn
     launches = {"paxos_apply": mods.apply_ops.paxos_apply.launches,
                 "paxos_propose": mods.propose_ops.paxos_propose.launches}
     log(f"[serve] main-path launches: {json.dumps(launches)}")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    # every paxos_propose launch came from the staged entry, one a wave
+    issuer_calls = sum(r[3].engine.stats["fused_issuer_calls"] for r in runs)
+    if not launches["paxos_propose"] == rec_i.calls == issuer_calls:
+        raise AssertionError(
+            f"paxos_propose launched {launches['paxos_propose']} times, the "
+            f"staged entry was called {rec_i.calls} times, for "
+            f"{issuer_calls} issuer waves")
+    log(f"[serve] paxos_propose: all {issuer_calls} launches through the "
+        f"staged entry, one an issuer wave")
 
     waves_all = 0
     for seed, aboard, crash, batched, t_b in runs:
@@ -375,6 +492,11 @@ def phase_serve(torch, mods, dev, n_ops):
             f"{eng.kv.d2h_bytes}, tab up {eng.tab.h2d_bytes} / down "
             f"{eng.tab.d2h_bytes}; {tel['plane_syncs']} uploads), "
             f"batched wall {t_b:.2f} s, scalar wall {t_s:.2f} s")
+        iss_waves = tel["fused_issuer_calls"]
+        log(f"[serve] seed {seed}: issuer waves {iss_waves}, host waits "
+            f"{tel['issuer_wave_syncs']} "
+            f"({tel['issuer_wave_syncs'] / max(1, iss_waves):.2f} a wave), "
+            f"tab pull bytes {eng.tab.d2h_bytes}")
     return runs, rec_r, rec_i, launches, waves_all
 
 
@@ -388,14 +510,23 @@ def phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok):
                outs[2].view(m * k)]
         apply_ok.add(torch, got, want, f"recorded receiver call {i}")
         log(f"[replay] receiver call {i} ({m}x{k} lanes): equal to plain")
+    ops = mods.propose_ops
     for i, ins, _, outs in rec_i.samples:
-        tab, rep, params = ins
-        _, m, s = tab.shape
-        want = mods.propose_ops.paxos_propose_plain(
-            tab.view(65, m * s), rep.view(13, m * s), params, s)
-        got = [outs[0].view(65, m * s), outs[1].view(14, m * s)]
-        propose_ok.add(torch, got, want, f"recorded issuer call {i}")
-        log(f"[replay] issuer call {i} ({m}x{s} lanes): equal to plain")
+        # the staged call against the whole-stack plain version: its
+        # replies scattered into an idle stack, the whole table compared
+        tab, staged, params, s = ins
+        out, tab_after = outs
+        m = params.shape[1]
+        want_tab, want_act = ops.paxos_propose_plain(
+            tab, ops.dense_replies(staged, m, s), params, s)
+        idx = staged[0].long() * s + staged[1].long()
+        rows = torch.from_numpy(ops.CHANGED_ROWS).to(tab.device)
+        propose_ok.add(torch, [tab_after, out[:14], out[14:]],
+                       [want_tab, want_act[:, idx], want_tab[rows][:, idx]],
+                       f"recorded issuer call {i}")
+        log(f"[replay] issuer call {i} ({staged.shape[1]} staged lanes of "
+            f"{m}x{s}): table and actions equal to the whole-stack plain "
+            f"version")
     if not rec_r.samples or not rec_i.samples:
         raise AssertionError("no fused call was recorded")
 
@@ -528,6 +659,8 @@ def phase_timings(torch, mods, pv, dev, waves_all):
             f"{t['bytes']} B, {t['bytes'] / t['ms'] / 1e6:.1f} GB/s "
             f"achieved), plain {t['plain_ms']:.6f} ms")
 
+    phase_staged_timings(torch, mods, tab, rep, params, dev)
+
     # what the reference's whole-stack transfers would cost a wave at this
     # width: KV pull + re-upload, message staging up, replies + mask down
     host_kv = torch.empty((18, M, KEYS), dtype=torch.int32, pin_memory=True)
@@ -548,6 +681,126 @@ def phase_timings(torch, mods, pv, dev, waves_all):
         f"({w_bytes / w_ms / 1e6:.1f} GB/s); x {waves_all} waves of the "
         f"serve phase = {w_ms * waves_all / 1e3:.1f} s")
     return out
+
+
+def phase_staged_timings(torch, mods, tab, rep, params, dev):
+    """The staged entry's device and wrapper time at 19 lanes (a serve
+    wave's) and at all 4000 lanes of the 5 x 800 stack, staged in random
+    order (each lane's table column is then its own gather) and in lane
+    order, against its bytes bound: 8 B of coordinates and 52 B of
+    replies, the 62 table planes the network reads, the 44 changed planes
+    written back and the 58 output planes, a lane, plus the parameter
+    columns of the rows staged."""
+    ops = mods.propose_ops
+    for n_staged, order in ((19, "random"), (M * SESSIONS, "random"),
+                            (M * SESSIONS, "lane")):
+        idx, staged, coords = staged_inputs(torch, rep, M, SESSIONS,
+                                            n_staged, 9, dev)
+        if order == "lane":
+            staged = staged[:, idx.argsort()].contiguous()
+            coords = staged[:2].cpu().numpy()
+        tab_s = tab.clone()
+        out = torch.empty((ops.N_OUT, n_staged), dtype=torch.int32,
+                          device=dev)
+        call = lambda: ops.paxos_propose_staged(tab_s, staged, params,
+                                                SESSIONS, out=out,
+                                                coords=coords)
+        event_ms = cuda_ms(torch, call, 20, inner=50)
+        device_ms = kernel_device_ms(torch, call, 200,
+                                     "paxos_propose_staged_kernel")
+        rows = len(set(coords[0].tolist()))
+        n_bytes = (n_staged * (8 + 52 + 4 * PROPOSE_TAB_READ
+                               + 4 * ops.N_CHG + 4 * ops.N_OUT)
+                   + 4 * 4 * rows)
+        ops_t = PROPOSE_OPS_PER_LANE * n_staged / INT32_OPS_PER_S
+        bound_ms = max(n_bytes / HBM_BYTES_PER_S, ops_t) * 1e3
+        ms = device_ms if device_ms is not None else event_ms
+        log(f"[time] paxos_propose_staged at {n_staged} of {M}x{SESSIONS} "
+            f"lanes in {order} order: kernel {ms:.6f} ms "
+            f"({'profiler' if device_ms is not None else 'cuda events'}; "
+            f"{event_ms:.6f} ms a wrapper call by cuda events), bound "
+            f"{bound_ms:.6f} ms (bytes, {n_bytes} B), "
+            f"{ms / bound_ms:.1f}x the bound")
+    phase_issuer_waves(torch, mods, rep, dev)
+
+
+def phase_issuer_waves(torch, mods, rep, dev, n_staged=19, waves=200):
+    """The whole-stack issuer wave against the staged wave, in turns (old,
+    new, new, old) on one card, each at ``n_staged`` lanes of a 5 x 800
+    stack, as host-clock microseconds a wave (each ends in its download);
+    then one profiled pass of 50 staged waves, which must show exactly one
+    upload, one staged kernel and one download a wave."""
+    import numpy as np
+
+    ce, pv = mods.cluster_engine, mods.pv
+    idx, staged, coords = staged_inputs(torch, rep, M, SESSIONS, n_staged,
+                                        11, dev)
+    s_mi, s_lane = coords[0].tolist(), coords[1].tolist()
+    replies = staged[2:].cpu().numpy()
+    eng = ce.ClusterEngine(mods.ProtocolConfig(
+        n_machines=M, sessions_per_machine=SESSIONS), M, device=dev)
+    params = eng._params()
+    # the whole-stack wave as the engine ran it before the staged entry,
+    # then the later pull
+    stack = ce.PlaneStack(pv.ProposerTable._fields, pv.TABLE_DEFAULTS, M,
+                          SESSIONS, device=dev)
+    stage = torch.zeros((13, M, SESSIONS), dtype=torch.int32, device=dev)
+    stage[0] = -1
+    idle_col = stage[:, 0, :1].clone()
+    act_host = np.empty((14, M, SESSIONS), np.int32)
+
+    def old_wave():
+        tab_dev = stack.push()
+        mi_t, lane_t, vals_t = ce._coords(s_mi, s_lane, replies, dev)
+        stage[:, mi_t, lane_t] = vals_t
+        out_tab, out_act = ce._fused_issuer_step(
+            tab_dev, stage, params, out=stack.out_buffer())
+        stage[:, mi_t, lane_t] = idle_col
+        stack.absorb(out_tab, mi_t, lane_t)
+        act_host[:, s_mi, s_lane] = out_act[:, mi_t, lane_t].cpu().numpy()
+        stack.pull()
+
+    def new_wave():
+        eng.issuer_wave(s_mi, s_lane, replies)
+
+    def turn(fn):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(waves):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e6)
+        return out
+
+    times = {"old": [], "new": []}
+    for name in ("old", "new", "new", "old"):
+        times[name] += turn(old_wave if name == "old" else new_wave)
+    old_us, new_us = (statistics.median(times[k]) for k in ("old", "new"))
+    log(f"[time] issuer wave at {n_staged} of {M}x{SESSIONS} lanes, host "
+        f"clock, turns old/new/new/old x {waves} waves: whole-stack wave "
+        f"(coords, scatter, whole-stack step, reset, gather, pull) "
+        f"{old_us:.1f} us, staged wave {new_us:.1f} us (medians; "
+        f"{old_us - new_us:.1f} us less a wave)")
+
+    rows, _ = profile_device(torch, lambda: [new_wave() for _ in range(50)])
+    dev_rows = [r for r in rows if _is_device_row(r) and _device_us(r) > 0]
+    for r in dev_rows:
+        log(f"[time]   staged waves x50: {r.count:4d} x {r.key[:80]} "
+            f"({_device_us(r) / r.count:.3f} us each)")
+    counts = {"HtoD": 0, "kernel": 0, "DtoH": 0}
+    for r in dev_rows:
+        kind = ("HtoD" if "HtoD" in r.key else "DtoH" if "DtoH" in r.key
+                else "kernel" if "paxos_propose_staged_kernel" in r.key
+                else r.key)
+        counts[kind] = counts.get(kind, 0) + r.count
+    if counts != {"HtoD": 50, "kernel": 50, "DtoH": 50}:
+        raise AssertionError(f"50 staged issuer waves ran device operations "
+                             f"{counts}, not one upload, one kernel and one "
+                             f"download a wave")
+    log("[time] staged issuer wave: 1 HtoD copy, 1 "
+        "paxos_propose_staged_kernel, 1 DtoH copy a wave")
 
 
 # ---------------------------------------------------------------------------
@@ -1154,7 +1407,8 @@ def main(argv=None) -> int:
         completion_tuples=completion_tuples, workload=workload,
         apply_ops=apply_ops, propose_ops=propose_ops,
         BatchedMachine=BatchedMachine, cluster_engine=cluster_engine,
-        np=np, ARCHS=ARCHS, PaxosRegistry=PaxosRegistry, blocks=blocks,
+        np=np, pv=pv, ARCHS=ARCHS, PaxosRegistry=PaxosRegistry,
+        blocks=blocks,
         build_model=build_model, fa_ops=fa_ops, ssd_ops=ssd_ops,
         wkv_ops=wkv_ops, DecodeEngine=DecodeEngine, ServeConfig=ServeConfig)
     dev = torch.device("cuda", 0)

@@ -8,21 +8,35 @@
 // version here is repro_torch.core.proposer_vector.proposer_core, and the
 // two must agree bit for bit (chip_smoke.py checks it on the card).
 //
-// Bound: memory in principle (65 table + 13 reply planes in, 65 table +
-// 14 action planes out, plus 4 quorum parameters per machine row: 628 B a
-// lane), but the serve path calls it on M*S = 5*800 = 4000 lanes (2.5 MB,
-// 0.75 us at 3.35 TB/s), so launch latency sets its time.
+// One network, two entries.  propose_lane() is the network for one lane:
+// the tally folds, the first-match-wins decision cascade (_prio order kept
+// exactly: if/else chains in the reference's case order) and the emission
+// muxes as straight-line code.  It reads 4 quorum parameters, 13 reply
+// values and the table planes, and returns the 14 action values and the 44
+// planes proposer_core changes (ChangedPlane); the other 21 (kPassThrough)
+// it never changes.  Both kernels call it, so they cannot drift.
 //
-// Design: the fused engine's packed (65,M,S) and (13,M,S) stacks are read
-// in place (field stride n = M*S); the quorum parameters stay a (4,M)
-// per-machine block read at row lane/S, so no per-lane parameter plane is
-// materialised.  One thread per lane runs the tally folds, the
-// first-match-wins decision cascade (_prio order kept exactly: if/else
-// chains in the reference's case order) and the emission muxes as
-// straight-line code.  The 21 planes the network never changes are copied
-// through at the end, which keeps them out of registers during the
-// network; 82 live inputs may still spill, which costs little at 4000
-// lanes.  The output stacks are distinct buffers (no in-place update).
+// * paxos_propose_kernel (paxos_propose_launch) is the whole-stack step the
+//   TPU kernel is: (65, n) table + (13, n) replies + (4, M) parameters ->
+//   (65, n) new table + (14, n) actions, out of place.  Bound: bytes (628 B
+//   a lane), but at the serve path's 4000 lanes (2.5 MB, 0.75 us at 3.35
+//   TB/s) launch latency sets its time.
+// * paxos_propose_staged_kernel (paxos_propose_staged_launch) is what the
+//   serve path runs.  proposer_core gates every update on rep.kind >= 0, so
+//   an idle lane's table is unchanged and its decision is WAIT: only the
+//   lanes a wave stages can change.  The kernel takes the wave's packed
+//   (2 + 13, L) buffer (machine row, session lane, the 13 reply planes),
+//   updates those L columns of the resident (65, M*S) table in place and
+//   writes a compact (14 + 44, L) output (actions, then the changed
+//   planes), so the whole issuer wave is one upload, this launch and one
+//   download.  Bound: bytes (716 B a lane: coordinates, replies, the 62
+//   planes read, 44 written back, 58 out), a few ns at a wave's ~19 lanes,
+//   so launch latency and the coordinate -> table load chain set its time.
+//   One thread a staged lane, blocks of 64 so a wave's few
+//   lanes spread over SMs.  The table aliases the update, so it cannot be
+//   __restrict__: every load is issued before any store.  At most one
+//   staged entry per (row, lane): the wrapper checks the host coordinates
+//   before the launch.
 //
 // Bit-exactness: lth_counter + 1 wraps through uint32_t like jnp int32;
 // the per-source bit is 1 << clip(src, 0, 7); popcount8 is __popc of the
@@ -115,7 +129,8 @@ enum Decision {
 };
 
 // Planes the network passes through unchanged (ProposerTable._replace in
-// proposer_core touches the other 44).
+// proposer_core touches the other 44); pinned by
+// tests/test_torch_kernel_layout.py against ops.PASS_THROUGH_FIELDS.
 __constant__ int kPassThrough[] = {
   TAB_lid, TAB_aboard, TAB_helping, TAB_lth_counter, TAB_key, TAB_ts_v,
   TAB_ts_m, TAB_log_no, TAB_rmw_cnt, TAB_rmw_sess, TAB_value,
@@ -124,6 +139,48 @@ __constant__ int kPassThrough[] = {
   TAB_abd_sent_vlog
 };
 constexpr int N_PASS = 21;
+
+// The planes the network changes, in ProposerTable order: the order of the
+// staged entry's compact output after the 14 actions (ops.CHANGED_FIELDS).
+enum ChangedPlane {
+  CHG_phase, CHG_rep_bits, CHG_ack_bits,
+  CHG_rmw_flag, CHG_rmw_nb_flag, CHG_lth_flag,
+  CHG_sh_has, CHG_sh_v, CHG_sh_m,
+  CHG_ltl_has, CHG_ltl_log, CHG_ltl_cnt, CHG_ltl_sess,
+  CHG_ltl_val, CHG_ltl_base_v, CHG_ltl_base_m, CHG_ltl_vlog,
+  CHG_la_has, CHG_la_ts_v, CHG_la_ts_m, CHG_la_cnt,
+  CHG_la_sess, CHG_la_val, CHG_la_base_v, CHG_la_base_m,
+  CHG_la_vlog,
+  CHG_fr_has, CHG_fr_val, CHG_fr_base_v, CHG_fr_base_m,
+  CHG_fr_log,
+  CHG_abd_phase,
+  CHG_abd_rep_bits, CHG_abd_ack_bits, CHG_abd_store_bits,
+  CHG_abd_maxb_v, CHG_abd_maxb_m,
+  CHG_best_base_v, CHG_best_base_m, CHG_best_vlog,
+  CHG_best_val, CHG_best_log, CHG_best_cnt, CHG_best_sess
+};
+constexpr int N_CHG = 44;
+static_assert(CHG_best_sess + 1 == N_CHG, "changed plane count");
+static_assert(N_CHG + N_PASS == N_TAB, "every plane changed or passed");
+
+// ChangedPlane -> ProposerTable plane.
+__constant__ int kChanged[] = {
+  TAB_phase, TAB_rep_bits, TAB_ack_bits,
+  TAB_rmw_flag, TAB_rmw_nb_flag, TAB_lth_flag,
+  TAB_sh_has, TAB_sh_v, TAB_sh_m,
+  TAB_ltl_has, TAB_ltl_log, TAB_ltl_cnt, TAB_ltl_sess,
+  TAB_ltl_val, TAB_ltl_base_v, TAB_ltl_base_m, TAB_ltl_vlog,
+  TAB_la_has, TAB_la_ts_v, TAB_la_ts_m, TAB_la_cnt,
+  TAB_la_sess, TAB_la_val, TAB_la_base_v, TAB_la_base_m,
+  TAB_la_vlog,
+  TAB_fr_has, TAB_fr_val, TAB_fr_base_v, TAB_fr_base_m,
+  TAB_fr_log,
+  TAB_abd_phase,
+  TAB_abd_rep_bits, TAB_abd_ack_bits, TAB_abd_store_bits,
+  TAB_abd_maxb_v, TAB_abd_maxb_m,
+  TAB_best_base_v, TAB_best_base_m, TAB_best_vlog,
+  TAB_best_val, TAB_best_log, TAB_best_cnt, TAB_best_sess
+};
 
 __device__ __forceinline__ bool ts_gt(int av, int am, int bv, int bm) {
   return (bv < av) || ((bv == av) && (bm < am));
@@ -142,6 +199,301 @@ __device__ __forceinline__ int wrap_add(int a, int b) {
                           static_cast<uint32_t>(b));
 }
 
+// The select network of one lane.  p: quorum parameters (Params order),
+// r: the steered reply (IssuerReplyBatch), t: the table (ProposerTable;
+// the network never reads ts_v, ts_m or has_value).  Writes the actions
+// (ActionBatch) and the changed planes (ChangedPlane).  Every index is a
+// constant, so after inlining the arrays live in registers.
+__device__ __forceinline__ void propose_lane(const int (&p)[N_PAR],
+                                             const int (&r)[N_IRP],
+                                             const int (&t)[N_TAB],
+                                             int (&act)[N_ACT],
+                                             int (&chg)[N_CHG]) {
+  const int n_machines = p[PAR_n_machines];
+  const int majority = p[PAR_majority];
+  const int commit_need = p[PAR_commit_need];
+  const int lth_threshold = p[PAR_log_too_high_threshold];
+
+#define LD_T(f) const int t_##f = t[TAB_##f]
+#define LD_R(f) const int r_##f = r[IRP_##f]
+  LD_R(kind); LD_R(opcode); LD_R(src); LD_R(lid); LD_R(ts_v); LD_R(ts_m);
+  LD_R(log_no); LD_R(rmw_cnt); LD_R(rmw_sess); LD_R(value); LD_R(base_v);
+  LD_R(base_m); LD_R(val_log);
+  LD_T(phase); LD_T(lid); LD_T(aboard); LD_T(helping); LD_T(lth_counter);
+  LD_T(abd_phase); LD_T(abd_lid);
+
+  // ---- steering (§3.1.2): lid + phase gates, COMMIT_ACK disambiguation
+  const bool active = r_kind >= 0;
+  const bool is_prop_rep = r_kind == MK_PROP_REPLY;
+  const bool is_acc_rep = r_kind == MK_ACC_REPLY;
+  const bool is_cack = r_kind == MK_COMMIT_ACK;
+  const bool rmw_lid_ok = r_lid == t_lid;
+  const bool to_prop = active && is_prop_rep && (t_phase == PH_PROPOSED) &&
+                       rmw_lid_ok;
+  const bool to_acc = active && is_acc_rep && (t_phase == PH_ACCEPTED) &&
+                      rmw_lid_ok;
+  const bool to_cmt = active && is_cack && (t_phase == PH_COMMITTED) &&
+                      rmw_lid_ok;
+  const bool abd_lid_ok = r_lid == t_abd_lid;
+  const bool to_wq = active && (r_kind == MK_WRITE_QUERY_REPLY) &&
+                     (t_abd_phase == AP_W_QUERY) && abd_lid_ok;
+  const bool to_w = active && (r_kind == MK_WRITE_ACK) &&
+                    (t_abd_phase == AP_W_WRITE) && abd_lid_ok;
+  const bool to_rq = active && (r_kind == MK_READ_QUERY_REPLY) &&
+                     (t_abd_phase == AP_R_QUERY) && abd_lid_ok;
+  const bool to_rc = active && is_cack && !to_cmt &&
+                     (t_abd_phase == AP_R_COMMIT) && abd_lid_ok;
+  const bool to_rmw = to_prop || to_acc || to_cmt;
+
+  const int src_c = r_src < 0 ? 0 : (r_src > 7 ? 7 : r_src);
+  const int bit = 1 << src_c;
+
+  // ---- RMW tally fold (Tally.note, vectorized)
+  LD_T(rep_bits); LD_T(ack_bits);
+  const bool is_ack_op =
+      (r_opcode == REP_ACK) || (r_opcode == REP_ACK_BASE_TS_STALE);
+  const int rep_bits = to_rmw ? (t_rep_bits | bit) : t_rep_bits;
+  const int ack_bits = (to_rmw && is_ack_op) ? (t_ack_bits | bit) : t_ack_bits;
+
+  LD_T(fr_has); LD_T(fr_val); LD_T(fr_base_v); LD_T(fr_base_m); LD_T(fr_log);
+  const bool fr_upd = to_rmw && (r_opcode == REP_ACK_BASE_TS_STALE) &&
+                      cs_gt(r_base_v, r_base_m, r_val_log,
+                            t_fr_base_v, t_fr_base_m, t_fr_log);
+  const int fr_has = fr_upd ? 1 : t_fr_has;
+  const int fr_val = fr_upd ? r_value : t_fr_val;
+  const int fr_base_v = fr_upd ? r_base_v : t_fr_base_v;
+  const int fr_base_m = fr_upd ? r_base_m : t_fr_base_m;
+  const int fr_log = fr_upd ? r_val_log : t_fr_log;
+
+  LD_T(rmw_flag); LD_T(rmw_nb_flag); LD_T(lth_flag);
+  const bool is_rmw_c = r_opcode == REP_RMW_ID_COMMITTED;
+  const bool is_rmw_nb = r_opcode == REP_RMW_ID_COMMITTED_NO_BCAST;
+  const int rmw_flag = (to_rmw && (is_rmw_c || is_rmw_nb)) ? 1 : t_rmw_flag;
+  const int rmw_nb_flag = (to_rmw && is_rmw_nb) ? 1 : t_rmw_nb_flag;
+  const int lth_flag =
+      (to_rmw && (r_opcode == REP_LOG_TOO_HIGH)) ? 1 : t_lth_flag;
+
+  LD_T(ltl_has); LD_T(ltl_log); LD_T(ltl_cnt); LD_T(ltl_sess);
+  LD_T(ltl_val); LD_T(ltl_base_v); LD_T(ltl_base_m); LD_T(ltl_vlog);
+  const bool ltl_upd = to_rmw && (r_opcode == REP_LOG_TOO_LOW) &&
+                       ((t_ltl_has == 0) || (r_log_no > t_ltl_log));
+  const int ltl_has = ltl_upd ? 1 : t_ltl_has;
+  const int ltl_log = ltl_upd ? r_log_no : t_ltl_log;
+  const int ltl_cnt = ltl_upd ? r_rmw_cnt : t_ltl_cnt;
+  const int ltl_sess = ltl_upd ? r_rmw_sess : t_ltl_sess;
+  const int ltl_val = ltl_upd ? r_value : t_ltl_val;
+  const int ltl_base_v = ltl_upd ? r_base_v : t_ltl_base_v;
+  const int ltl_base_m = ltl_upd ? r_base_m : t_ltl_base_m;
+  const int ltl_vlog = ltl_upd ? r_val_log : t_ltl_vlog;
+
+  LD_T(sh_has); LD_T(sh_v); LD_T(sh_m);
+  const bool sh_upd = to_rmw &&
+                      ((r_opcode == REP_SEEN_HIGHER_PROP) ||
+                       (r_opcode == REP_SEEN_HIGHER_ACC)) &&
+                      ((t_sh_has == 0) || ts_gt(r_ts_v, r_ts_m, t_sh_v, t_sh_m));
+  const int sh_has = sh_upd ? 1 : t_sh_has;
+  const int sh_v = sh_upd ? r_ts_v : t_sh_v;
+  const int sh_m = sh_upd ? r_ts_m : t_sh_m;
+
+  LD_T(la_has); LD_T(la_ts_v); LD_T(la_ts_m); LD_T(la_cnt); LD_T(la_sess);
+  LD_T(la_val); LD_T(la_base_v); LD_T(la_base_m); LD_T(la_vlog);
+  const bool la_upd = to_rmw && (r_opcode == REP_SEEN_LOWER_ACC) &&
+                      ((t_la_has == 0) ||
+                       ts_gt(r_ts_v, r_ts_m, t_la_ts_v, t_la_ts_m));
+  const int la_has = la_upd ? 1 : t_la_has;
+  const int la_ts_v = la_upd ? r_ts_v : t_la_ts_v;
+  const int la_ts_m = la_upd ? r_ts_m : t_la_ts_m;
+  const int la_cnt = la_upd ? r_rmw_cnt : t_la_cnt;
+  const int la_sess = la_upd ? r_rmw_sess : t_la_sess;
+  const int la_val = la_upd ? r_value : t_la_val;
+  const int la_base_v = la_upd ? r_base_v : t_la_base_v;
+  const int la_base_m = la_upd ? r_base_m : t_la_base_m;
+  const int la_vlog = la_upd ? r_val_log : t_la_vlog;
+
+  // ---- ABD fold (abd_fold, vectorized; §10–§11)
+  LD_T(abd_rep_bits); LD_T(abd_ack_bits); LD_T(abd_store_bits);
+  LD_T(abd_maxb_v); LD_T(abd_maxb_m);
+  const int abd_rep_bits =
+      (to_wq || to_rq) ? (t_abd_rep_bits | bit) : t_abd_rep_bits;
+  const int abd_ack_bits =
+      (to_w || to_rc) ? (t_abd_ack_bits | bit) : t_abd_ack_bits;
+  const bool maxb_upd =
+      to_wq && ts_gt(r_base_v, r_base_m, t_abd_maxb_v, t_abd_maxb_m);
+  const int abd_maxb_v = maxb_upd ? r_base_v : t_abd_maxb_v;
+  const int abd_maxb_m = maxb_upd ? r_base_m : t_abd_maxb_m;
+
+  // §11 three-way carstamp fold
+  LD_T(best_base_v); LD_T(best_base_m); LD_T(best_vlog); LD_T(best_val);
+  LD_T(best_log); LD_T(best_cnt); LD_T(best_sess);
+  LD_T(abd_sent_base_v); LD_T(abd_sent_base_m); LD_T(abd_sent_vlog);
+  const bool rq_low = to_rq && (r_opcode == REP_CARSTAMP_TOO_LOW);
+  const bool cs_better = cs_gt(r_base_v, r_base_m, r_val_log,
+                               t_best_base_v, t_best_base_m, t_best_vlog);
+  const bool cs_equal = (r_base_v == t_best_base_v) &&
+                        (r_base_m == t_best_base_m) &&
+                        (r_val_log == t_best_vlog);
+  const bool new_best = rq_low && cs_better;
+  const bool add_store = rq_low && !cs_better && cs_equal;
+  const bool best_is_sent = (t_best_base_v == t_abd_sent_base_v) &&
+                            (t_best_base_m == t_abd_sent_base_m) &&
+                            (t_best_vlog == t_abd_sent_vlog);
+  const bool eq_store =
+      to_rq && (r_opcode == REP_CARSTAMP_EQUAL) && best_is_sent;
+  const int best_base_v = new_best ? r_base_v : t_best_base_v;
+  const int best_base_m = new_best ? r_base_m : t_best_base_m;
+  const int best_vlog = new_best ? r_val_log : t_best_vlog;
+  const int best_val = new_best ? r_value : t_best_val;
+  const int best_log = new_best ? r_log_no : t_best_log;
+  const int best_cnt = new_best ? r_rmw_cnt : t_best_cnt;
+  const int best_sess = new_best ? r_rmw_sess : t_best_sess;
+  const int abd_store_bits =
+      new_best ? bit
+               : ((add_store || eq_store) ? (t_abd_store_bits | bit)
+                                          : t_abd_store_bits);
+
+  // ---- decisions (decide_propose / decide_accept / decide_commit)
+  LD_T(rmw_cnt); LD_T(rmw_sess);
+  const int acks = popcount8(ack_bits);
+  const int total = popcount8(rep_bits);
+  const bool any_rmw = rmw_flag == 1;
+  const bool any_ltl = ltl_has == 1;
+  const bool any_sh = sh_has == 1;
+  const bool any_lth = lth_flag == 1;
+  const int learned = (rmw_nb_flag == 1) ? D_LEARNED_NO_BCAST : D_LEARNED;
+
+  const bool p_trig =
+      to_prop && (any_rmw || any_ltl || any_sh || (total >= majority));
+  const bool help_self = (la_cnt == t_rmw_cnt) && (la_sess == t_rmw_sess);
+  const int help_d = help_self ? D_HELP_SELF : D_HELP;
+  const int lth_d = (wrap_add(t_lth_counter, 1) >= lth_threshold)
+                        ? D_RECOMMIT : D_RETRY_LOG_TOO_HIGH;
+  int p_decision = D_WAIT;
+  if (p_trig && any_rmw) p_decision = learned;
+  else if (p_trig && any_ltl) p_decision = D_LOG_TOO_LOW;
+  else if (p_trig && any_sh) p_decision = D_RETRY;
+  else if (p_trig && (acks >= majority)) p_decision = D_LOCAL_ACCEPT;
+  else if (p_trig && (la_has == 1)) p_decision = help_d;
+  else if (p_trig && any_lth) p_decision = lth_d;
+
+  const bool helping = t_helping == 1;
+  const bool aboard = t_aboard == 1;
+  const bool any_nack = any_rmw || any_ltl || any_sh || any_lth;
+  const bool a_trig = to_acc && (any_rmw || any_ltl || (total >= majority) ||
+                                 ((helping || aboard) && any_nack));
+  const int need = aboard ? n_machines : majority;
+  const int a_learned = helping ? D_STOP_HELP : learned;
+  const int a_nack_d = helping ? D_STOP_HELP : D_RETRY;
+  int a_decision = D_WAIT;
+  if (a_trig && any_rmw) a_decision = a_learned;
+  else if (a_trig && any_ltl) a_decision = D_LOG_TOO_LOW;
+  else if (a_trig && (acks >= need)) a_decision = D_COMMIT_BCAST;
+  else if (a_trig && any_nack) a_decision = a_nack_d;
+
+  const bool c_done = to_cmt && (acks >= commit_need);
+
+  const int abd_reps = popcount8(abd_rep_bits);
+  const int abd_acks = popcount8(abd_ack_bits);
+  const int stores = popcount8(abd_store_bits);
+  const bool w2 = to_wq && (abd_reps >= majority);
+  const bool w_done = to_w && (abd_acks + 1 >= majority);
+  const bool r_maj = to_rq && (abd_reps >= majority);
+  const bool r_done = r_maj && (stores >= majority);
+  const bool r_wb = r_maj && !r_done;
+  const bool rc_done = to_rc && (abd_acks + 1 >= majority);
+
+  int decision = D_WAIT;
+  if (to_prop) decision = p_decision;
+  else if (to_acc) decision = a_decision;
+  else if (c_done) decision = D_COMMIT_DONE;
+  else if (w2) decision = D_ABD_W2;
+  else if (w_done) decision = D_ABD_W_DONE;
+  else if (r_done) decision = D_ABD_R_DONE;
+  else if (r_wb) decision = D_ABD_R_WB;
+  else if (rc_done) decision = D_ABD_RC_DONE;
+  const bool rmw_decided = (to_prop || to_acc || to_cmt) && (decision != D_WAIT);
+  const bool abd_decided =
+      (to_wq || to_w || to_rq || to_rc) && (decision != D_WAIT);
+
+  // ---- actions (the emission muxes; first match wins as in _prio)
+  LD_T(key); LD_T(log_no); LD_T(value); LD_T(base_v); LD_T(base_m);
+  LD_T(val_log); LD_T(abd_key); LD_T(abd_value);
+  const bool is_retry = decision == D_RETRY;
+  const bool is_ltl_d = decision == D_LOG_TOO_LOW;
+  const bool is_help = (decision == D_HELP) || (decision == D_HELP_SELF);
+  const bool is_cb = decision == D_COMMIT_BCAST;
+  const bool is_w2 = decision == D_ABD_W2;
+  const bool is_rwb = decision == D_ABD_R_WB;
+  const bool thin = is_cb && (acks >= n_machines);   // §8.6 thin commit
+
+  const int bcast_kind = is_cb ? MK_COMMIT
+                       : is_w2 ? MK_WRITE
+                       : is_rwb ? MK_READ_COMMIT : -1;
+  const int act_key = is_cb ? t_key : ((is_w2 || is_rwb) ? t_abd_key : 0);
+  const int act_sh_has = is_retry ? sh_has : 0;
+  const int act_ts_v = (is_retry && (sh_has == 1)) ? sh_v
+                     : is_help ? la_ts_v : 0;
+  const int act_ts_m = is_retry ? ((sh_has == 1) ? sh_m : -1)
+                     : is_help ? la_ts_m : 0;
+  const int act_log = is_ltl_d ? ltl_log : is_cb ? t_log_no
+                    : is_rwb ? best_log : 0;
+  const int act_rmw_cnt = is_ltl_d ? ltl_cnt : is_help ? la_cnt
+                        : is_cb ? t_rmw_cnt : is_rwb ? best_cnt : 0;
+  const int act_rmw_sess = is_ltl_d ? ltl_sess : is_help ? la_sess
+                         : is_cb ? t_rmw_sess : is_rwb ? best_sess : 0;
+  const int act_value = is_ltl_d ? ltl_val : is_help ? la_val
+                      : is_cb ? (thin ? 0 : t_value)
+                      : is_w2 ? t_abd_value : is_rwb ? best_val : 0;
+  const int act_has_value = is_cb ? (thin ? 0 : 1) : 0;
+  const int act_base_v = is_ltl_d ? ltl_base_v : is_help ? la_base_v
+                       : is_cb ? t_base_v : is_w2 ? abd_maxb_v
+                       : is_rwb ? best_base_v : 0;
+  const int act_base_m = is_ltl_d ? ltl_base_m : is_help ? la_base_m
+                       : is_cb ? t_base_m : is_w2 ? abd_maxb_m
+                       : is_rwb ? best_base_m : 0;
+  const int act_val_log = is_ltl_d ? ltl_vlog : is_help ? la_vlog
+                        : is_cb ? t_val_log : is_rwb ? best_vlog : 0;
+#undef LD_T
+#undef LD_R
+
+
+#define ST_A(f, v) act[ACT_##f] = (v)
+  ST_A(decision, decision); ST_A(bcast_kind, bcast_kind);
+  ST_A(key, act_key); ST_A(sh_has, act_sh_has); ST_A(ts_v, act_ts_v);
+  ST_A(ts_m, act_ts_m); ST_A(log_no, act_log); ST_A(rmw_cnt, act_rmw_cnt);
+  ST_A(rmw_sess, act_rmw_sess); ST_A(value, act_value);
+  ST_A(has_value, act_has_value); ST_A(base_v, act_base_v);
+  ST_A(base_m, act_base_m); ST_A(val_log, act_val_log);
+#undef ST_A
+
+  // ---- park decided lanes until the host starts their next round
+#define ST_T(f, v) chg[CHG_##f] = (v)
+  ST_T(phase, rmw_decided ? PH_PAUSED : t_phase);
+  ST_T(abd_phase, abd_decided ? AP_PAUSED : t_abd_phase);
+  ST_T(rep_bits, rep_bits); ST_T(ack_bits, ack_bits);
+  ST_T(rmw_flag, rmw_flag); ST_T(rmw_nb_flag, rmw_nb_flag);
+  ST_T(lth_flag, lth_flag);
+  ST_T(sh_has, sh_has); ST_T(sh_v, sh_v); ST_T(sh_m, sh_m);
+  ST_T(ltl_has, ltl_has); ST_T(ltl_log, ltl_log); ST_T(ltl_cnt, ltl_cnt);
+  ST_T(ltl_sess, ltl_sess); ST_T(ltl_val, ltl_val);
+  ST_T(ltl_base_v, ltl_base_v); ST_T(ltl_base_m, ltl_base_m);
+  ST_T(ltl_vlog, ltl_vlog);
+  ST_T(la_has, la_has); ST_T(la_ts_v, la_ts_v); ST_T(la_ts_m, la_ts_m);
+  ST_T(la_cnt, la_cnt); ST_T(la_sess, la_sess); ST_T(la_val, la_val);
+  ST_T(la_base_v, la_base_v); ST_T(la_base_m, la_base_m);
+  ST_T(la_vlog, la_vlog);
+  ST_T(fr_has, fr_has); ST_T(fr_val, fr_val); ST_T(fr_base_v, fr_base_v);
+  ST_T(fr_base_m, fr_base_m); ST_T(fr_log, fr_log);
+  ST_T(abd_rep_bits, abd_rep_bits); ST_T(abd_ack_bits, abd_ack_bits);
+  ST_T(abd_store_bits, abd_store_bits);
+  ST_T(abd_maxb_v, abd_maxb_v); ST_T(abd_maxb_m, abd_maxb_m);
+  ST_T(best_base_v, best_base_v); ST_T(best_base_m, best_base_m);
+  ST_T(best_vlog, best_vlog); ST_T(best_val, best_val);
+  ST_T(best_log, best_log); ST_T(best_cnt, best_cnt);
+  ST_T(best_sess, best_sess);
+#undef ST_T
+}
+
+// The whole-stack step: every lane of the (65, n) stack, out of place.
 __global__ void __launch_bounds__(256)
 paxos_propose_kernel(const int32_t* __restrict__ tab,
                      const int32_t* __restrict__ rep,
@@ -155,292 +507,60 @@ paxos_propose_kernel(const int32_t* __restrict__ tab,
                    threadIdx.x;
        i < n; i += stride) {
     const int64_t row = i / lanes_per_row;
-    const int n_machines = params[PAR_n_machines * m_rows + row];
-    const int majority = params[PAR_majority * m_rows + row];
-    const int commit_need = params[PAR_commit_need * m_rows + row];
-    const int lth_threshold = params[PAR_log_too_high_threshold * m_rows + row];
-
-#define LD_T(f) const int t_##f = tab[static_cast<int64_t>(TAB_##f) * n + i]
-#define LD_R(f) const int r_##f = rep[static_cast<int64_t>(IRP_##f) * n + i]
-    LD_R(kind); LD_R(opcode); LD_R(src); LD_R(lid); LD_R(ts_v); LD_R(ts_m);
-    LD_R(log_no); LD_R(rmw_cnt); LD_R(rmw_sess); LD_R(value); LD_R(base_v);
-    LD_R(base_m); LD_R(val_log);
-    LD_T(phase); LD_T(lid); LD_T(aboard); LD_T(helping); LD_T(lth_counter);
-    LD_T(abd_phase); LD_T(abd_lid);
-
-    // ---- steering (§3.1.2): lid + phase gates, COMMIT_ACK disambiguation
-    const bool active = r_kind >= 0;
-    const bool is_prop_rep = r_kind == MK_PROP_REPLY;
-    const bool is_acc_rep = r_kind == MK_ACC_REPLY;
-    const bool is_cack = r_kind == MK_COMMIT_ACK;
-    const bool rmw_lid_ok = r_lid == t_lid;
-    const bool to_prop = active && is_prop_rep && (t_phase == PH_PROPOSED) &&
-                         rmw_lid_ok;
-    const bool to_acc = active && is_acc_rep && (t_phase == PH_ACCEPTED) &&
-                        rmw_lid_ok;
-    const bool to_cmt = active && is_cack && (t_phase == PH_COMMITTED) &&
-                        rmw_lid_ok;
-    const bool abd_lid_ok = r_lid == t_abd_lid;
-    const bool to_wq = active && (r_kind == MK_WRITE_QUERY_REPLY) &&
-                       (t_abd_phase == AP_W_QUERY) && abd_lid_ok;
-    const bool to_w = active && (r_kind == MK_WRITE_ACK) &&
-                      (t_abd_phase == AP_W_WRITE) && abd_lid_ok;
-    const bool to_rq = active && (r_kind == MK_READ_QUERY_REPLY) &&
-                       (t_abd_phase == AP_R_QUERY) && abd_lid_ok;
-    const bool to_rc = active && is_cack && !to_cmt &&
-                       (t_abd_phase == AP_R_COMMIT) && abd_lid_ok;
-    const bool to_rmw = to_prop || to_acc || to_cmt;
-
-    const int src_c = r_src < 0 ? 0 : (r_src > 7 ? 7 : r_src);
-    const int bit = 1 << src_c;
-
-    // ---- RMW tally fold (Tally.note, vectorized)
-    LD_T(rep_bits); LD_T(ack_bits);
-    const bool is_ack_op =
-        (r_opcode == REP_ACK) || (r_opcode == REP_ACK_BASE_TS_STALE);
-    const int rep_bits = to_rmw ? (t_rep_bits | bit) : t_rep_bits;
-    const int ack_bits = (to_rmw && is_ack_op) ? (t_ack_bits | bit) : t_ack_bits;
-
-    LD_T(fr_has); LD_T(fr_val); LD_T(fr_base_v); LD_T(fr_base_m); LD_T(fr_log);
-    const bool fr_upd = to_rmw && (r_opcode == REP_ACK_BASE_TS_STALE) &&
-                        cs_gt(r_base_v, r_base_m, r_val_log,
-                              t_fr_base_v, t_fr_base_m, t_fr_log);
-    const int fr_has = fr_upd ? 1 : t_fr_has;
-    const int fr_val = fr_upd ? r_value : t_fr_val;
-    const int fr_base_v = fr_upd ? r_base_v : t_fr_base_v;
-    const int fr_base_m = fr_upd ? r_base_m : t_fr_base_m;
-    const int fr_log = fr_upd ? r_val_log : t_fr_log;
-
-    LD_T(rmw_flag); LD_T(rmw_nb_flag); LD_T(lth_flag);
-    const bool is_rmw_c = r_opcode == REP_RMW_ID_COMMITTED;
-    const bool is_rmw_nb = r_opcode == REP_RMW_ID_COMMITTED_NO_BCAST;
-    const int rmw_flag = (to_rmw && (is_rmw_c || is_rmw_nb)) ? 1 : t_rmw_flag;
-    const int rmw_nb_flag = (to_rmw && is_rmw_nb) ? 1 : t_rmw_nb_flag;
-    const int lth_flag =
-        (to_rmw && (r_opcode == REP_LOG_TOO_HIGH)) ? 1 : t_lth_flag;
-
-    LD_T(ltl_has); LD_T(ltl_log); LD_T(ltl_cnt); LD_T(ltl_sess);
-    LD_T(ltl_val); LD_T(ltl_base_v); LD_T(ltl_base_m); LD_T(ltl_vlog);
-    const bool ltl_upd = to_rmw && (r_opcode == REP_LOG_TOO_LOW) &&
-                         ((t_ltl_has == 0) || (r_log_no > t_ltl_log));
-    const int ltl_has = ltl_upd ? 1 : t_ltl_has;
-    const int ltl_log = ltl_upd ? r_log_no : t_ltl_log;
-    const int ltl_cnt = ltl_upd ? r_rmw_cnt : t_ltl_cnt;
-    const int ltl_sess = ltl_upd ? r_rmw_sess : t_ltl_sess;
-    const int ltl_val = ltl_upd ? r_value : t_ltl_val;
-    const int ltl_base_v = ltl_upd ? r_base_v : t_ltl_base_v;
-    const int ltl_base_m = ltl_upd ? r_base_m : t_ltl_base_m;
-    const int ltl_vlog = ltl_upd ? r_val_log : t_ltl_vlog;
-
-    LD_T(sh_has); LD_T(sh_v); LD_T(sh_m);
-    const bool sh_upd = to_rmw &&
-                        ((r_opcode == REP_SEEN_HIGHER_PROP) ||
-                         (r_opcode == REP_SEEN_HIGHER_ACC)) &&
-                        ((t_sh_has == 0) || ts_gt(r_ts_v, r_ts_m, t_sh_v, t_sh_m));
-    const int sh_has = sh_upd ? 1 : t_sh_has;
-    const int sh_v = sh_upd ? r_ts_v : t_sh_v;
-    const int sh_m = sh_upd ? r_ts_m : t_sh_m;
-
-    LD_T(la_has); LD_T(la_ts_v); LD_T(la_ts_m); LD_T(la_cnt); LD_T(la_sess);
-    LD_T(la_val); LD_T(la_base_v); LD_T(la_base_m); LD_T(la_vlog);
-    const bool la_upd = to_rmw && (r_opcode == REP_SEEN_LOWER_ACC) &&
-                        ((t_la_has == 0) ||
-                         ts_gt(r_ts_v, r_ts_m, t_la_ts_v, t_la_ts_m));
-    const int la_has = la_upd ? 1 : t_la_has;
-    const int la_ts_v = la_upd ? r_ts_v : t_la_ts_v;
-    const int la_ts_m = la_upd ? r_ts_m : t_la_ts_m;
-    const int la_cnt = la_upd ? r_rmw_cnt : t_la_cnt;
-    const int la_sess = la_upd ? r_rmw_sess : t_la_sess;
-    const int la_val = la_upd ? r_value : t_la_val;
-    const int la_base_v = la_upd ? r_base_v : t_la_base_v;
-    const int la_base_m = la_upd ? r_base_m : t_la_base_m;
-    const int la_vlog = la_upd ? r_val_log : t_la_vlog;
-
-    // ---- ABD fold (abd_fold, vectorized; §10–§11)
-    LD_T(abd_rep_bits); LD_T(abd_ack_bits); LD_T(abd_store_bits);
-    LD_T(abd_maxb_v); LD_T(abd_maxb_m);
-    const int abd_rep_bits =
-        (to_wq || to_rq) ? (t_abd_rep_bits | bit) : t_abd_rep_bits;
-    const int abd_ack_bits =
-        (to_w || to_rc) ? (t_abd_ack_bits | bit) : t_abd_ack_bits;
-    const bool maxb_upd =
-        to_wq && ts_gt(r_base_v, r_base_m, t_abd_maxb_v, t_abd_maxb_m);
-    const int abd_maxb_v = maxb_upd ? r_base_v : t_abd_maxb_v;
-    const int abd_maxb_m = maxb_upd ? r_base_m : t_abd_maxb_m;
-
-    // §11 three-way carstamp fold
-    LD_T(best_base_v); LD_T(best_base_m); LD_T(best_vlog); LD_T(best_val);
-    LD_T(best_log); LD_T(best_cnt); LD_T(best_sess);
-    LD_T(abd_sent_base_v); LD_T(abd_sent_base_m); LD_T(abd_sent_vlog);
-    const bool rq_low = to_rq && (r_opcode == REP_CARSTAMP_TOO_LOW);
-    const bool cs_better = cs_gt(r_base_v, r_base_m, r_val_log,
-                                 t_best_base_v, t_best_base_m, t_best_vlog);
-    const bool cs_equal = (r_base_v == t_best_base_v) &&
-                          (r_base_m == t_best_base_m) &&
-                          (r_val_log == t_best_vlog);
-    const bool new_best = rq_low && cs_better;
-    const bool add_store = rq_low && !cs_better && cs_equal;
-    const bool best_is_sent = (t_best_base_v == t_abd_sent_base_v) &&
-                              (t_best_base_m == t_abd_sent_base_m) &&
-                              (t_best_vlog == t_abd_sent_vlog);
-    const bool eq_store =
-        to_rq && (r_opcode == REP_CARSTAMP_EQUAL) && best_is_sent;
-    const int best_base_v = new_best ? r_base_v : t_best_base_v;
-    const int best_base_m = new_best ? r_base_m : t_best_base_m;
-    const int best_vlog = new_best ? r_val_log : t_best_vlog;
-    const int best_val = new_best ? r_value : t_best_val;
-    const int best_log = new_best ? r_log_no : t_best_log;
-    const int best_cnt = new_best ? r_rmw_cnt : t_best_cnt;
-    const int best_sess = new_best ? r_rmw_sess : t_best_sess;
-    const int abd_store_bits =
-        new_best ? bit
-                 : ((add_store || eq_store) ? (t_abd_store_bits | bit)
-                                            : t_abd_store_bits);
-
-    // ---- decisions (decide_propose / decide_accept / decide_commit)
-    LD_T(rmw_cnt); LD_T(rmw_sess);
-    const int acks = popcount8(ack_bits);
-    const int total = popcount8(rep_bits);
-    const bool any_rmw = rmw_flag == 1;
-    const bool any_ltl = ltl_has == 1;
-    const bool any_sh = sh_has == 1;
-    const bool any_lth = lth_flag == 1;
-    const int learned = (rmw_nb_flag == 1) ? D_LEARNED_NO_BCAST : D_LEARNED;
-
-    const bool p_trig =
-        to_prop && (any_rmw || any_ltl || any_sh || (total >= majority));
-    const bool help_self = (la_cnt == t_rmw_cnt) && (la_sess == t_rmw_sess);
-    const int help_d = help_self ? D_HELP_SELF : D_HELP;
-    const int lth_d = (wrap_add(t_lth_counter, 1) >= lth_threshold)
-                          ? D_RECOMMIT : D_RETRY_LOG_TOO_HIGH;
-    int p_decision = D_WAIT;
-    if (p_trig && any_rmw) p_decision = learned;
-    else if (p_trig && any_ltl) p_decision = D_LOG_TOO_LOW;
-    else if (p_trig && any_sh) p_decision = D_RETRY;
-    else if (p_trig && (acks >= majority)) p_decision = D_LOCAL_ACCEPT;
-    else if (p_trig && (la_has == 1)) p_decision = help_d;
-    else if (p_trig && any_lth) p_decision = lth_d;
-
-    const bool helping = t_helping == 1;
-    const bool aboard = t_aboard == 1;
-    const bool any_nack = any_rmw || any_ltl || any_sh || any_lth;
-    const bool a_trig = to_acc && (any_rmw || any_ltl || (total >= majority) ||
-                                   ((helping || aboard) && any_nack));
-    const int need = aboard ? n_machines : majority;
-    const int a_learned = helping ? D_STOP_HELP : learned;
-    const int a_nack_d = helping ? D_STOP_HELP : D_RETRY;
-    int a_decision = D_WAIT;
-    if (a_trig && any_rmw) a_decision = a_learned;
-    else if (a_trig && any_ltl) a_decision = D_LOG_TOO_LOW;
-    else if (a_trig && (acks >= need)) a_decision = D_COMMIT_BCAST;
-    else if (a_trig && any_nack) a_decision = a_nack_d;
-
-    const bool c_done = to_cmt && (acks >= commit_need);
-
-    const int abd_reps = popcount8(abd_rep_bits);
-    const int abd_acks = popcount8(abd_ack_bits);
-    const int stores = popcount8(abd_store_bits);
-    const bool w2 = to_wq && (abd_reps >= majority);
-    const bool w_done = to_w && (abd_acks + 1 >= majority);
-    const bool r_maj = to_rq && (abd_reps >= majority);
-    const bool r_done = r_maj && (stores >= majority);
-    const bool r_wb = r_maj && !r_done;
-    const bool rc_done = to_rc && (abd_acks + 1 >= majority);
-
-    int decision = D_WAIT;
-    if (to_prop) decision = p_decision;
-    else if (to_acc) decision = a_decision;
-    else if (c_done) decision = D_COMMIT_DONE;
-    else if (w2) decision = D_ABD_W2;
-    else if (w_done) decision = D_ABD_W_DONE;
-    else if (r_done) decision = D_ABD_R_DONE;
-    else if (r_wb) decision = D_ABD_R_WB;
-    else if (rc_done) decision = D_ABD_RC_DONE;
-    const bool rmw_decided = (to_prop || to_acc || to_cmt) && (decision != D_WAIT);
-    const bool abd_decided =
-        (to_wq || to_w || to_rq || to_rc) && (decision != D_WAIT);
-
-    // ---- actions (the emission muxes; first match wins as in _prio)
-    LD_T(key); LD_T(log_no); LD_T(value); LD_T(base_v); LD_T(base_m);
-    LD_T(val_log); LD_T(abd_key); LD_T(abd_value);
-    const bool is_retry = decision == D_RETRY;
-    const bool is_ltl_d = decision == D_LOG_TOO_LOW;
-    const bool is_help = (decision == D_HELP) || (decision == D_HELP_SELF);
-    const bool is_cb = decision == D_COMMIT_BCAST;
-    const bool is_w2 = decision == D_ABD_W2;
-    const bool is_rwb = decision == D_ABD_R_WB;
-    const bool thin = is_cb && (acks >= n_machines);   // §8.6 thin commit
-
-    const int bcast_kind = is_cb ? MK_COMMIT
-                         : is_w2 ? MK_WRITE
-                         : is_rwb ? MK_READ_COMMIT : -1;
-    const int act_key = is_cb ? t_key : ((is_w2 || is_rwb) ? t_abd_key : 0);
-    const int act_sh_has = is_retry ? sh_has : 0;
-    const int act_ts_v = (is_retry && (sh_has == 1)) ? sh_v
-                       : is_help ? la_ts_v : 0;
-    const int act_ts_m = is_retry ? ((sh_has == 1) ? sh_m : -1)
-                       : is_help ? la_ts_m : 0;
-    const int act_log = is_ltl_d ? ltl_log : is_cb ? t_log_no
-                      : is_rwb ? best_log : 0;
-    const int act_rmw_cnt = is_ltl_d ? ltl_cnt : is_help ? la_cnt
-                          : is_cb ? t_rmw_cnt : is_rwb ? best_cnt : 0;
-    const int act_rmw_sess = is_ltl_d ? ltl_sess : is_help ? la_sess
-                           : is_cb ? t_rmw_sess : is_rwb ? best_sess : 0;
-    const int act_value = is_ltl_d ? ltl_val : is_help ? la_val
-                        : is_cb ? (thin ? 0 : t_value)
-                        : is_w2 ? t_abd_value : is_rwb ? best_val : 0;
-    const int act_has_value = is_cb ? (thin ? 0 : 1) : 0;
-    const int act_base_v = is_ltl_d ? ltl_base_v : is_help ? la_base_v
-                         : is_cb ? t_base_v : is_w2 ? abd_maxb_v
-                         : is_rwb ? best_base_v : 0;
-    const int act_base_m = is_ltl_d ? ltl_base_m : is_help ? la_base_m
-                         : is_cb ? t_base_m : is_w2 ? abd_maxb_m
-                         : is_rwb ? best_base_m : 0;
-    const int act_val_log = is_ltl_d ? ltl_vlog : is_help ? la_vlog
-                          : is_cb ? t_val_log : is_rwb ? best_vlog : 0;
-#undef LD_T
-#undef LD_R
-
-#define ST_A(f, v) act_out[static_cast<int64_t>(ACT_##f) * n + i] = (v)
-    ST_A(decision, decision); ST_A(bcast_kind, bcast_kind);
-    ST_A(key, act_key); ST_A(sh_has, act_sh_has); ST_A(ts_v, act_ts_v);
-    ST_A(ts_m, act_ts_m); ST_A(log_no, act_log); ST_A(rmw_cnt, act_rmw_cnt);
-    ST_A(rmw_sess, act_rmw_sess); ST_A(value, act_value);
-    ST_A(has_value, act_has_value); ST_A(base_v, act_base_v);
-    ST_A(base_m, act_base_m); ST_A(val_log, act_val_log);
-#undef ST_A
-
-    // ---- park decided lanes until the host starts their next round
-#define ST_T(f, v) tab_out[static_cast<int64_t>(TAB_##f) * n + i] = (v)
-    ST_T(phase, rmw_decided ? PH_PAUSED : t_phase);
-    ST_T(abd_phase, abd_decided ? AP_PAUSED : t_abd_phase);
-    ST_T(rep_bits, rep_bits); ST_T(ack_bits, ack_bits);
-    ST_T(rmw_flag, rmw_flag); ST_T(rmw_nb_flag, rmw_nb_flag);
-    ST_T(lth_flag, lth_flag);
-    ST_T(sh_has, sh_has); ST_T(sh_v, sh_v); ST_T(sh_m, sh_m);
-    ST_T(ltl_has, ltl_has); ST_T(ltl_log, ltl_log); ST_T(ltl_cnt, ltl_cnt);
-    ST_T(ltl_sess, ltl_sess); ST_T(ltl_val, ltl_val);
-    ST_T(ltl_base_v, ltl_base_v); ST_T(ltl_base_m, ltl_base_m);
-    ST_T(ltl_vlog, ltl_vlog);
-    ST_T(la_has, la_has); ST_T(la_ts_v, la_ts_v); ST_T(la_ts_m, la_ts_m);
-    ST_T(la_cnt, la_cnt); ST_T(la_sess, la_sess); ST_T(la_val, la_val);
-    ST_T(la_base_v, la_base_v); ST_T(la_base_m, la_base_m);
-    ST_T(la_vlog, la_vlog);
-    ST_T(fr_has, fr_has); ST_T(fr_val, fr_val); ST_T(fr_base_v, fr_base_v);
-    ST_T(fr_base_m, fr_base_m); ST_T(fr_log, fr_log);
-    ST_T(abd_rep_bits, abd_rep_bits); ST_T(abd_ack_bits, abd_ack_bits);
-    ST_T(abd_store_bits, abd_store_bits);
-    ST_T(abd_maxb_v, abd_maxb_v); ST_T(abd_maxb_m, abd_maxb_m);
-    ST_T(best_base_v, best_base_v); ST_T(best_base_m, best_base_m);
-    ST_T(best_vlog, best_vlog); ST_T(best_val, best_val);
-    ST_T(best_log, best_log); ST_T(best_cnt, best_cnt);
-    ST_T(best_sess, best_sess);
-#undef ST_T
+    int p[N_PAR], r[N_IRP], t[N_TAB], act[N_ACT], chg[N_CHG];
+#pragma unroll
+    for (int k = 0; k < N_PAR; ++k) p[k] = params[k * m_rows + row];
+#pragma unroll
+    for (int k = 0; k < N_IRP; ++k) r[k] = rep[k * n + i];
+#pragma unroll
+    for (int f = 0; f < N_TAB; ++f) t[f] = tab[f * n + i];
+    propose_lane(p, r, t, act, chg);
+#pragma unroll
+    for (int k = 0; k < N_ACT; ++k) act_out[k * n + i] = act[k];
+#pragma unroll
+    for (int k = 0; k < N_CHG; ++k) tab_out[kChanged[k] * n + i] = chg[k];
 #pragma unroll
     for (int k = 0; k < N_PASS; ++k) {
       const int64_t off = static_cast<int64_t>(kPassThrough[k]) * n + i;
       tab_out[off] = tab[off];
     }
+  }
+}
+
+constexpr int kStagedThreads = 64;
+
+// The staged step: L lanes of the resident (65, m_rows * lanes_per_row)
+// table, in place; staged (2 + 13, L), out (14 + 44, L).
+__global__ void __launch_bounds__(kStagedThreads)
+paxos_propose_staged_kernel(int32_t* tab,
+                            const int32_t* __restrict__ staged,
+                            const int32_t* __restrict__ params,
+                            int32_t* __restrict__ out,
+                            int64_t m_rows, int64_t lanes_per_row,
+                            int64_t n_staged) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (j >= n_staged) return;
+  const int64_t n = m_rows * lanes_per_row;
+  const int mi = staged[j];
+  const int64_t i = static_cast<int64_t>(mi) * lanes_per_row +
+                    staged[n_staged + j];
+  // every load before any store: tab is written in place, so a load the
+  // compiler left behind a store to it would wait for that store
+  int p[N_PAR], r[N_IRP], t[N_TAB], act[N_ACT], chg[N_CHG];
+#pragma unroll
+  for (int k = 0; k < N_IRP; ++k) r[k] = staged[(2 + k) * n_staged + j];
+#pragma unroll
+  for (int k = 0; k < N_PAR; ++k) p[k] = params[k * m_rows + mi];
+#pragma unroll
+  for (int f = 0; f < N_TAB; ++f) t[f] = tab[f * n + i];
+  propose_lane(p, r, t, act, chg);
+#pragma unroll
+  for (int k = 0; k < N_ACT; ++k) out[k * n_staged + j] = act[k];
+#pragma unroll
+  for (int k = 0; k < N_CHG; ++k) {
+    out[(N_ACT + k) * n_staged + j] = chg[k];
+    tab[kChanged[k] * n + i] = chg[k];
   }
 }
 
@@ -465,5 +585,30 @@ extern "C" int paxos_propose_launch(const void* tab, const void* rep,
       static_cast<const int32_t*>(tab), static_cast<const int32_t*>(rep),
       static_cast<const int32_t*>(params), static_cast<int32_t*>(tab_out),
       static_cast<int32_t*>(act_out), n, lanes_per_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry for ctypes.  tab (65, m_rows * lanes_per_row), updated in
+// place at the staged lanes; staged (2 + 13, n_staged): machine row, session
+// lane, then the 13 reply planes; params (4, m_rows); out (14 + 44,
+// n_staged): the actions, then the changed planes.  All contiguous int32 on
+// the device, at most one staged entry per (row, lane), rows and lanes in
+// range (the caller checks); launched on `stream`.  n_staged == 0 launches
+// nothing.  Returns cudaGetLastError() of the launch.
+extern "C" int paxos_propose_staged_launch(void* tab, const void* staged,
+                                           const void* params, void* out,
+                                           int64_t m_rows,
+                                           int64_t lanes_per_row,
+                                           int64_t n_staged, void* stream) {
+  if (n_staged <= 0) return 0;
+  if (m_rows <= 0 || lanes_per_row <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (n_staged + kStagedThreads - 1) / kStagedThreads;
+  paxos_propose_staged_kernel<<<static_cast<unsigned>(blocks),
+                                kStagedThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(tab), static_cast<const int32_t*>(staged),
+      static_cast<const int32_t*>(params), static_cast<int32_t*>(out),
+      m_rows, lanes_per_row, n_staged);
   return static_cast<int>(cudaGetLastError());
 }

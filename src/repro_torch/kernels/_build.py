@@ -37,6 +37,8 @@ _F32 = ctypes.c_float
 ENTRY_POINTS = {
     "paxos_apply_launch": [_P, _P, _P, _P, _P, _I64, _P],
     "paxos_propose_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+    # tab, staged, params, out, M, S, L, stream
+    "paxos_propose_staged_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     # q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, window, scale, dtype,
     # stream
     "flash_attention_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,

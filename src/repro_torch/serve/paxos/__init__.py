@@ -15,7 +15,9 @@ and ``(65, M, S)`` issuer proposer ints — and the cluster tick run in fused
         + is_registered bit    └──────────────────────────────────────┘
                                ┌──────────────────────────────────────┐
       wave w, all machines ──▶ │ ONE fused issuer call                │─▶ ActionBatch
-        steered reply lanes    │ paxos_propose kernel over (M·S,)     │  decisions
+        steered reply lanes    │ paxos_propose, staged lanes only,    │  decisions
+                               │ in place: one upload, one launch,    │
+                               │ one download                         │
                                └──────────────────────────────────────┘
       host dispatch between waves (scalar code, bridge row views): grab /
       steal / help, accept values, local commits, retries, inspection

@@ -7,30 +7,38 @@ ints and ``(65, M, S)`` proposer ints — resident on the engine's device,
 and :meth:`ClusterEngine.step_all` advances every machine's tick generator
 in waves: each wave runs one fused receiver call (the ``paxos_apply``
 kernel over the flattened ``(M·K,)`` lanes) and/or one fused issuer call
-(``paxos_propose`` over ``(M·S,)``), then resumes the generators in mid
-order with views of their row of the outputs.  Host code — KV-coupled
-decisions, the registry scatter, wire I/O — runs between waves through the
-unchanged scalar paths, and sends are buffered per machine and flushed in
-mid order so the network RNG draws exactly as the sequential loop's.
+(``paxos_propose_staged`` over the wave's staged session lanes), then
+resumes the generators in mid order with views of their row of the
+outputs.  Host code — KV-coupled decisions, the registry scatter, wire
+I/O — runs between waves through the unchanged scalar paths, and sends
+are buffered per machine and flushed in mid order so the network RNG
+draws exactly as the sequential loop's.
 
 What differs from the reference, and why it changes no result:
 
-* **No donation.**  Torch cannot donate a buffer to a kernel.  Each stack
-  keeps a second device buffer (``spare``); the fused step writes into it
-  and :meth:`PlaneStack.absorb` swaps the two.  The kernels never update
-  in place.
+* **No donation.**  Torch cannot donate a buffer to a kernel.  The
+  receiver step writes the KV stack's second device buffer (``spare``) and
+  :meth:`PlaneStack.absorb` swaps the two.
+* **The issuer wave updates in place, on its staged lanes only.**  An idle
+  reply lane leaves its proposer lane bit-identical and decides WAIT, so
+  the staged-lane entry computes what the reference's whole-stack step
+  does.  A wave packs its ``(machine, lane, 13 reply values)`` columns into
+  one pinned host buffer and is one upload, one ``paxos_propose_staged``
+  launch (in place on the resident table) and one download of the actions
+  and the 44 changed planes, which :meth:`PlaneStack.absorb_in_place`
+  writes into the host mirror: host and device then agree on every lane.
 * **Lane-granular transfers.**  The reference re-uploads the whole message
   staging stack and downloads the whole reply stack every wave, pulls the
   whole KV stack on any host checkout and re-uploads it after any flush —
   at 5 replicas × 2^20 keys that is up to ~1.26 GB across PCIe a wave.
-  Here the staging stacks are device-resident (NOOP / idle by default):
-  a wave uploads only its staged ``(machine, lane)`` columns
+  Here the message staging stack is device-resident (NOOP by default):
+  a receiver wave uploads only its staged ``(machine, lane)`` columns
   (``index_put_``), resets them after the call, and downloads only the
-  staged lanes' reply/action columns into persistent host buffers that
-  ``reply_from_lanes`` / the decision dispatch read (they read staged
-  lanes only).  Host KV writes upload only the lanes a bridge flushed, and
-  a host checkout after a fused step pulls only the lanes that step
-  staged.  This is exact because a NOOP message lane (kind 0) and an idle
+  staged lanes' reply columns into a persistent host buffer that
+  ``reply_from_lanes`` reads (it reads staged lanes only); an issuer wave
+  moves its staged lanes alone, as above.  Host KV writes upload only the
+  lanes a bridge flushed, and a host checkout after a receiver step pulls
+  only the lanes that step staged.  This is exact because a NOOP message lane (kind 0) and an idle
   reply lane (kind -1) leave their KV/proposer lane bit-identical — the
   same property the reference's fused waves rest on, pinned by
   ``tests/test_torch_cluster_engine.py`` (host mirror == device stack
@@ -60,7 +68,9 @@ from repro_torch.core.lanes import (
 from repro_torch.core.types import KVPair
 from repro_torch.device import DeviceLike, int32_planes, resolve_device
 from repro_torch.kernels.paxos_apply.ops import paxos_apply
-from repro_torch.kernels.paxos_propose.ops import N_PAR, paxos_propose
+from repro_torch.kernels.paxos_propose.ops import (
+    CHANGED_ROWS, N_OUT, N_PAR, N_STAGED, paxos_propose, paxos_propose_staged,
+)
 
 I32 = np.int32
 
@@ -75,23 +85,23 @@ N_MSGREG = N_MSG + 1                    # 11 message planes + is_registered
 KV_DEFAULTS = kv_to_lanes(KVPair(key=0))
 
 _MSG_IDX = {f: i for i, f in enumerate(vector.MsgBatch._fields)}
-_IREP_IDX = {f: i for i, f in enumerate(
-    proposer_vector.IssuerReplyBatch._fields)}
 
-# an unstaged message lane is a NOOP (kind=0, has_value=1, not registered);
-# an unstaged reply lane is idle (kind=-1: no fold/decision)
+# an unstaged message lane is a NOOP (kind=0, has_value=1, not registered)
 _NOOP_COL = np.zeros((N_MSGREG,), I32)
 _NOOP_COL[_MSG_IDX["has_value"]] = 1
-_IDLE_COL = np.zeros((N_IREP,), I32)
-_IDLE_COL[_IREP_IDX["kind"]] = -1
 
 
 def _host_array(shape, device: torch.device) -> np.ndarray:
     """A host int32 array; page-locked when it mirrors a CUDA stack so
     uploads and pulls run at full PCIe rate."""
-    if device.type == "cuda":
-        return torch.empty(shape, dtype=torch.int32, pin_memory=True).numpy()
-    return np.empty(shape, I32)
+    return _host_tensor(shape, device).numpy()
+
+
+def _host_tensor(shape, device: torch.device) -> torch.Tensor:
+    """A host int32 tensor, page-locked when it feeds a CUDA device (its
+    copies can then run without a staging copy and ``non_blocking``)."""
+    return torch.empty(shape, dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
 
 
 def _coords(mi: List[int], lanes: List[int], cols: np.ndarray,
@@ -129,7 +139,9 @@ class PlaneStack:
     * ``dev_fresh`` — a fused step's output holds lanes the host has not
       pulled: any host access :meth:`pull`\\ s first, copying back only the
       lanes the steps since the last pull staged (every other lane is
-      bit-identical, see the module docstring).
+      bit-identical, see the module docstring).  A step that updates the
+      stack in place and returns its changed planes
+      (:meth:`absorb_in_place`) leaves nothing to pull.
 
     ``syncs`` counts uploads, ``reloads`` row evict/reloads, and
     ``h2d_bytes``/``d2h_bytes`` the bytes each direction moved.
@@ -287,7 +299,8 @@ class PlaneStack:
     def push(self) -> torch.Tensor:
         """Upload what the host changed and hand the device stack to a
         fused step, which must write into :meth:`out_buffer` and
-        :meth:`absorb` before any further host access."""
+        :meth:`absorb`, or update the stack in place and
+        :meth:`absorb_in_place`, before any further host access."""
         if self.host_dirty:
             self.dev.copy_(torch.from_numpy(self.host))
             self.h2d_bytes += self.host.nbytes
@@ -323,6 +336,19 @@ class PlaneStack:
         self.spare, self.dev = self.dev, dev_out
         self._fresh.append((mi, lanes))
         self.dev_fresh = True
+
+    def absorb_in_place(self, rows: np.ndarray, mi: np.ndarray,
+                        lanes: np.ndarray, cols: np.ndarray) -> None:
+        """Adopt a fused step that updated the device stack in place (the
+        stack :meth:`push` returned) at ``(mi, lanes)``, where it changed
+        only the planes ``rows``; ``cols (len(rows), len(mi))`` are their
+        new values, brought down by the step.  They go into the host
+        mirror, so host and device agree on every lane and nothing is left
+        to pull."""
+        if self.host_dirty or self._dirty_lanes:
+            raise RuntimeError("host writes raced a fused step; push() "
+                               "must precede absorb_in_place()")
+        self.host[rows[:, None], mi, lanes] = cols
 
 
 def stacks_from_numpy(kv, tab, device: DeviceLike = None
@@ -414,14 +440,16 @@ class ClusterEngine:
                               n_shards=self.tab_shards, device=self.device)
         self._machines: Dict[int, object] = {}    # mi -> BatchedMachine
         self._bridges: Dict[int, object] = {}     # mi -> its KVBridge
-        # device-resident staging stacks (NOOP / idle between waves) and
-        # the host buffers the staged lanes' outputs are gathered into
+        # the device-resident message staging stack (NOOP between waves)
+        # and the host buffer the staged lanes' replies are gathered into
         self._msg_stage: Optional[torch.Tensor] = None
-        self._rep_stage: Optional[torch.Tensor] = None
         self._rep_host: Optional[np.ndarray] = None
-        self._act_host: Optional[np.ndarray] = None
         self._noop_col = torch.from_numpy(_NOOP_COL).to(self.device)[:, None]
-        self._idle_col = torch.from_numpy(_IDLE_COL).to(self.device)[:, None]
+        # the issuer wave's flat buffers: packed staged lanes and the
+        # compact output, each pinned on the host and resident on the
+        # device; and the host actions the machines read
+        self._iss_bufs: Optional[Tuple[torch.Tensor, ...]] = None
+        self._act_host: Optional[np.ndarray] = None
         self._params_key = None
         self._params_dev: Optional[torch.Tensor] = None
         self.stats = {"ticks": 0, "waves": 0, "shards": self.shards,
@@ -430,7 +458,8 @@ class ClusterEngine:
                       "receiver_shard_lanes": [0] * self.shards,
                       "issuer_shard_lanes": [0] * self.tab_shards,
                       "shard_registrations": [0] * self.shards,
-                      "stage_h2d_bytes": 0, "gather_d2h_bytes": 0}
+                      "stage_h2d_bytes": 0, "gather_d2h_bytes": 0,
+                      "issuer_wave_syncs": 0}
 
     # -- telemetry -----------------------------------------------------------
 
@@ -514,13 +543,20 @@ class ClusterEngine:
             self._rep_host = np.empty((N_REP,) + shape, I32)
         return self._msg_stage, self._rep_host
 
-    def _rep_buffers(self) -> Tuple[torch.Tensor, np.ndarray]:
+    def _issuer_buffers(self) -> Tuple[torch.Tensor, ...]:
+        """(staged host, staged device, out host, out device): flat int32
+        buffers sized for every lane of the table staged at once (a wave
+        stages each ``(machine, lane)`` at most once)."""
         shape = (self.tab.n_machines, self.tab.n_lanes)
-        if self._rep_stage is None or self._rep_stage.shape[1:] != shape:
-            self._rep_stage = self._idle_col[:, :, None].expand(
-                N_IREP, *shape).contiguous()
+        if self._act_host is None or self._act_host.shape[1:] != shape:
+            cap = shape[0] * shape[1]
+            self._iss_bufs = tuple(
+                buf for rows in (N_STAGED, N_OUT) for buf in (
+                    _host_tensor((rows * cap,), self.device),
+                    torch.empty((rows * cap,), dtype=torch.int32,
+                                device=self.device)))
             self._act_host = np.empty((N_ACT,) + shape, I32)
-        return self._rep_stage, self._act_host
+        return self._iss_bufs
 
     # -- fused wave execution ------------------------------------------------
 
@@ -612,20 +648,9 @@ class ClusterEngine:
                 s_mi.append(mi)
                 s_lane.append(lane)
                 shard_lanes_stat[lane // lps] += 1
-        tab_dev = self.tab.push()
-        stage, act_host = self._rep_buffers()
-        staged = np.array(cols, I32).T
-        mi_t, lane_t, vals_t = _coords(s_mi, s_lane, staged, self.device)
-        self.stats["stage_h2d_bytes"] += staged.nbytes + 8 * len(s_mi)
-        stage[:, mi_t, lane_t] = vals_t
-        out_tab, out_act = _fused_issuer_step(
-            tab_dev, stage, self._params(), out=self.tab.out_buffer())
-        # reset to idle for the next wave
-        stage[:, mi_t, lane_t] = self._idle_col
-        self.tab.absorb(out_tab, mi_t, lane_t)
-        got = out_act[:, mi_t, lane_t].cpu().numpy()
-        self.stats["gather_d2h_bytes"] += got.nbytes
-        act_host[:, s_mi, s_lane] = got
+        got = self.issuer_wave(s_mi, s_lane, np.array(cols, I32).T)
+        act_host = self._act_host
+        act_host[:, s_mi, s_lane] = got[:N_ACT]
         results: Dict[int, Dict[str, np.ndarray]] = {}
         self.stats["fused_issuer_calls"] += 1
         for mach, batch in requests:
@@ -634,6 +659,40 @@ class ClusterEngine:
                 f: act_host[i, mach._mi] for i, f
                 in enumerate(proposer_vector.ActionBatch._fields)}
         return results
+
+    def issuer_wave(self, s_mi: List[int], s_lane: List[int],
+                    replies: np.ndarray) -> np.ndarray:
+        """One fused issuer step over the staged lanes ``(s_mi[j],
+        s_lane[j])`` with the ``(13, L)`` reply columns ``replies``: one
+        upload of the packed lanes, one ``paxos_propose_staged`` launch in
+        place on the resident table, one download of the compact ``(14 +
+        44, L)`` output and one wait for it.  The changed planes go into
+        the table's host mirror; returns the output (a view of a buffer the
+        next wave overwrites)."""
+        n = len(s_mi)
+        st_host, st_dev, out_host, out_dev = self._issuer_buffers()
+        tab_dev = self.tab.push()
+        packed = st_host[:N_STAGED * n].view(N_STAGED, n)
+        packed_np = packed.numpy()
+        packed_np[0] = s_mi
+        packed_np[1] = s_lane
+        packed_np[2:] = replies
+        staged = st_dev[:N_STAGED * n].view(N_STAGED, n)
+        staged.copy_(packed, non_blocking=True)
+        self.stats["stage_h2d_bytes"] += packed_np.nbytes
+        out = out_dev[:N_OUT * n].view(N_OUT, n)
+        paxos_propose_staged(tab_dev.view(N_TAB, -1), staged, self._params(),
+                             self.tab.n_lanes, out=out, coords=packed_np[:2])
+        got = out_host[:N_OUT * n].view(N_OUT, n)
+        got.copy_(out, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.stats["issuer_wave_syncs"] += 1
+        got_np = got.numpy()
+        self.stats["gather_d2h_bytes"] += got_np.nbytes
+        self.tab.absorb_in_place(CHANGED_ROWS, packed_np[0], packed_np[1],
+                                 got_np[N_ACT:])
+        return got_np
 
     def drive(self, pairs: Iterable[Tuple[object, object]]) -> None:
         """Advance (machine, tick-generator) pairs to completion in waves.

@@ -18,6 +18,7 @@ from repro_torch.core import proposer_vector, vector
 from repro_torch.core.proposer import ABD_PAUSED, AbdPhase, Decision, Phase
 from repro_torch.core.types import KVState, MsgKind, Rep
 from repro_torch.kernels import _build
+from repro_torch.kernels.paxos_propose import ops as propose_ops
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
     / "csrc"
@@ -57,6 +58,7 @@ FIELD_SETS = [
      proposer_vector.IssuerReplyBatch._fields),
     ("paxos_propose", "ActionBatch", "ACT_",
      proposer_vector.ActionBatch._fields),
+    ("paxos_propose", "ChangedPlane", "CHG_", propose_ops.CHANGED_FIELDS),
 ]
 
 
@@ -100,6 +102,18 @@ def test_protocol_codes_match_python(stem, enum, expected):
     for name, value in members.items():
         assert name in expected, f"{stem}.cu {enum}: unknown {name}"
         assert value == expected[name], f"{stem}.cu {enum}.{name}"
+
+
+@pytest.mark.parametrize("table,fields", [
+    ("kPassThrough", propose_ops.PASS_THROUGH_FIELDS),
+    ("kChanged", propose_ops.CHANGED_FIELDS)])
+def test_propose_plane_tables_match_python(table, fields):
+    """paxos_propose.cu's pass-through and changed-plane tables name the
+    planes the wrappers split the table into, in the same order."""
+    text = re.sub(r"//[^\n]*", "", (CSRC / "paxos_propose.cu").read_text())
+    body = re.search(table + r"\[\]\s*=\s*\{(.*?)\}", text, re.S).group(1)
+    assert [m.strip() for m in body.split(",") if m.strip()] == \
+        ["TAB_" + f for f in fields]
 
 
 def test_reply_kind_table_matches_python():

@@ -1,4 +1,5 @@
-"""The port's float kernels against their plain versions on a CUDA card.
+"""The port's float kernels and the staged ``paxos_propose`` entry against
+their plain versions on a CUDA card.
 
 The kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card.  The file imports neither JAX nor the reference, so
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.mamba2_ssd import ops as sd
+from repro_torch.kernels.paxos_propose import ops as pp
 from repro_torch.kernels.rwkv6_wkv import ops as wk
 
 pytestmark = pytest.mark.cuda
@@ -136,3 +138,60 @@ def test_unsupported_inputs_raise(card):
     r = torch.zeros((1, 2, 4, 8), device=card)
     with pytest.raises(ValueError, match="bfloat16"):
         wk.wkv6(r, r, r.bfloat16(), r, torch.zeros((2, 8), device=card))
+
+
+def _propose_inputs(rng, m, s, dev):
+    """A (65, m*s) table, (13, m*s) replies (a third idle) and a (4, m)
+    block of mixed quorum parameters, in ranges that reach every
+    decision."""
+    n = m * s
+    tab = rng.integers(-1, 5, (pp.N_TAB, n), dtype=np.int32)
+    tab[0] = rng.integers(0, 5, n)                            # phase
+    rep = rng.integers(-1, 6, (pp.N_IREP, n), dtype=np.int32)
+    rep[0] = rng.choice(np.array([-1, -1, -1, 3, 4, 5, 7, 9, 11]), n)
+    rep[1] = rng.integers(0, 12, n)                           # opcode
+    rep[2] = rng.integers(-1, 9, n)                           # src
+    rep[3] = rng.integers(0, 2, n)                            # lid
+    n_machines = rng.choice(np.array([3, 5, 7]), m)
+    majority = n_machines // 2 + 1
+    params = np.stack([n_machines, majority,
+                       np.where(rng.random(m) < 0.5, 1, majority - 1),
+                       rng.integers(1, 5, m)]).astype(np.int32)
+    return (torch.from_numpy(t).to(dev) for t in (tab, rep, params))
+
+
+@pytest.mark.parametrize("m,s,n_staged", [
+    (5, 800, 1), (5, 800, 19), (5, 800, 4000),    # the serve stack
+    (3, 1667, 777), (12289, 1, 4099),             # ragged counts
+])
+def test_propose_staged_matches_plain(card, m, s, n_staged):
+    rng = np.random.default_rng(n_staged)
+    tab, rep, params = _propose_inputs(rng, m, s, card)
+    idx = rng.permutation(m * s)[:n_staged]
+    coords = np.stack([idx // s, idx % s]).astype(np.int32)
+    staged = torch.cat([torch.from_numpy(coords).to(card),
+                        rep[:, torch.from_numpy(idx).to(card)]]).contiguous()
+    got_tab, want_tab = tab.clone(), tab.clone()
+    before = pp.paxos_propose.launches
+    got = pp.paxos_propose_staged(got_tab, staged, params, s, coords=coords)
+    want = pp.paxos_propose_staged_plain(want_tab, staged, params, s)
+    assert pp.paxos_propose.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got_tab, want_tab)            # the whole table
+    if n_staged == m * s:
+        whole_tab, whole_act = pp.paxos_propose(tab, rep, params, s)
+        assert torch.equal(got_tab, whole_tab)
+        assert torch.equal(got[:pp.N_ACT], whole_act[:, idx])
+
+
+def test_propose_staged_refuses_without_host_coords(card):
+    rng = np.random.default_rng(0)
+    tab, rep, params = _propose_inputs(rng, 2, 4, card)
+    staged = torch.cat([torch.zeros((2, 1), dtype=torch.int32, device=card),
+                        rep[:, :1]]).contiguous()
+    with pytest.raises(ValueError, match="coords"):
+        pp.paxos_propose_staged(tab, staged, params, 4)
+    with pytest.raises(ValueError, match="twice"):
+        pp.paxos_propose_staged(
+            tab, torch.cat([staged, staged], 1).contiguous(), params, 4,
+            coords=np.zeros((2, 2), np.int32))
