@@ -38,7 +38,38 @@ Phases (any failure exits nonzero and prints no result):
    turns on the card, and one profiled pass counting the staged wave's
    device operations; the card's busy share over 40 ticks of the serve
    path.
-5. **Float kernels vs plain** on unit-normal inputs made on the card:
+5. **Open-loop load** through the operations layer: ``OpenLoopHarness``
+   on ``Cluster(machine_cls=BatchedMachine)`` at 5 replicas x 800 sessions
+   x 2^20 Zipf(0.99) keys, the kv_mixed mix, 25 ops a tick for 200 ticks,
+   2 % drops and duplicates, machine 4 crashed at tick 60 and restarted at
+   85, a partition [0, 1, 2] | [3, 4] over ticks 120-150; seed 0 plain and
+   seed 1 all-aboard, each with a sampled ``FlightRecorder``.  Completions,
+   latency reports and path counts must equal the port's scalar cluster's,
+   and the completions the reference's recorded run of the same spec
+   (``tests/data/open_loop_reference.json``, by count and SHA-256); the
+   path counters must reconcile with the history on both clusters; the
+   checkers must say what they say of the reference's run (seed 0 green;
+   seed 1 the reference protocol's linearizability fault, word for word);
+   both kernels must have launched and a sample of the fused calls replays
+   through the plain versions.  Prints each seed's bench lane, the
+   recorder's ``engine.*`` counters, the host time inside the recorder's
+   hooks, the batched wall time with the recorder in mode ``off`` and in
+   mode ``sampled`` in turns, and the device's busy share over one run
+   traced on the device, against that run's own wall.  A failure dumps the
+   recorder under ``build/flight_dumps/`` and re-raises.
+6. **Live reconfiguration**: the storm of ``scripts/reconfig_smoke.py``
+   from 5 members (5 -> 6 -> 7 -> 6 -> 7 -> 6: a partition [2] | [0]
+   across the two joins, machine 2 crashed across the first leave, the
+   leaver rejoined) at 800 sessions over keys 1 .. 2^20 - 1, 4000 ops
+   split 14 : 10 : 8, on the batched cluster on the card and on the scalar
+   cluster.  Completions equal, checkers green (view transitions
+   included), epoch 5 with 6 members, plane rows reloaded, both kernels
+   launched, the first fused call at each machine count replayed through
+   the plain versions, and a member's snapshot equal to its KV row on the
+   card; the whole-row catch-up held to the per-key one on 4096 sampled
+   lanes (reads, and two installs into fresh joiners on the card); prints
+   the seconds and bytes of every snapshot taken and installed.
+7. **Float kernels vs plain** on unit-normal inputs made on the card:
    ``flash_attention`` at zamba2's, gemma3's local, qwen1.5's ragged,
    Sq < Sk, non-causal and MQA shapes and a window straddling key tiles,
    ``mamba2_ssd`` at zamba2's layer, ragged T (T = 65 and 4097 are ragged
@@ -48,7 +79,7 @@ Phases (any failure exits nonzero and prints no result):
    ragged V, K = 40 and B = 2 (decays exp(-exp(x)), x uniform on [-6, 1]),
    strong decays with exact zeros, and w = 1 over 4096 steps, each in
    float32 and bfloat16.
-6. **Full-width zamba2-7b** (81 layers, d_model 3584, float32 weights from
+8. **Full-width zamba2-7b** (81 layers, d_model 3584, float32 weights from
    a seeded ``torch.Generator`` on the card): one prefill of 2 x 128
    tokens, the main path of its float kernels (their counts set to 0 just
    before it and read just after: 13 flash attention, 81 SSD), held
@@ -57,15 +88,15 @@ Phases (any failure exits nonzero and prints no result):
    kernel calls replayed through the plain versions; then ``DecodeEngine``
    routes 4 sessions through ``PaxosRegistry(n_machines=5)`` over
    ``BatchedMachine`` (sticky across two engines) and generates 32 steps.
-7. **bf16 zamba2-7b prefill** at 1 x 4096 tokens (cut from the dry-run's
+9. **bf16 zamba2-7b prefill** at 1 x 4096 tokens (cut from the dry-run's
    ``prefill_32k``, batch 32): wall time, peak memory and one
    ``torch.profiler`` pass; a float kernel's time a call is its CUDA
    kernels' device time over its wrapper's calls in that pass.
-8. **Full-width rwkv6-7b** (32 layers, d_model 4096, 7.5e9 float32
-   weights, drawn after zamba2's are freed): phase 6 again, with 32
+10. **Full-width rwkv6-7b** (32 layers, d_model 4096, 7.5e9 float32
+   weights, drawn after zamba2's are freed): phase 8 again, with 32
    ``rwkv6_wkv`` launches in the prefill.
-9. **bf16 rwkv6-7b prefill** at 1 x 4096 tokens, as phase 7.
-10. **Timings** of the three float kernels at their prefill shapes, their
+11. **bf16 rwkv6-7b prefill** at 1 x 4096 tokens, as phase 9.
+12. **Timings** of the three float kernels at their prefill shapes, their
     bounds, plain versions and, for attention, one
     ``scaled_dot_product_attention`` call (a yardstick the port never
     calls).
@@ -78,6 +109,7 @@ power limit, one JSON object describing the five kernels, and
 from __future__ import annotations
 
 import argparse
+import collections
 import functools
 import json
 import pathlib
@@ -560,6 +592,543 @@ def phase_idle(torch, mods, dev, n_ops, ticks=40):
     return dict(wall_ms=wall_ms, device_ms=dev_ms)
 
 
+# ---------------------------------------------------------------------------
+# the operations layer: open-loop load, the flight recorder, live
+# reconfiguration with snapshot catch-up
+# ---------------------------------------------------------------------------
+
+KIND_TO_PATHS = {"RMW": ("all_aboard_fast", "cp_slow"),
+                 "READ": ("abd_read",), "WRITE": ("abd_write",)}
+# where a failing run's flight recorder is dumped (gitignored)
+DUMP_DIR = ROOT / "build" / "flight_dumps"
+# the open-loop cell: Poisson arrivals at 25 ops a tick for 200 ticks
+OL_RATE, OL_TICKS = 25.0, 200.0
+# the storm's 4000 ops, split 14 : 10 : 8 as scripts/reconfig_smoke.py
+# splits its three loads
+STORM_OPS = (1750, 1250, 1000)
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reconcile_paths(rec, cluster, what):
+    """The recorder's per-path counters against the completion history,
+    exactly (as scripts/open_loop_smoke.py reconciles them)."""
+    kinds = collections.Counter(h["kind"].name for h in cluster.history)
+    paths = rec.path_counts()
+    for kind, names in KIND_TO_PATHS.items():
+        got = sum(paths[p] for p in names)
+        if got != kinds.get(kind, 0):
+            raise AssertionError(
+                f"{what}: {kind} path counters ({got}) do not reconcile "
+                f"with {kinds.get(kind, 0)} completions")
+    if sum(paths.values()) != len(cluster.history):
+        raise AssertionError(
+            f"{what}: {sum(paths.values())} path counts for "
+            f"{len(cluster.history)} completions")
+
+
+def _first_diff(got, want):
+    if len(got) != len(want):
+        return f"{len(got)} vs {len(want)} completions"
+    return next(f"{a} vs {b}" for a, b in zip(got, want) if a != b)
+
+
+def open_loop_spec(mods, seed, sessions=SESSIONS, n_keys=KEYS,
+                   rate=OL_RATE, ticks=OL_TICKS):
+    lg = mods.loadgen
+    return lg.OpenLoopSpec(
+        seed=seed, n_machines=M, sessions=sessions, n_keys=n_keys,
+        zipf_s=0.99, mix=lg.MIXES["kv_mixed"],
+        phases=(lg.ArrivalPhase(rate=rate, ticks=ticks),),
+        all_aboard=seed == 1, drop_prob=0.02, dup_prob=0.02)
+
+
+def open_loop_faults(mods):
+    return (mods.loadgen.FaultPlan(settle=30.0)
+            .crash_restart(4, at=60.0, down_for=25.0)
+            .partition(120.0, 150.0, (0, 1, 2), (3, 4)))
+
+
+class HookClock:
+    """Host seconds spent inside a ``FlightRecorder``'s hooks and its
+    registry's updates (the machines, engine schedulers and harness call
+    them); a hook that calls another counts once.  The schedulers' gauge
+    reads before a publish are outside the clock."""
+
+    HOOKS = ("op_begin", "op_event", "rmw_aboard", "rmw_classic",
+             "rmw_retry", "rmw_steal", "rmw_help", "quorum_wait", "rmw_end",
+             "abd_end", "machine_crash", "note")
+    REGISTRY = ("inc", "set_gauge", "observe")
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.calls = 0
+        self._inside = False
+
+    def wrap(self, rec):
+        for obj, names in ((rec, self.HOOKS), (rec.registry, self.REGISTRY)):
+            for name in names:
+                setattr(obj, name, self._timed(getattr(obj, name)))
+        return rec
+
+    def _timed(self, fn):
+        def timed(*args, **kw):
+            if self._inside:
+                return fn(*args, **kw)
+            self._inside = True
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                self._inside = False
+        return timed
+
+
+def run_open_loop(torch, mods, dev, spec, machine_cls, mode, clock=None):
+    """One open-loop run with a ``FlightRecorder`` in ``mode`` (None: no
+    recorder), its hooks timed by ``clock`` if given; returns (result,
+    recorder, wall seconds).  The checkers run apart from the timed run
+    (``check_open_loop``)."""
+    rec = None if mode is None else mods.FlightRecorder(
+        mode=mode, meta={"seed": spec.seed, "spec": "chip_smoke open_loop"})
+    if clock is not None:
+        clock.wrap(rec)
+    harness = mods.loadgen.OpenLoopHarness(
+        spec, machine_cls=machine_cls, faults=open_loop_faults(mods), obs=rec)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    res = harness.run(check=False)
+    _sync(torch, dev)
+    return res, rec, time.perf_counter() - t0
+
+
+# The reference's scalar cluster on the [open_loop] specs, recorded by
+# tests/test_torch_open_loop.py (which holds the reference to it on every
+# test run): seed -> the spec, the faults, the count and SHA-256 of its
+# completion tuples and the checkers' verdict.  Seed 1 meets a fault of the
+# reference's protocol (ROADMAP, Queue 3): an all-aboard RMW issued by
+# machine 4 at its restart (tick 85) commits at a base older than a write
+# that completed at tick 66, and the checkers raise it.
+REFERENCE_RECORD = ROOT / "tests" / "data" / "open_loop_reference.json"
+
+
+def reference_record(spec, faults):
+    """The reference's recorded run of ``spec`` under ``faults``."""
+    record = json.loads(REFERENCE_RECORD.read_text())[str(spec.seed)]
+    if (record["spec"] != repr(spec)
+            or record["faults"] != repr((faults.settle, faults.events))):
+        raise AssertionError(f"{REFERENCE_RECORD.name} records another run "
+                             f"for seed {spec.seed}: {record['spec']}")
+    return record
+
+
+def check_open_loop(mods, res, rec, record, what):
+    """The harness's ``check=True``: every safety checker on the final
+    cluster, a failure noted in the recorder's ring; then the path counters
+    against the history.  The run must complete what the reference's run
+    completed, tag for tag (by digest), and the checkers must say what they
+    said of it: green, or the same violation word for word."""
+    got = mods.completion_tuples(res.cluster)
+    digest = mods.completion_digest(got)
+    if (len(got), digest) != (record["completions"], record["digest"]):
+        raise AssertionError(
+            f"{what}: {len(got)} completions, digest {digest}; the "
+            f"reference's run has {record['completions']}, digest "
+            f"{record['digest']}")
+    verdict = "green"
+    try:
+        mods.checkers.check_all(res.cluster)
+    except mods.checkers.SafetyViolation as exc:
+        rec.note("checker_failure", res.cluster.network.now, error=str(exc))
+        if str(exc) != record["checkers"]:
+            raise
+        verdict = str(exc)
+        log(f"[open_loop] {what}: the checkers raise the violation they "
+            f"raise on the reference's run of this spec, whose completions "
+            f"this run equals (ROADMAP, Queue 3): {exc}")
+    if verdict != record["checkers"]:
+        raise AssertionError(f"{what}: checkers green, the reference's run "
+                             f"raises {record['checkers']!r}")
+    reconcile_paths(rec, res.cluster, what)
+    return verdict
+
+
+def phase_open_loop(torch, mods, dev, apply_ok, propose_ok,
+                    sessions=SESSIONS, n_keys=KEYS, rate=OL_RATE,
+                    ticks=OL_TICKS, profile=True):
+    ce = mods.cluster_engine
+    batched_cls = functools.partial(mods.BatchedMachine, device=dev)
+    rec_r = Recorder(torch, ce._fused_receiver_step, (0, 7, 70, 400))
+    rec_i = Recorder(torch, ce.paxos_propose_staged, (0, 7, 70, 400),
+                     after=(0,))
+    specs = [open_loop_spec(mods, seed, sessions, n_keys, rate, ticks)
+             for seed in (0, 1)]
+    runs, clocks = [], []
+    # the main path: counts start at 0 here and are read right after
+    mods.apply_ops.paxos_apply.launches = 0
+    mods.propose_ops.paxos_propose.launches = 0
+    ce._fused_receiver_step, ce.paxos_propose_staged = rec_r, rec_i
+    try:
+        for spec in specs:
+            clocks.append(HookClock())
+            runs.append((spec,) + run_open_loop(
+                torch, mods, dev, spec, batched_cls, "sampled", clocks[-1]))
+    finally:
+        ce._fused_receiver_step = rec_r.fn
+        ce.paxos_propose_staged = rec_i.fn
+    launches = {"paxos_apply": mods.apply_ops.paxos_apply.launches,
+                "paxos_propose": mods.propose_ops.paxos_propose.launches}
+    log(f"[open_loop] main-path launches: {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} never launched in [open_loop]")
+    issuer_calls = sum(r[1].cluster.engine.stats["fused_issuer_calls"]
+                       for r in runs)
+    if not launches["paxos_propose"] == rec_i.calls == issuer_calls:
+        raise AssertionError(
+            f"[open_loop] paxos_propose launched {launches['paxos_propose']}"
+            f" times, the staged entry was called {rec_i.calls} times, for "
+            f"{issuer_calls} issuer waves")
+    out = {"launches": launches, "wall_s": {}, "hook_s": {}}
+    for (spec, res, rec, wall), clock in zip(runs, clocks):
+        what = f"open_loop seed {spec.seed}"
+        with mods.flight_guard(rec, str(DUMP_DIR), label=what,
+                               stem=f"open_loop_seed{spec.seed}"):
+            record = reference_record(spec, open_loop_faults(mods))
+            verdict = check_open_loop(mods, res, rec, record, what)
+            scalar, s_rec, s_wall = run_open_loop(torch, mods, dev, spec,
+                                                  mods.Machine, "sampled")
+            check_open_loop(mods, scalar, s_rec, record, what + " scalar")
+            got = mods.completion_tuples(res.cluster)
+            want = mods.completion_tuples(scalar.cluster)
+            if got != want:
+                raise AssertionError(f"{what}: batched completions differ "
+                                     f"from scalar: {_first_diff(got, want)}")
+            if rec.path_counts() != s_rec.path_counts():
+                raise AssertionError(f"{what}: path counts differ from "
+                                     f"scalar")
+            if res.recorder.report() != scalar.recorder.report():
+                raise AssertionError(f"{what}: latency report differs from "
+                                     f"scalar")
+            eng = res.cluster.engine
+            if eng.kv.n_lanes != n_keys or eng.kv.dev.device != dev:
+                raise AssertionError(
+                    f"{what}: KV stack {tuple(eng.kv.dev.shape)} on "
+                    f"{eng.kv.dev.device}, want {n_keys} lanes on {dev}")
+        lane = res.lane()
+        out["wall_s"][spec.seed] = wall
+        out["hook_s"][spec.seed] = clock.seconds
+        log(f"[open_loop] seed {spec.seed} "
+            f"({'all-aboard' if spec.all_aboard else 'plain'}, crash/restart"
+            f" m4 at 60, partition [0,1,2]|[3,4] at 120-150): "
+            f"{len(got)} completions identical to scalar and to the "
+            f"reference's recorded run, checkers "
+            f"{'green' if verdict == 'green' else 'as on the reference'}, "
+            f"path counters reconcile on both ({json.dumps(rec.path_counts())}"
+            f"); KV stack {tuple(eng.kv.dev.shape)}; batched wall "
+            f"{wall:.3f} s, scalar wall {s_wall:.3f} s")
+        log(f"[open_loop] seed {spec.seed} lane: offered {lane['offered']}, "
+            f"completed {lane['completed']}, lost {lane['lost']}, ticks "
+            f"{lane['ticks']}, offered {lane['offered_ops_per_tick']} ops a "
+            f"tick, achieved {lane['achieved_ops_per_tick']} ops a tick, by "
+            f"class {json.dumps(lane['offered_by_class'])}")
+        for window, cells in lane["windows"].items():
+            log(f"[open_loop] seed {spec.seed} {window}: "
+                + json.dumps(cells, sort_keys=True))
+        snap = rec.snapshot()
+        c, g = snap["counters"], snap["gauges"]
+        engine = {k[len("engine."):]: v for k, v in c.items()
+                  if k.startswith("engine.")}
+        log(f"[open_loop] seed {spec.seed} engine.* counters: "
+            + json.dumps(engine, sort_keys=True))
+        log(f"[open_loop] seed {spec.seed}: waves {c['engine.waves']}, "
+            f"receiver lanes a call "
+            f"{g['engine.receiver_lanes_per_call']:.3f}, issuer lanes a call "
+            f"{g['engine.issuer_lanes_per_call']:.3f}, transfer bytes a wave "
+            f"{c['engine.transfer_bytes'] / max(1, c['engine.waves']):.1f}, "
+            f"ring records {len(rec.ring)}")
+        log(f"[open_loop] seed {spec.seed} recorder hooks: {clock.calls} "
+            f"calls, {clock.seconds:.4f} s of host time, "
+            f"{clock.seconds / wall:.4f} of the run's {wall:.3f} s wall, "
+            f"{clock.seconds / max(1, c['engine.waves']) * 1e6:.2f} us a "
+            f"wave")
+    phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
+    # what the ring costs: seed 0 with the recorder in mode off (exact
+    # counters, no ring) and in mode sampled, in turns
+    turns = {"off": [], "sampled": []}
+    for mode in ("off", "sampled", "sampled", "off"):
+        _, _, w = run_open_loop(torch, mods, dev, specs[0], batched_cls, mode)
+        turns[mode].append(w)
+    med = {m: statistics.median(ws) for m, ws in turns.items()}
+    log(f"[open_loop] recorder cost, seed 0 batched wall in turns (off, "
+        f"sampled, sampled, off): "
+        + ", ".join(f"{m} {' / '.join(f'{w:.3f}' for w in ws)} s"
+                    for m, ws in turns.items())
+        + f"; sampled over off {med['sampled'] / med['off'] - 1:+.4f}")
+    out["turns"] = turns
+    if profile:
+        t0 = time.perf_counter()
+        rows, prof_ms = profile_device(torch, lambda: run_open_loop(
+            torch, mods, dev, specs[0], batched_cls, "sampled"), cpu=False)
+        dev_rows = [r for r in rows if _is_device_row(r)
+                    and _device_us(r) > 0]
+        dev_ms = sum(_device_us(r) for r in dev_rows) / 1e3
+        others = [dev_ms / (w * 1e3) for w in turns["sampled"]]
+        log(f"[open_loop] seed 0 device busy {dev_ms:.2f} ms over the same "
+            f"run's {prof_ms:.1f} ms of wall (the device alone traced; "
+            f"{time.perf_counter() - t0:.1f} s with the trace's processing):"
+            f" busy share {dev_ms / prof_ms:.4f}, idle share "
+            f"{1 - dev_ms / prof_ms:.4f}; the same device time over the "
+            f"unprofiled sampled turns' walls gives busy shares "
+            f"{min(others):.4f}-{max(others):.4f}")
+        for r in sorted(dev_rows, key=_device_us, reverse=True)[:6]:
+            log(f"[open_loop]   {_device_us(r) / 1e3:9.3f} ms  "
+                f"x{r.count:<5d} {r.key[:90]}")
+        out["busy_ms"], out["busy_wall_ms"] = dev_ms, prof_ms
+    return out
+
+
+class GrowthRecorder(Recorder):
+    """A Recorder that also keeps the first call at each machine-axis size
+    (``axis(args)``): the first waves after a joiner's rows were added."""
+
+    def __init__(self, torch, fn, keep, axis, after=()):
+        super().__init__(torch, fn, keep, after)
+        self.axis = axis
+        self.seen = set()
+
+    def __call__(self, *args, **kw):
+        m = self.axis(args)
+        if m not in self.seen:
+            self.seen.add(m)
+            self.keep.add(self.calls)
+        return super().__call__(*args, **kw)
+
+
+def storm(mods, machine_cls, seed=0, sessions=SESSIONS, n_keys=KEYS,
+          ops=STORM_OPS):
+    """scripts/reconfig_smoke.py's storm from 5 members: 5 -> 6 -> 7 -> 6
+    -> 7 -> 6, a partition [2]|[0] across the two joins, machine 2 crashed
+    across the first leave, the leaver rejoined, the second joiner retired;
+    the load on keys 1 .. n_keys - 1 (key 0 is the config register)."""
+    cfg = mods.ProtocolConfig(n_machines=M, sessions_per_machine=sessions,
+                              reconfig=True)
+    net = mods.NetConfig(seed=seed, drop_prob=0.06, dup_prob=0.05,
+                         heavy_tail_prob=0.03, heavy_tail_extra=25.0)
+    cl = mods.Cluster(cfg, net, machine_cls=machine_cls)
+    keys = n_keys - 1
+    mods.workload(cl, n_ops=ops[0], keys=keys, seed=seed, rmw_frac=0.5,
+                  write_frac=0.3, key_base=1)
+    cl.step(150)
+    cl.network.partition([2], [0])
+    cl.join()                                    # epoch 1: 6 members
+    second = cl.join()                           # epoch 2: 7 members
+    cl.network.heal()
+    mods.workload(cl, n_ops=ops[1], keys=keys, seed=seed + 1, rmw_frac=0.5,
+                  write_frac=0.2, key_base=1, mids=cl.active_view.members)
+    cl.crash(2)
+    cl.leave(1)                                  # epoch 3: 6 members
+    cl.restart(2)
+    if cl.join(1) != 1:                          # epoch 4: 7 members
+        raise AssertionError("the leaver did not rejoin under its own id")
+    mods.workload(cl, n_ops=ops[2], keys=keys, seed=seed + 2, rmw_frac=0.6,
+                  write_frac=0.2, key_base=1, mids=cl.active_view.members)
+    cl.leave(second)                             # epoch 5: 6 members
+    if not cl.run_until_quiet(max_ticks=120_000):
+        raise RuntimeError(f"storm seed {seed}: cluster did not quiesce")
+    st = cl.stats()
+    if st["view_epoch"] != 5 or st["view_members"] != 6:
+        raise AssertionError(
+            f"storm seed {seed} ended at epoch {st['view_epoch']} with "
+            f"{st['view_members']} members (want epoch 5, 6 members)")
+    return cl
+
+
+class CatchupClock:
+    """Times every ``take_snapshot`` / ``install_snapshot`` the machines
+    make (they import both from ``reconfig.catchup`` at call time)."""
+
+    def __init__(self, catchup):
+        self.catchup = catchup
+        self.events = []
+        self._fns = (catchup.take_snapshot, catchup.install_snapshot)
+
+    def __enter__(self):
+        take, install = self._fns
+
+        def timed_take(machine):
+            t0 = time.perf_counter()
+            snap = take(machine)
+            self.events.append(("take", machine.mid,
+                                time.perf_counter() - t0,
+                                sum(v.nbytes for v in snap.values()),
+                                len(snap["keys"])))
+            return snap
+
+        def timed_install(machine, snap):
+            t0 = time.perf_counter()
+            install(machine, snap)
+            self.events.append(("install", machine.mid,
+                                time.perf_counter() - t0,
+                                sum(v.nbytes for v in snap.values()),
+                                len(snap["keys"])))
+
+        self.catchup.take_snapshot = timed_take
+        self.catchup.install_snapshot = timed_install
+        return self
+
+    def __exit__(self, *exc):
+        self.catchup.take_snapshot, self.catchup.install_snapshot = self._fns
+
+
+def phase_reconfig(torch, mods, dev, apply_ok, propose_ok,
+                   sessions=SESSIONS, n_keys=KEYS, ops=STORM_OPS):
+    ce = mods.cluster_engine
+    batched_cls = functools.partial(mods.BatchedMachine, device=dev)
+    rec_r = GrowthRecorder(torch, ce._fused_receiver_step, (0,),
+                           lambda a: a[0].shape[1])
+    rec_i = GrowthRecorder(torch, ce.paxos_propose_staged, (0,),
+                           lambda a: a[2].shape[1], after=(0,))
+    mods.apply_ops.paxos_apply.launches = 0
+    mods.propose_ops.paxos_propose.launches = 0
+    ce._fused_receiver_step, ce.paxos_propose_staged = rec_r, rec_i
+    try:
+        with CatchupClock(mods.catchup) as clock:
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            batched = storm(mods, batched_cls, sessions=sessions,
+                            n_keys=n_keys, ops=ops)
+            _sync(torch, dev)
+            t_b = time.perf_counter() - t0
+    finally:
+        ce._fused_receiver_step = rec_r.fn
+        ce.paxos_propose_staged = rec_i.fn
+    launches = {"paxos_apply": mods.apply_ops.paxos_apply.launches,
+                "paxos_propose": mods.propose_ops.paxos_propose.launches}
+    log(f"[reconfig] main-path launches: {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} never launched in [reconfig]")
+    issuer_calls = batched.engine.stats["fused_issuer_calls"]
+    if not launches["paxos_propose"] == rec_i.calls == issuer_calls:
+        raise AssertionError(
+            f"[reconfig] paxos_propose launched {launches['paxos_propose']} "
+            f"times, the staged entry {rec_i.calls} times, for "
+            f"{issuer_calls} issuer waves")
+    t0 = time.perf_counter()
+    scalar = storm(mods, mods.Machine, sessions=sessions, n_keys=n_keys,
+                   ops=ops)
+    t_s = time.perf_counter() - t0
+    got = mods.completion_tuples(batched)
+    want = mods.completion_tuples(scalar)
+    if got != want:
+        raise AssertionError(f"[reconfig] batched completions differ from "
+                             f"scalar: {_first_diff(got, want)}")
+    mods.checkers.check_all(scalar)
+    mods.checkers.check_all(batched)
+    tel = batched.engine.telemetry()
+    if tel["row_reloads"] <= 0:
+        raise AssertionError("[reconfig] no plane row was reloaded")
+    eng = batched.engine
+    if eng.kv.n_lanes != n_keys or eng.kv.dev.device != dev:
+        raise AssertionError(f"[reconfig] KV stack {tuple(eng.kv.dev.shape)}"
+                             f" on {eng.kv.dev.device}")
+    st = batched.stats()
+    log(f"[reconfig] storm 5 -> 6 -> 7 -> 6 -> 7 -> 6 over {sum(ops)} ops "
+        f"({'/'.join(map(str, ops))}): {len(got)} completions identical to "
+        f"scalar, checkers green (view transitions included), epoch "
+        f"{st['view_epoch']}, {st['view_members']} members "
+        f"{batched.active_view.members}, {st['sync_installed']} snapshots "
+        f"installed, {st['net_removed_dst']} fenced sends; KV stack "
+        f"{tuple(eng.kv.dev.shape)} ({eng.kv.dev.numel() * 4 / 1e9:.3f} GB "
+        f"on {eng.kv.dev.device}); row reloads {tel['row_reloads']}, waves "
+        f"{tel['waves']}, transfer bytes {tel['transfer_bytes']}; batched "
+        f"wall {t_b:.3f} s, scalar wall {t_s:.3f} s")
+    for kind, mid, secs, nbytes, nkeys in clock.events:
+        verb = "served by" if kind == "take" else "installed on"
+        log(f"[reconfig] {kind}_snapshot {verb} m{mid}: {secs:.4f} s, "
+            f"{nbytes} B, {nkeys} keys")
+    phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
+    # the snapshot sees every landed wave: a member's snapshot is its row
+    # on the card, plane for plane
+    donor = batched.machines[0]
+    donor.kvs.flush()
+    eng.kv.push()
+    _sync(torch, dev)
+    snap = mods.catchup.take_snapshot(donor)
+    row = eng.kv.dev[:, donor.mid].cpu().numpy()
+    for i, f in enumerate(eng.kv.fields):
+        if not mods.np.array_equal(snap[f"kv_{f}"], row[i]):
+            raise AssertionError(f"[reconfig] snapshot plane {f} differs "
+                                 f"from m{donor.mid}'s row on the card")
+    log(f"[reconfig] m{donor.mid}'s snapshot equals its KV row on the card "
+        f"({row.shape[1]} lanes x {row.shape[0]} planes)")
+    catchup_sampled_keys(torch, mods, dev, batched, donor, snap)
+    return {"wall_s": t_b, "scalar_s": t_s, "events": clock.events,
+            "launches": launches}
+
+
+def catchup_sampled_keys(torch, mods, dev, cl, donor, snap, n_sample=4096):
+    """Holds the whole-row catch-up to the per-key one (a checkout and a
+    merge a key) at full width, on ``n_sample`` lanes: up to half of them
+    lanes where ``donor``'s snapshot ``snap`` and another member's differ,
+    the rest drawn at random.  The per-key read of each sampled key must
+    give the whole-row snapshot's entries, and a joiner that installs the
+    two snapshots row by row must hold, on the card, what a joiner that
+    installs them key by key holds."""
+    np, cu = mods.np, mods.catchup
+    other = next(m for m in cl.machines if m.mid != donor.mid
+                 and m.mid in cl.active_view.members)
+    snap2 = cu.take_snapshot(other)
+    fields = cu._KV_FIELDS
+    differs = np.zeros(len(snap["keys"]), bool)
+    for f in fields:
+        differs |= snap[f"kv_{f}"] != snap2[f"kv_{f}"]
+    rng = np.random.default_rng(0)
+    keys = np.flatnonzero(differs)[:n_sample // 2]
+    rest = np.setdiff1d(np.arange(len(snap["keys"])), keys)
+    keys = np.sort(np.concatenate([keys, rng.choice(
+        rest, n_sample - len(keys), replace=False)]))
+    for key in keys.tolist():
+        lanes = mods.kv_to_lanes(donor.kvs[key])
+        if any(lanes[f] != snap[f"kv_{f}"][key] for f in fields):
+            raise AssertionError(f"[reconfig] m{donor.mid}'s key {key} read "
+                                 f"per key differs from its snapshot")
+    donor.kvs.drop_views()
+    rows = []
+    for install, pick in ((cu._install_kv, lambda sn: sn),
+                          (cu._install_kv_per_key, lambda sn: {
+                              "keys": sn["keys"][keys],
+                              **{f"kv_{f}": sn[f"kv_{f}"][keys]
+                                 for f in fields}})):
+        m = mods.BatchedMachine(0, cl.cfg, lambda *a: None, lambda: 0.0,
+                                device=dev)
+        m.kvs.ensure(len(snap["keys"]) - 1)
+        t0 = time.perf_counter()
+        for sn in (snap2, snap):
+            install(m, pick(sn))
+        m.kvs.flush()
+        m.kvs._stack.push()
+        _sync(torch, dev)
+        lanes = torch.as_tensor(keys, device=dev)
+        rows.append((m.kvs._stack.dev[:, m._mi, lanes],
+                     time.perf_counter() - t0))
+    (row, t_row), (per_key, t_key) = rows
+    if not torch.equal(row, per_key):
+        raise AssertionError("[reconfig] whole-row and per-key installs "
+                             "differ on the card")
+    log(f"[reconfig] catch-up held to the per-key path on {len(keys)} lanes "
+        f"({int(differs.sum())} lanes differ between m{donor.mid}'s and "
+        f"m{other.mid}'s snapshots): per-key reads equal the snapshot, and "
+        f"two installs give the same lanes on the card (whole rows "
+        f"{t_row:.3f} s, {len(keys)} keys one by one {t_key:.3f} s)")
+
+
 def cuda_ms(torch, fn, reps, inner=1, warmup=3):
     """Median milliseconds per call over ``reps`` event-timed groups of
     ``inner`` back-to-back calls."""
@@ -586,14 +1155,18 @@ def _device_us(row) -> float:
     return 0.0
 
 
-def profile_device(torch, fn):
+def profile_device(torch, fn, cpu=True):
     """Run ``fn`` under torch.profiler; returns (key_averages rows, wall
-    ms of the window).  Device times come from CUPTI."""
+    ms of the window).  Device times come from CUPTI; ``cpu=False`` traces
+    the device alone (a long host-bound window records millions of host
+    operations otherwise)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1387,9 +1960,10 @@ def main(argv=None) -> int:
     from repro_torch.coord.registry import PaxosRegistry
     from repro_torch.core import checkers
     from repro_torch.core import proposer_vector as pv
+    from repro_torch.core.lanes import kv_to_lanes
     from repro_torch.core.node import Machine, ProtocolConfig
-    from repro_torch.core.sim import Cluster, NetConfig, completion_tuples, \
-        workload
+    from repro_torch.core.sim import Cluster, NetConfig, completion_digest, \
+        completion_tuples, workload
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
@@ -1398,19 +1972,26 @@ def main(argv=None) -> int:
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.models import blocks
     from repro_torch.models.registry import build_model
+    from repro_torch.obs import FlightRecorder, flight_guard
+    from repro_torch.reconfig import catchup
+    from repro_torch.serve import loadgen
     from repro_torch.serve.engine import DecodeEngine, ServeConfig
     from repro_torch.serve.paxos import BatchedMachine, cluster_engine
 
     mods = argparse.Namespace(
         checkers=checkers, Machine=Machine, ProtocolConfig=ProtocolConfig,
         Cluster=Cluster, NetConfig=NetConfig,
-        completion_tuples=completion_tuples, workload=workload,
+        completion_tuples=completion_tuples,
+        completion_digest=completion_digest, workload=workload,
+        kv_to_lanes=kv_to_lanes,
         apply_ops=apply_ops, propose_ops=propose_ops,
         BatchedMachine=BatchedMachine, cluster_engine=cluster_engine,
         np=np, pv=pv, ARCHS=ARCHS, PaxosRegistry=PaxosRegistry,
         blocks=blocks,
         build_model=build_model, fa_ops=fa_ops, ssd_ops=ssd_ops,
-        wkv_ops=wkv_ops, DecodeEngine=DecodeEngine, ServeConfig=ServeConfig)
+        wkv_ops=wkv_ops, DecodeEngine=DecodeEngine, ServeConfig=ServeConfig,
+        loadgen=loadgen, FlightRecorder=FlightRecorder,
+        flight_guard=flight_guard, catchup=catchup)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     # float32 products in full float32 (the model checks' tolerances
@@ -1433,6 +2014,8 @@ def main(argv=None) -> int:
     phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
     times = phase_timings(torch, mods, pv, dev, waves_all)
     phase_idle(torch, mods, dev, args.n_ops)
+    phase_open_loop(torch, mods, dev, apply_ok, propose_ok)
+    phase_reconfig(torch, mods, dev, apply_ok, propose_ok)
     float_ok = phase_model_kernels(torch, mods, dev)
     # one full-width model resident at a time: each phase frees its own
     zamba_launches = phase_model(

@@ -19,14 +19,15 @@ tests, the benchmarks and the :mod:`repro_torch.coord` facade.
 from __future__ import annotations
 
 import dataclasses
+import enum
+import hashlib
 import heapq
 import itertools
+import json
 import random
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from .node import (
-    RECONFIG_NOT_PORTED, Completion, Machine, ProtocolConfig, ReqKind, Request,
-)
+from .node import Completion, Machine, ProtocolConfig, ReqKind, Request
 from .proposer import PauseEvent
 from .types import Msg, MsgKind, RmwOp, View
 
@@ -327,11 +328,13 @@ class Cluster:
     def join(self, mid: Optional[int] = None, *,
              max_ticks: int = 200_000) -> int:
         """Add a machine to the membership via a CP-decided view change."""
-        raise NotImplementedError(f"Cluster.join: {RECONFIG_NOT_PORTED}")
+        from repro_torch.reconfig.controller import ReconfigController
+        return ReconfigController(self).join(mid, max_ticks=max_ticks)
 
     def leave(self, mid: int, *, max_ticks: int = 200_000) -> None:
         """Remove a machine from the membership via a CP view change."""
-        raise NotImplementedError(f"Cluster.leave: {RECONFIG_NOT_PORTED}")
+        from repro_torch.reconfig.controller import ReconfigController
+        ReconfigController(self).leave(mid, max_ticks=max_ticks)
 
     def restart(self, mid: int) -> None:
         """Crash-recover from stable storage.
@@ -458,6 +461,20 @@ def completion_tuples(cluster: Cluster) -> List[Tuple]:
     """
     return [(mid, sess, c.tag, c.kind, c.key, c.value, c.carstamp, c.rmw_id)
             for mid, sess, c in cluster.completions]
+
+
+def completion_digest(tuples: Sequence[Tuple]) -> str:
+    """SHA-256 of a :func:`completion_tuples` list in a form that does not
+    depend on the package that made it (enums by name, named tuples as
+    lists), so that a run can be held to one recorded elsewhere."""
+    def plain(v):
+        if isinstance(v, enum.Enum):
+            return v.name
+        if isinstance(v, tuple):
+            return [plain(x) for x in v]
+        return None if v is None else int(v)
+    text = json.dumps([plain(t) for t in tuples], separators=(",", ":"))
+    return hashlib.sha256(text.encode()).hexdigest()
 
 
 def workload(cluster: Cluster, *, n_ops: int, keys: int,

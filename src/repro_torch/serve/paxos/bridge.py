@@ -183,6 +183,39 @@ class KVBridge:
     def keys(self):
         return range(self.n_keys)
 
+    # -- whole-row access (snapshot catch-up) --------------------------------
+
+    def row_columns(self) -> Dict[str, np.ndarray]:
+        """A copy of this machine's whole KV row, field -> int32 column
+        over every lane, with the checked-out views laid over it: what
+        reading each key through ``self[key]`` gives, without checking out
+        a pair per lane (the host mirror is pulled first if a wave left it
+        stale)."""
+        planes = self._stack.read_views(self._mi)
+        cols = {f: planes[f].copy() for f in self._stack.fields}
+        for key, kv in self._views.items():
+            for f, v in kv_to_lanes(kv).items():
+                cols[f][key] = v
+        return cols
+
+    def write_row_columns(self, keys: np.ndarray,
+                          cols: Dict[str, np.ndarray]) -> None:
+        """Write field -> column ``cols`` into the row at ``keys`` (only
+        those lanes upload at the next engine step).  Checked-out views of
+        those keys are dropped: they would scatter stale pairs back."""
+        keys = np.asarray(keys, np.int64)
+        if not len(keys):
+            return
+        self.ensure(int(keys.max()))
+        if self._views:
+            hit = np.isin(np.fromiter(self._views, np.int64,
+                                      len(self._views)), keys)
+            for key in [k for k, h in zip(list(self._views), hit) if h]:
+                del self._views[key]
+        self._stack.write_lanes(
+            self._mi, keys,
+            np.stack([np.asarray(cols[f], I32) for f in self._stack.fields]))
+
     # -- engine boundary ------------------------------------------------------
 
     def flush(self) -> None:

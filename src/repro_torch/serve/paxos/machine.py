@@ -19,7 +19,11 @@ Both steps run the hand-written CUDA kernels (``paxos_apply``,
 ``paxos_propose``) when the engine's device is a GPU and their plain
 PyTorch versions when the caller asked for ``device="cpu"``; there is no
 switch between the two besides the device.  Live reconfiguration
-(``cfg.reconfig``) is not ported yet and raises ``NotImplementedError``.
+(``cfg.reconfig``) runs as on the scalar machine: control-plane messages
+(VIEW, SYNC, JOIN_REQ) and fenced payloads are intercepted on the host
+after the pending engine runs flush (:meth:`_fenced_or_control`), and a
+snapshot reads or merges this machine's whole KV row as columns
+(:mod:`repro_torch.reconfig.catchup`).
 
 The machine no longer calls an engine directly: its tick is the generator
 :meth:`_tick_gen`, which *yields* batch requests and is resumed with the
@@ -79,10 +83,6 @@ class BatchedMachine(Machine):
                  device: DeviceLike = None,
                  batch_target: Optional[int] = None,
                  engine: Optional[ClusterEngine] = None, shards: int = 1):
-        if cfg.reconfig:
-            raise NotImplementedError(
-                "BatchedMachine: live reconfiguration (cfg.reconfig) is not "
-                "ported to repro_torch yet")
         super().__init__(mid, cfg, send, now, incarnation, view=view)
         self.device = resolve_device(device)
         self.shards = max(1, int(shards))

@@ -1,11 +1,12 @@
-"""The port's ``PaxosRegistry`` against the reference's, and what the port
-does where live reconfiguration is asked for (not ported yet)."""
+"""The port's ``PaxosRegistry`` against the reference's, serving and
+growing or shrinking its membership (live reconfiguration)."""
 
 import pytest
 
 from repro.coord.registry import PaxosRegistry as RefRegistry
 from repro.core.sim import NetConfig as RefNetConfig
 from repro_torch.coord.registry import PaxosRegistry
+from repro_torch.core import checkers
 from repro_torch.core.node import ProtocolConfig
 from repro_torch.core.sim import Cluster, NetConfig
 
@@ -41,14 +42,37 @@ def test_registry_matches_reference(aboard, seed):
     assert got == want
 
 
-def test_reconfiguration_raises_not_implemented():
-    reg = PaxosRegistry(n_machines=3, reconfig=True)
-    assert reg.cas("route/1", 0, 5) == (True, 0)     # serving still works
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        reg.add_replica()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        reg.remove_replica(2)
+def _membership_script(reg):
+    """Serve, grow by one replica, shrink by another, serve again."""
+    out = [reg.cas("route/1", 0, 5), reg.faa("ctr")]
+    out.append(reg.add_replica())
+    out.append(reg.cluster.active_view.members)
+    out += [reg.faa("ctr"), reg.swap("lock", 3)]
+    reg.remove_replica(1)
+    out.append(reg.cluster.active_view.members)
+    out.append(reg.cluster.machines[1].retired)
+    out += [reg.fetch("route/1"), reg.faa("ctr"), reg.fetch("lock")]
+    return out, [len(m.completions) for m in reg.cluster.machines]
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_add_and_remove_replica_match_reference(seed):
+    net = dict(seed=seed, drop_prob=0.05, dup_prob=0.05)
+    reg = PaxosRegistry(n_machines=3, reconfig=True, net=NetConfig(**net))
+    got = _membership_script(reg)
+    want = _membership_script(RefRegistry(n_machines=3, reconfig=True,
+                                          net=RefNetConfig(**net)))
+    assert got == want
+    assert got[0][2] == 3 and got[0][3] == (0, 1, 2, 3)
+    assert got[0][6] == (0, 2, 3) and got[0][7] and got[0][9] == 2
+    checkers.check_all(reg.cluster)
+
+
+def test_machine_serves_a_snapshot_to_a_joiner():
     cl = Cluster(ProtocolConfig(n_machines=3, reconfig=True),
                  NetConfig(seed=0))
-    with pytest.raises(NotImplementedError, match="reconfig"):
-        cl.machines[0]._serve_sync(1)
+    cl.rmw(0, 0, key=1)
+    assert cl.run_until_quiet()
+    cl.machines[0]._serve_sync(2)
+    assert cl.machines[0].stats["syncs_served"] == 1
+    assert cl.network.pending() == 1

@@ -16,6 +16,7 @@ port's safety checkers must be green on its batched cluster.
 """
 
 import functools
+import sys
 
 import pytest
 
@@ -80,7 +81,37 @@ def test_batched_cluster_identical_to_scalar_and_reference(seed):
     assert batched.engine.kv.dev.device.type == "cpu"
 
 
-def test_reconfiguration_is_not_ported_yet():
-    cfg = ProtocolConfig(n_machines=3, sessions_per_machine=2, reconfig=True)
-    with pytest.raises(NotImplementedError, match="reconfig"):
-        BatchedMachine(0, cfg, lambda *a: None, lambda: 0.0, device="cpu")
+def reconfig_run(machine_cls, sim_mod=None, cfg_cls=ProtocolConfig):
+    """Join a replica under load, retire another, load the new view."""
+    sim_mod = sim_mod or sys.modules[Cluster.__module__]
+    cl = sim_mod.Cluster(cfg_cls(n_machines=3, sessions_per_machine=2,
+                                 reconfig=True),
+                         sim_mod.NetConfig(seed=4, drop_prob=0.06,
+                                           dup_prob=0.05),
+                         machine_cls=machine_cls)
+    sim_mod.workload(cl, n_ops=12, keys=3, seed=1, key_base=1)
+    cl.step(60)
+    assert cl.join() == 3
+    cl.leave(0)
+    sim_mod.workload(cl, n_ops=12, keys=3, seed=2, key_base=1,
+                     mids=cl.active_view.members)
+    assert cl.run_until_quiet(max_ticks=120_000)
+    return cl
+
+
+def test_batched_cluster_with_reconfig_identical_to_scalar_and_reference():
+    import repro.core.sim as ref_sim
+
+    batched = reconfig_run(functools.partial(BatchedMachine, device="cpu"))
+    scalar = reconfig_run(Machine)
+    reference = reconfig_run(functools.partial(RefBatchedMachine,
+                                               use_kernel=False),
+                             ref_sim, RefProtocolConfig)
+    got = completion_tuples(batched)
+    assert got == completion_tuples(scalar)
+    assert got == ref_completion_tuples(reference)
+    checkers.check_all(batched)
+    assert batched.active_view.members == (1, 2, 3)
+    assert batched.machines[0].retired
+    assert batched.machines[3].stats.get("sync_installed", 0) >= 1
+    assert batched.engine.telemetry()["row_reloads"] > 0
