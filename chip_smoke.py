@@ -31,14 +31,26 @@ Phases (any failure exits nonzero and prints no result):
    issuer wave), and a sample of the fused calls is replayed through the
    plain versions on the card (a staged call against the whole-stack
    plain version).
-4. **Timings** of each kernel at the main path's shapes (CUDA events,
+4. **Schedule replay** (``repro_torch.core.replay``): the port's scalar
+   cluster with both trace taps at the serve phase's width and seeds (5 x
+   800 sessions x 2^20 keys, 4000 ops; seed 0 plain, seed 1 all-aboard
+   with machine 4 crashed and restarted) replayed on the card per
+   machine, fused, sharded over 4 shards (``paxos_apply``) and on the
+   issuer side (the whole-stack ``paxos_propose``), each held reply for
+   reply, registry for registry and plane for plane to the scalar
+   handlers and shadows, each kernel launched once a batch or wave;
+   seed 0's batched cluster's own traces must replay with the scalar
+   cluster's stats; a reply lane flipped on one wave and a KV lane no
+   message touched flipped on another must each raise the replay's
+   mismatch, naming the machine and key.
+5. **Timings** of each kernel at the main path's shapes (CUDA events,
    median after warm-up), its bound and its plain version's time; the
    staged entry at 19 and 4000 lanes; the whole-stack issuer wave (the
    whole-stack step, scatters, gather, pull) against the staged wave in
    turns on the card, and one profiled pass counting the staged wave's
    device operations; the card's busy share over 40 ticks of the serve
    path.
-5. **Open-loop load** through the operations layer: ``OpenLoopHarness``
+6. **Open-loop load** through the operations layer: ``OpenLoopHarness``
    on ``Cluster(machine_cls=BatchedMachine)`` at 5 replicas x 800 sessions
    x 2^20 Zipf(0.99) keys, the kv_mixed mix, 25 ops a tick for 200 ticks,
    2 % drops and duplicates, machine 4 crashed at tick 60 and restarted at
@@ -57,7 +69,7 @@ Phases (any failure exits nonzero and prints no result):
    mode ``sampled`` in turns, and the device's busy share over one run
    traced on the device, against that run's own wall.  A failure dumps the
    recorder under ``build/flight_dumps/`` and re-raises.
-6. **Live reconfiguration**: the storm of ``scripts/reconfig_smoke.py``
+7. **Live reconfiguration**: the storm of ``scripts/reconfig_smoke.py``
    from 5 members (5 -> 6 -> 7 -> 6 -> 7 -> 6: a partition [2] | [0]
    across the two joins, machine 2 crashed across the first leave, the
    leaver rejoined) at 800 sessions over keys 1 .. 2^20 - 1, 4000 ops
@@ -69,7 +81,7 @@ Phases (any failure exits nonzero and prints no result):
    card; the whole-row catch-up held to the per-key one on 4096 sampled
    lanes (reads, and two installs into fresh joiners on the card); prints
    the seconds and bytes of every snapshot taken and installed.
-7. **Float kernels vs plain** on unit-normal inputs made on the card:
+8. **Float kernels vs plain** on unit-normal inputs made on the card:
    ``flash_attention`` at zamba2's, gemma3's local, qwen1.5's ragged,
    Sq < Sk, non-causal and MQA shapes and a window straddling key tiles,
    ``mamba2_ssd`` at zamba2's layer, ragged T (T = 65 and 4097 are ragged
@@ -79,7 +91,7 @@ Phases (any failure exits nonzero and prints no result):
    ragged V, K = 40 and B = 2 (decays exp(-exp(x)), x uniform on [-6, 1]),
    strong decays with exact zeros, and w = 1 over 4096 steps, each in
    float32 and bfloat16.
-8. **Full-width zamba2-7b** (81 layers, d_model 3584, float32 weights from
+9. **Full-width zamba2-7b** (81 layers, d_model 3584, float32 weights from
    a seeded ``torch.Generator`` on the card): one prefill of 2 x 128
    tokens, the main path of its float kernels (their counts set to 0 just
    before it and read just after: 13 flash attention, 81 SSD), held
@@ -88,15 +100,15 @@ Phases (any failure exits nonzero and prints no result):
    kernel calls replayed through the plain versions; then ``DecodeEngine``
    routes 4 sessions through ``PaxosRegistry(n_machines=5)`` over
    ``BatchedMachine`` (sticky across two engines) and generates 32 steps.
-9. **bf16 zamba2-7b prefill** at 1 x 4096 tokens (cut from the dry-run's
+10. **bf16 zamba2-7b prefill** at 1 x 4096 tokens (cut from the dry-run's
    ``prefill_32k``, batch 32): wall time, peak memory and one
    ``torch.profiler`` pass; a float kernel's time a call is its CUDA
    kernels' device time over its wrapper's calls in that pass.
-10. **Full-width rwkv6-7b** (32 layers, d_model 4096, 7.5e9 float32
-   weights, drawn after zamba2's are freed): phase 8 again, with 32
+11. **Full-width rwkv6-7b** (32 layers, d_model 4096, 7.5e9 float32
+   weights, drawn after zamba2's are freed): phase 9 again, with 32
    ``rwkv6_wkv`` launches in the prefill.
-11. **bf16 rwkv6-7b prefill** at 1 x 4096 tokens, as phase 9.
-12. **Timings** of the three float kernels at their prefill shapes, their
+12. **bf16 rwkv6-7b prefill** at 1 x 4096 tokens, as phase 10.
+13. **Timings** of the three float kernels at their prefill shapes, their
     bounds, plain versions and, for attention, one
     ``scaled_dot_product_attention`` call (a yardstick the port never
     calls).
@@ -388,20 +400,24 @@ def _staged_refusals(torch, propose_ops, pv, dev):
         raise AssertionError(f"paxos_propose_staged accepted a {what}")
 
 
-def _make_cluster(mods, machine_cls, seed, aboard, n_ops):
+def _make_cluster(mods, machine_cls, seed, aboard, n_ops, trace=False):
     cfg = mods.ProtocolConfig(n_machines=M, sessions_per_machine=SESSIONS,
                               all_aboard=aboard)
     net = mods.NetConfig(seed=seed, drop_prob=0.06, dup_prob=0.05,
                          heavy_tail_prob=0.03, heavy_tail_extra=25.0)
     cl = mods.Cluster(cfg, net, machine_cls=machine_cls)
+    if trace:
+        cl.enable_msg_trace()
+        cl.enable_issuer_trace()
     mods.workload(cl, n_ops=n_ops, keys=KEYS, seed=seed, rmw_frac=0.1,
                   write_frac=0.2)
     return cl
 
 
-def _serve_cluster(mods, machine_cls, seed, aboard, crash, n_ops):
+def _serve_cluster(mods, machine_cls, seed, aboard, crash, n_ops,
+                   trace=False):
     t0 = time.perf_counter()
-    cl = _make_cluster(mods, machine_cls, seed, aboard, n_ops)
+    cl = _make_cluster(mods, machine_cls, seed, aboard, n_ops, trace)
     if crash:
         cl.step(8)
         cl.network.deliver_due(cl.network.now + 1.0, cl.machines)
@@ -561,6 +577,190 @@ def phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok):
             f"version")
     if not rec_r.samples or not rec_i.samples:
         raise AssertionError("no fused call was recorded")
+
+
+# ---------------------------------------------------------------------------
+# the differential schedule replay at the serve cell's width
+# ---------------------------------------------------------------------------
+
+def _replay_counted(torch, mods, dev, what, fn, count_key, kernel):
+    """Run one replay with both kernels' counts at 0; the kernel it drives
+    must have launched once a batch or wave (``stats[count_key]``), the
+    other not at all.  Logs the device memory the replay itself took at
+    its peak (above what was allocated before it)."""
+    mods.apply_ops.paxos_apply.launches = 0
+    mods.propose_ops.paxos_propose.launches = 0
+    mem = ""
+    if dev.type == "cuda":
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    stats = fn()
+    _sync(torch, dev)
+    secs = time.perf_counter() - t0
+    if dev.type == "cuda":
+        mem = (f", peak device memory "
+               f"{(torch.cuda.max_memory_allocated(dev) - base) / 1e9:.3f}"
+               f" GB above {base / 1e9:.3f} GB")
+    launches = {"paxos_apply": mods.apply_ops.paxos_apply.launches,
+                "paxos_propose": mods.propose_ops.paxos_propose.launches}
+    want = {name: (stats[count_key] if name == kernel else 0)
+            for name in launches}
+    if launches != want:
+        raise AssertionError(f"[schedule_replay] {what}: launches "
+                             f"{launches}, expected {want}")
+    unit = {"batches": "batch", "fused_waves": "fused wave"}[count_key]
+    log(f"[schedule_replay] {what}: clean in {secs:.2f} s{mem}, {kernel} "
+        f"launched {launches[kernel]} times (one a {unit}); stats "
+        f"{json.dumps(stats)}")
+    return stats, launches[kernel], secs
+
+
+class _Mutant:
+    """``paxos_apply`` for the replay module that corrupts one output lane
+    on call ``wave``: ``hit`` picks the lane from the call's inputs and
+    records where it lies; ``flip`` corrupts the outputs there."""
+
+    def __init__(self, fn, wave, hit, flip):
+        self.fn, self.wave, self.hit, self.flip = fn, wave, hit, flip
+        self.calls = 0
+        self.where = None
+
+    def __call__(self, kv, msgreg, out=None):
+        res = self.fn(kv, msgreg, out=out)
+        if self.calls == self.wave:
+            self.where = self.hit(msgreg)
+            self.flip(res, self.where)
+        self.calls += 1
+        return res
+
+
+def _expect_caught(mods, cl, dev, mutant, want_text, what):
+    """The fused replay of ``cl`` with ``mutant`` in place of the replay
+    module's ``paxos_apply`` must raise a mismatch whose text holds
+    ``want_text(mutant.where)``."""
+    rp = mods.replay
+    rp.paxos_apply = mutant
+    try:
+        rp.replay_cluster_fused(cl, n_keys=KEYS, device=dev)
+    except rp.ReplayMismatch as exc:
+        text = str(exc)
+    else:
+        raise AssertionError(f"[schedule_replay] {what}: the fused replay "
+                             f"did not raise")
+    finally:
+        rp.paxos_apply = mutant.fn
+    want = want_text(mutant.where)
+    if want not in text:
+        raise AssertionError(f"[schedule_replay] {what}: the mismatch does "
+                             f"not name {want!r}: {text[:400]}")
+    log(f"[schedule_replay] {what}: caught, {text.splitlines()[0][:200]}")
+
+
+def phase_schedule_replay(torch, mods, dev, n_ops):
+    """The differential replay of faulty full-width schedules on the card:
+    the port's scalar cluster (both taps on) at 5 x 800 sessions x 2^20
+    keys, seed 0 plain and seed 1 all-aboard with machine 4 crashed and
+    restarted, replayed per machine, fused, sharded over 4 shards and on
+    the issuer side through the CUDA kernels; seed 0's batched cluster's
+    own traces too; and two corrupted kernel outputs that must be
+    caught."""
+    rp = mods.replay
+    totals = {"paxos_apply": 0, "paxos_propose": 0}
+    t_phase = time.perf_counter()
+    scalar_stats = {}
+    clusters = {}
+    for seed, aboard, crash in ((0, False, False), (1, True, True)):
+        cl, t_run = _serve_cluster(mods, mods.Machine, seed, aboard, crash,
+                                   n_ops, trace=True)
+        clusters[seed] = cl
+        sizes = [(len(m.msg_trace), len(m.issuer_trace))
+                 for m in cl.machines]
+        log(f"[schedule_replay] seed {seed} "
+            f"({'all-aboard + crash/restart m4' if crash else 'plain'}): "
+            f"scalar cluster {t_run:.2f} s, {len(cl.history)} ops; "
+            f"messages / issuer events a machine {sizes}; num_gsess "
+            f"{cl.cfg.num_gsess}")
+        runs = (
+            ("per machine", lambda: rp.replay_cluster(
+                cl, n_keys=KEYS, device=dev), "batches", "paxos_apply"),
+            ("fused", lambda: rp.replay_cluster_fused(
+                cl, n_keys=KEYS, device=dev), "fused_waves", "paxos_apply"),
+            ("sharded x4", lambda: rp.replay_sharded(
+                cl, n_keys=KEYS, shards=4, device=dev), "fused_waves",
+             "paxos_apply"),
+            ("issuer", lambda: rp.replay_issuer_cluster(cl, device=dev),
+             "batches", "paxos_propose"))
+        for what, fn, key, kernel in runs:
+            stats, n, _ = _replay_counted(torch, mods, dev,
+                                          f"seed {seed} {what}", fn, key,
+                                          kernel)
+            totals[kernel] += n
+            scalar_stats[(seed, what)] = stats
+
+    # the loop closed on the card: the batched cluster's own traces
+    batched_cls = functools.partial(mods.BatchedMachine, device=dev)
+    bcl, t_run = _serve_cluster(mods, batched_cls, 0, False, False, n_ops,
+                                trace=True)
+    _sync(torch, dev)
+    log(f"[schedule_replay] seed 0 batched cluster on the card with both "
+        f"taps: {t_run:.2f} s, {len(bcl.history)} ops")
+    for what, fn, key, kernel in (
+            ("fused", lambda: rp.replay_cluster_fused(
+                bcl, n_keys=KEYS, device=dev), "fused_waves", "paxos_apply"),
+            ("issuer", lambda: rp.replay_issuer_cluster(bcl, device=dev),
+             "batches", "paxos_propose")):
+        stats, n, _ = _replay_counted(torch, mods, dev,
+                                      f"seed 0 batched {what}", fn, key,
+                                      kernel)
+        totals[kernel] += n
+        if stats != scalar_stats[(0, what)]:
+            raise AssertionError(
+                f"[schedule_replay] the batched cluster's {what} replay "
+                f"stats {stats} differ from the scalar cluster's "
+                f"{scalar_stats[(0, what)]}")
+    log("[schedule_replay] seed 0: the batched cluster's traces replay "
+        "with the scalar cluster's stats")
+    del bcl
+
+    # the gate is live: one corrupted reply lane, one corrupted KV lane no
+    # message touched, each on one wave of seed 0's fused replay
+    cl = clusters[0]
+    real = rp.paxos_apply
+    noop = mods.noop_kind
+    op = rp._REP_INDEX["opcode"]
+
+    def first_staged(msgreg):
+        lane = int((msgreg[0] != noop).nonzero()[0, 0])
+        return divmod(lane, KEYS)
+
+    def flip_reply(res, where):
+        res[1][op, where[0] * KEYS + where[1]] ^= 1
+
+    _expect_caught(mods, cl, dev, _Mutant(real, 5, first_staged, flip_reply),
+                   lambda w: f"fused reply diverged at wave 5, machine "
+                             f"{w[0]}, key {w[1]}", "a flipped reply lane")
+
+    row = 2
+    touched = {m.key for m in cl.machines[row].msg_trace}
+    key = next(k for k in range(KEYS - 1, -1, -1) if k not in touched)
+    field = rp._KV_FIELDS.index("log_no")
+
+    def flip_kv(res, where):
+        res[0][field, where[0] * KEYS + where[1]] ^= 1
+
+    _expect_caught(mods, cl, dev,
+                   _Mutant(real, 7, lambda msgreg: (row, key), flip_kv),
+                   lambda w: f"fused final KV state diverged at machine "
+                             f"{w[0]}, key {w[1]} (field: (scalar, fused)):"
+                             f" {{'log_no': (0, 1)}}",
+                   "a flipped KV lane no message touched")
+    if rp.paxos_apply is not real:
+        raise AssertionError("[schedule_replay] paxos_apply not restored")
+    secs = time.perf_counter() - t_phase
+    log(f"[schedule_replay] replays' launches: {json.dumps(totals)}; "
+        f"phase {secs:.1f} s")
+    return totals
 
 
 def _is_device_row(row) -> bool:
@@ -1960,10 +2160,12 @@ def main(argv=None) -> int:
     from repro_torch.coord.registry import PaxosRegistry
     from repro_torch.core import checkers
     from repro_torch.core import proposer_vector as pv
+    from repro_torch.core import replay
     from repro_torch.core.lanes import kv_to_lanes
     from repro_torch.core.node import Machine, ProtocolConfig
     from repro_torch.core.sim import Cluster, NetConfig, completion_digest, \
         completion_tuples, workload
+    from repro_torch.core.vector import NOOP
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
@@ -1983,7 +2185,7 @@ def main(argv=None) -> int:
         Cluster=Cluster, NetConfig=NetConfig,
         completion_tuples=completion_tuples,
         completion_digest=completion_digest, workload=workload,
-        kv_to_lanes=kv_to_lanes,
+        kv_to_lanes=kv_to_lanes, replay=replay, noop_kind=NOOP,
         apply_ops=apply_ops, propose_ops=propose_ops,
         BatchedMachine=BatchedMachine, cluster_engine=cluster_engine,
         np=np, pv=pv, ARCHS=ARCHS, PaxosRegistry=PaxosRegistry,
@@ -2012,6 +2214,7 @@ def main(argv=None) -> int:
     runs, rec_r, rec_i, launches, waves_all = phase_serve(
         torch, mods, dev, args.n_ops)
     phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
+    phase_schedule_replay(torch, mods, dev, args.n_ops)
     times = phase_timings(torch, mods, pv, dev, waves_all)
     phase_idle(torch, mods, dev, args.n_ops)
     phase_open_loop(torch, mods, dev, apply_ok, propose_ok)

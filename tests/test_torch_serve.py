@@ -115,3 +115,41 @@ def test_batched_cluster_with_reconfig_identical_to_scalar_and_reference():
     assert batched.machines[0].retired
     assert batched.machines[3].stats.get("sync_installed", 0) >= 1
     assert batched.engine.telemetry()["row_reloads"] > 0
+
+
+def traced_batched_run(machine_cls, sim_mod=None, cfg_cls=ProtocolConfig):
+    """tests/test_serve_paxos.py's traced batched run (seed 2, both taps)."""
+    sim_mod = sim_mod or sys.modules[Cluster.__module__]
+    cl = sim_mod.Cluster(cfg_cls(n_machines=5, sessions_per_machine=2),
+                         sim_mod.NetConfig(seed=2, drop_prob=0.06,
+                                           dup_prob=0.05,
+                                           heavy_tail_prob=0.03,
+                                           heavy_tail_extra=25.0),
+                         machine_cls=machine_cls)
+    cl.enable_msg_trace()
+    cl.enable_issuer_trace()
+    sim_mod.workload(cl, n_ops=14, keys=3, seed=2, rmw_frac=0.5,
+                     write_frac=0.25)
+    assert cl.run_until_quiet(max_ticks=120_000)
+    return cl
+
+
+def test_batched_machine_traces_replay_clean():
+    """The port's batched machines' own msg/issuer taps satisfy the port's
+    differential replay, with the stats of the reference's replay of the
+    reference's batched cluster on the same seed."""
+    import repro.core.sim as ref_sim
+    from repro.core import replay as ref_replay
+    from repro_torch.core import replay
+
+    cl = traced_batched_run(functools.partial(BatchedMachine, device="cpu"))
+    rcl = traced_batched_run(functools.partial(RefBatchedMachine,
+                                               use_kernel=False),
+                             ref_sim, RefProtocolConfig)
+    stats = replay.replay_cluster(cl, n_keys=3, device="cpu")
+    assert stats == ref_replay.replay_cluster(rcl, n_keys=3,
+                                              use_kernel=False)
+    assert stats["machines"] == 5 and stats["messages"] > 0
+    istats = replay.replay_issuer_cluster(cl, device="cpu")
+    assert istats == ref_replay.replay_issuer_cluster(rcl)
+    assert istats["machines"] == 5 and istats["decisions"] > 0
