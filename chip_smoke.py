@@ -112,10 +112,36 @@ Phases (any failure exits nonzero and prints no result):
     bounds, plain versions and, for attention, one
     ``scaled_dot_product_attention`` call (a yardstick the port never
     calls).
+14. **Training** (``[train]``): zamba2-7b at full width cut to one unit
+    (6 Mamba2 layers and one call of the shared attention block,
+    902,732,256 float32 parameters), ``DataConfig(vocab=32000,
+    seq_len=1024, batch=2, batches_per_shard=2)``, AdamW, remat on.
+    Gate 1: ``train_loss`` through the kernels at step 0's parameters on
+    the first batch's 2 x 256 tokens equals the mean next-token NLL of the
+    teacher-forced ``decode_step`` loop (plain PyTorch) within 1e-4
+    relative.  Gate 2: each float kernel's ``autograd.Function`` (the
+    kernel forward, the plain recompute backward) against autograd
+    through the plain version with the same upstream gradient: attention
+    at (2, 32, 1024, 112) causal and a GQA + window case, the SSD at (2,
+    1024, 112, 64, G=1, N=64), the WKV at (2, 64, 1024, 64); forwards
+    within the kernels' tolerances, every input's gradient within 1e-5
+    relative, one launch a forward.  Gate 3: ``train`` for 4 steps
+    (checkpoints at 2 and 4) over ``PaxosRegistry(n_machines=5,
+    machine_cls=BatchedMachine)``, registry replica 4 crashed, a new
+    ``train`` to step 8: it resumes at 4 from a state equal bit for bit
+    to the one saved, the registry commits 8, the shard cursor equals the
+    shards consumed, every loss and grad norm is finite, steps 7-8 end
+    below steps 1-2, every step launches 2 flash-attention and 12 SSD
+    kernels (forward and remat recompute), the Paxos kernels launch, and
+    a membership change mid-run reaches ``on_membership``.  Prints the
+    ms a step, the peak memory, each kernel's forward against its
+    backward recompute in device time, and the busy share of one profiled
+    step.
 
 The last three lines of standard output are the ``nvidia-smi`` name and
-power limit, one JSON object describing the five kernels, and
-``{"ok": true, "device": {...}}``.
+power limit, one JSON object describing the five kernels (with their
+launches in the two training runs, ``train_launches``, for the four on
+that path), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1654,7 +1680,7 @@ class FloatAgreement:
         self.max_rel_err = 0.0
         self.compared = 0
 
-    def add(self, got, want, tol, what, relative=False):
+    def add(self, got, want, tol, what, relative=False, tag="kernels"):
         got, want = got.float(), want.float()
         if not bool(got.isfinite().all()):
             raise AssertionError(f"{what}: the kernel wrote non-finite values")
@@ -1669,7 +1695,7 @@ class FloatAgreement:
         else:             # allclose: max(|got - want| - tol |want|) <= tol
             err = float(((got - want).abs() - tol * want.abs()).max()) \
                 if got.numel() else 0.0
-        log(f"[kernels] {what}: max abs err {abs_err:.3e}, relative to "
+        log(f"[{tag}] {what}: max abs err {abs_err:.3e}, relative to "
             f"max|plain| {rel_err:.3e} (tolerance {tol:g}"
             f"{' relative to max|plain|' if relative else ' + ' + format(tol, 'g') + ' |plain|'})")
         if not err <= tol:
@@ -2135,6 +2161,378 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
             f"{r['plain_ms']:.6f} ms, library {lib}")
     return out
 
+# ---------------------------------------------------------------------------
+# [train]: zamba2-7b's full width, cut to one unit
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 6          # one unit: six Mamba2 layers + the shared block
+TRAIN_DATA = dict(vocab=32000, seq_len=1024, batch=2, batches_per_shard=2)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
+TRAIN_RUN = "zamba2-train"
+TRAIN_GATE_TOKENS = 256
+GRAD_TOL = 1e-5           # each input's gradient, relative to its max
+# the gradient wiring of each Function at this slice's widths:
+# (kernel, label, shape) with the inputs of fa_inputs / ssd_inputs /
+# wkv_inputs; the first case of each is the training path's own shape
+GRAD_CASES = [
+    ("flash_attention", "zamba2 shared attention, train shape",
+     ("", 2, 32, 32, 1024, 1024, 112, True, None)),
+    ("flash_attention", "GQA + window",
+     ("", 2, 32, 8, 1024, 1024, 112, True, 256)),
+    ("mamba2_ssd", "zamba2 Mamba2 layer, train shape",
+     ("", 2, 1024, 112, 64, 1, 64)),
+    ("rwkv6_wkv", "rwkv6-7b layer",
+     ("", 2, 64, 1024, 64, 64, "moderate")),
+]
+GRAD_INPUTS = {"flash_attention": fa_inputs, "mamba2_ssd": ssd_inputs,
+               "rwkv6_wkv": wkv_inputs}
+
+
+def _device_ms_of(torch, fn):
+    """(device busy ms, wall ms) of one call of ``fn`` traced on the device
+    alone."""
+    rows, wall = profile_device(torch, fn, cpu=False)
+    return sum(_device_us(r) for r in rows if _is_device_row(r)) / 1e3, wall
+
+
+def train_gate_grads(torch, mods, dev):
+    """Gate 2: each Function's forward (the kernel) and gradients (the plain
+    recompute) against autograd through the plain version on the card,
+    with the same upstream gradient.  Returns, per kernel, the device ms of
+    one forward launch and of one backward recompute at the first case's
+    shape."""
+    split = {}
+    for i, (name, label, case) in enumerate(GRAD_CASES):
+        made = GRAD_INPUTS[name](torch, case, torch.float32, 700 + i, dev)
+        inputs, kw = made if name == "flash_attention" else (made, {})
+        wrapper, plain = _wrapper(mods, name), _plain(mods, name)
+        ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+        ref = [t.detach().clone().requires_grad_(True) for t in inputs]
+        before = wrapper.launches
+        out = wrapper(*ins, **kw)
+        launched = wrapper.launches - before
+        want = plain(*ref, **kw)
+        g = torch.Generator(device=dev).manual_seed(800 + i)
+        g_out = torch.randn(want.shape, generator=g, device=dev)
+        got_g = torch.autograd.grad(out, ins, g_out)
+        want_g = torch.autograd.grad(want, ref, g_out)
+        torch.cuda.synchronize()
+        if launched != 1:
+            raise AssertionError(f"[train] {name} {label}: the forward "
+                                 f"launched the kernel {launched} times")
+        FloatAgreement().add(out.detach(), want.detach(),
+                             FLOAT_TOL["float32"],
+                             f"{name} {label} forward {tuple(case[1:])}",
+                             relative=name != "flash_attention",
+                             tag="train")
+        for j, (a, b) in enumerate(zip(got_g, want_g)):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"[train] {name} {label} input {j}: "
+                                     f"gradient {tuple(a.shape)} {a.dtype}, "
+                                     f"plain {tuple(b.shape)} {b.dtype}")
+            FloatAgreement().add(a, b, GRAD_TOL,
+                                 f"{name} {label} d/d(input {j}) "
+                                 f"{tuple(a.shape)}", relative=True,
+                                 tag="train")
+        del out, want, got_g, want_g, ref
+        if name not in split:
+            # cuda events: the profiler can miss a lone ctypes launch
+            fwd_ms = cuda_ms(torch, lambda: wrapper(*inputs, **kw), 5)
+            out = wrapper(*ins, **kw)
+            bwd_ms, bwd_wall = _device_ms_of(
+                torch, lambda: torch.autograd.grad(out, ins, g_out))
+            split[name] = dict(shape=tuple(case[1:]), forward_ms=fwd_ms,
+                               recompute_ms=bwd_ms,
+                               recompute_wall_ms=bwd_wall)
+            log(f"[train] {name} at {tuple(case[1:])} float32: forward "
+                f"{fwd_ms:.3f} ms a wrapper call (cuda events); backward "
+                f"(plain recompute and its gradient) {bwd_ms:.3f} ms of "
+                f"device time in {bwd_wall:.1f} ms of wall (traced)")
+            del out
+        del ins, inputs, g_out
+        torch.cuda.empty_cache()
+    return split
+
+
+def train_gate_forward(torch, mods, model, params, data_cfg, dev):
+    """Gate 1: train_loss through the kernels against the mean next-token
+    NLL of the teacher-forced decode (plain PyTorch) on the same tokens."""
+    toks = torch.from_numpy(mods.synth_batch(data_cfg, 0, 0)[
+        :, :TRAIN_GATE_TOKENS]).to(dev)
+    b, s = toks.shape
+    fa, sd = _wrapper(mods, "flash_attention"), _wrapper(mods, "mamba2_ssd")
+    before = (fa.launches, sd.launches)
+    with torch.no_grad():
+        loss = float(model.train_loss(params, {"tokens": toks},
+                                      remat=False))
+        launched = (fa.launches - before[0], sd.launches - before[1])
+        caches = model.init_cache(b, s, dtype=torch.float32, device=dev)
+        nll = torch.zeros((), dtype=torch.float64, device=dev)
+        t0 = time.perf_counter()
+        for t in range(s - 1):
+            logits, caches = model.decode_step(params, caches,
+                                               toks[:, t:t + 1])
+            lp = torch.log_softmax(logits, dim=-1)
+            nll -= lp.gather(-1, toks[:, t + 1:t + 2].long()).double().sum()
+        want = float(nll) / (b * (s - 1))
+        t_dec = time.perf_counter() - t0
+    rel = abs(loss - want) / abs(want)
+    log(f"[train] gate 1: train_loss {loss:.7f} (kernels: {launched[0]} "
+        f"flash attention, {launched[1]} SSD launches) vs teacher-forced "
+        f"decode NLL {want:.7f} ({s - 1} steps, {t_dec:.2f} s) over {b} x "
+        f"{s} tokens: relative {rel:.3e} (tolerance 1e-4)")
+    if launched != (1, TRAIN_LAYERS) or not rel <= 1e-4:
+        raise AssertionError("[train] gate 1: the kernel forward and the "
+                             "plain decode disagree")
+    del caches
+
+
+def phase_train(torch, mods, dev):
+    """Training at zamba2-7b's full width, cut to one unit (6 layers):
+    gate 1 (forward), gate 2 (gradients), gate 3 (fault-tolerant runs
+    through the Paxos-leased stream and CAS-committed checkpoints)."""
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(mods.ARCHS[ZAMBA], n_layers=TRAIN_LAYERS)
+    model = mods.build_model(cfg)
+    data_cfg = mods.DataConfig(**TRAIN_DATA)
+    opt_cfg = mods.AdamWConfig(**TRAIN_OPT)
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
+    log(f"[train] {cfg.name} cut to {_describe(model)}, d_model "
+        f"{cfg.d_model}, data {TRAIN_DATA}, AdamW {TRAIN_OPT}; "
+        f"{free_gb:.1f} GB free for checkpoints")
+
+    params = model.init(0, device=dev)          # what train() draws first
+    n = sum(t.numel() for t in mods.leaves(params))
+    log(f"[train] {n} float32 parameters ({n * 4 / 1e9:.2f} GB; with "
+        f"gradients and both moments {n * 16 / 1e9:.2f} GB)")
+    train_gate_forward(torch, mods, model, params, data_cfg, dev)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    split = train_gate_grads(torch, mods, dev)
+    log(f"[train] gate 2 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
+    # gate 3: two runs over one registry, a replica crashed between them
+    registry = mods.PaxosRegistry(
+        n_machines=5, all_aboard=True,
+        machine_cls=functools.partial(mods.BatchedMachine, device=dev))
+    fa, sd = _wrapper(mods, "flash_attention"), _wrapper(mods, "mamba2_ssd")
+    paxos = (mods.apply_ops.paxos_apply, mods.propose_ops.paxos_propose)
+    for k in (fa, sd) + paxos:
+        k.launches = 0
+    last = dict(t=time.perf_counter(), fa=0, sd=0)
+    records, ckpts, epochs, restored, held = [], [], [], [], {}
+
+    def on_log(rec):
+        now = time.perf_counter()
+        records.append(dict(rec, wall_s=now - last["t"],
+                            fa=fa.launches - last["fa"],
+                            sd=sd.launches - last["sd"]))
+        last.update(t=now, fa=fa.launches, sd=sd.launches)
+
+    def on_ckpt(step, won):
+        now = time.perf_counter()
+        ckpts.append(dict(step=step, won=won, seconds=now - last["t"]))
+        # keep the newest committed checkpoint only (10.8 GB each)
+        for old in (ckpt_dir / TRAIN_RUN).glob("step_*"):
+            if old.name != f"step_{step:08d}":
+                shutil.rmtree(old)
+        if step == 6:                  # a membership change mid-run
+            registry.join_membership(TRAIN_RUN, 1)
+        last["t"] = time.perf_counter()
+
+    real_restore = mods.store.restore
+
+    def checked_restore(directory, run, like, registry=None, step=None):
+        out, got = real_restore(directory, run, like, registry, step)
+        saved = held.pop("state")
+        same = [torch.equal(a, b) for a, b in zip(mods.leaves(out),
+                                                  mods.leaves(saved))]
+        restored.append(dict(step=got, leaves=len(same), equal=sum(same),
+                             count_ok=len(mods.leaves(out))
+                             == len(mods.leaves(saved))))
+        del saved
+        last["t"] = time.perf_counter()
+        return out, got
+
+    hooks = {"on_log": on_log, "on_ckpt": on_ckpt,
+             "on_membership": epochs.append}
+    tcfg = mods.TrainConfig(run=TRAIN_RUN, steps=4, ckpt_every=2,
+                            ckpt_dir=str(ckpt_dir), log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    out1 = mods.train(model, data_cfg, tcfg, opt_cfg, registry, hooks,
+                      device=dev)
+    held["state"] = (out1["params"], out1["opt_state"])
+    del out1
+    registry.crash(4)
+    mods.store.restore = checked_restore
+    try:
+        out2 = mods.train(model, data_cfg,
+                          dataclasses.replace(tcfg, steps=8), opt_cfg,
+                          registry, hooks, device=dev)
+    finally:
+        mods.store.restore = real_restore
+    torch.cuda.synchronize()
+    t_runs = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"flash_attention": fa.launches, "mamba2_ssd": sd.launches,
+                "paxos_apply": paxos[0].launches,
+                "paxos_propose": paxos[1].launches}
+    committed = registry.latest_checkpoint(TRAIN_RUN)
+    cursor = registry.fetch(f"data/{TRAIN_RUN}/cursor")
+    for r in records:
+        log(f"[train] step {r['step']}: loss {r['loss']:.6f}, grad norm "
+            f"{r['grad_norm']:.6f}, {r['wall_s'] * 1e3:.1f} ms since the "
+            f"previous step (checkpoint excluded), launches: "
+            f"{r['fa']} flash attention, {r['sd']} SSD")
+    for c in ckpts:
+        log(f"[train] checkpoint step {c['step']}: committed={c['won']}, "
+            f"saved in {c['seconds']:.2f} s")
+    log(f"[train] run 2 restored {restored}; start_step "
+        f"{out2['start_step']}, latest checkpoint {committed}, shard cursor "
+        f"{cursor}, membership epochs seen {epochs}; main-path launches "
+        f"of both runs {json.dumps(launches)}; peak memory {peak_gb:.2f} "
+        f"GB; both runs {t_runs:.1f} s")
+
+    # gates
+    losses = [r["loss"] for r in records]
+    norms = [r["grad_norm"] for r in records]
+    problems = []
+    if [r["step"] for r in records] != list(range(1, 9)):
+        problems.append(f"logged steps {[r['step'] for r in records]}")
+    if out2["start_step"] != 4:
+        problems.append(f"start_step {out2['start_step']} != 4")
+    if committed != 8:
+        problems.append(f"latest checkpoint {committed} != 8")
+    if [c["step"] for c in ckpts] != [2, 4, 6, 8] or \
+            not all(c["won"] for c in ckpts):
+        problems.append(f"checkpoints {ckpts}")
+    if len(restored) != 1 or restored[0]["step"] != 4 or \
+            not restored[0]["count_ok"] or \
+            restored[0]["equal"] != restored[0]["leaves"]:
+        problems.append(f"restore {restored} is not the step-4 state bit "
+                        f"for bit")
+    shards = 8 // TRAIN_DATA["batches_per_shard"]
+    if cursor != shards:
+        problems.append(f"shard cursor {cursor} != {shards} shards consumed")
+    if not all(mods.np.isfinite(losses)) or not all(mods.np.isfinite(norms)):
+        problems.append("non-finite loss or grad norm")
+    if not (losses[6] + losses[7]) / 2 < (losses[0] + losses[1]) / 2:
+        problems.append("the loss of steps 7-8 is not below that of 1-2")
+    bad = [r["step"] for r in records
+           if (r["fa"], r["sd"]) != (2, 2 * TRAIN_LAYERS)]
+    if bad:
+        problems.append(f"steps {bad} did not launch 2 flash attention and "
+                        f"{2 * TRAIN_LAYERS} SSD kernels (forward + remat)")
+    if not launches["paxos_apply"] or not launches["paxos_propose"]:
+        problems.append("the Paxos kernels did not launch")
+    if epochs != [2]:
+        problems.append(f"membership epochs seen {epochs} != [2]")
+    if problems:
+        raise AssertionError("[train] gate 3: " + "; ".join(problems))
+
+    # the step's time, memory, the forward/recompute split, busy share
+    step_ms = statistics.median(r["wall_s"] * 1e3 for r in records[1:])
+    step_fn = mods.make_train_step(model, opt_cfg)
+    tokens = torch.from_numpy(mods.synth_batch(data_cfg, 99, 0)).to(dev)
+    params, opt_state = out2["params"], out2["opt_state"]
+    del out2
+    rows, prof_ms = profile_device(
+        torch, lambda: step_fn(params, opt_state, {"tokens": tokens}),
+        cpu=False)
+    dev_rows = [r for r in rows if _is_device_row(r) and _device_us(r) > 0]
+    dev_ms = sum(_device_us(r) for r in dev_rows) / 1e3
+    groups = {}
+    for r in dev_rows:
+        g = _kernel_group(r.key)
+        t_ms, cnt = groups.get(g, (0.0, 0))
+        groups[g] = (t_ms + _device_us(r) / 1e3, cnt + r.count)
+    log(f"[train] one profiled step: wall {prof_ms:.1f} ms, device busy "
+        f"{dev_ms:.1f} ms (busy share {dev_ms / prof_ms:.4f})")
+    for g, (t_ms, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"[train]   {t_ms:10.3f} ms  x{cnt:<7d} {g} "
+            f"({t_ms / dev_ms:.3f} of device time)")
+    per_step_launches = {"flash_attention": 2, "mamba2_ssd": 2 * TRAIN_LAYERS}
+    for name, sp in split.items():
+        if name not in per_step_launches:
+            continue
+        n_fwd = per_step_launches[name]
+        log(f"[train] {name} a step: forward launches x ms = {n_fwd} x "
+            f"{sp['forward_ms']:.3f} = {n_fwd * sp['forward_ms']:.2f} ms "
+            f"(cuda events); backward recomputes x ms = {n_fwd // 2} x "
+            f"{sp['recompute_ms']:.3f} = "
+            f"{n_fwd // 2 * sp['recompute_ms']:.2f} ms of device time "
+            f"({n_fwd // 2 * sp['recompute_wall_ms']:.0f} ms of wall, "
+            f"traced)")
+    log(f"[train] ms a step (median of steps 2-8, checkpoints excluded): "
+        f"{step_ms:.1f}; peak memory {peak_gb:.2f} GB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del params, opt_state, registry
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=step_ms, peak_gb=peak_gb,
+                busy_share=dev_ms / prof_ms, split=split)
+
+
+def load_modules():
+    """The port's modules the phases use, as one namespace (a driver that
+    runs a few phases alone imports this script and calls it)."""
+    import numpy as np
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.coord.registry import PaxosRegistry
+    from repro_torch.core import checkers
+    from repro_torch.core import proposer_vector as pv
+    from repro_torch.core import replay
+    from repro_torch.core.lanes import kv_to_lanes
+    from repro_torch.core.node import Machine, ProtocolConfig
+    from repro_torch.core.sim import Cluster, NetConfig, completion_digest, \
+        completion_tuples, workload
+    from repro_torch.core.vector import NOOP
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.paxos_apply import ops as apply_ops
+    from repro_torch.kernels.paxos_propose import ops as propose_ops
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import blocks
+    from repro_torch.models.registry import build_model
+    from repro_torch.obs import FlightRecorder, flight_guard
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.reconfig import catchup
+    from repro_torch.serve import loadgen
+    from repro_torch.serve.engine import DecodeEngine, ServeConfig
+    from repro_torch.serve.paxos import BatchedMachine, cluster_engine
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.tree import leaves
+
+    return argparse.Namespace(
+        checkers=checkers, Machine=Machine, ProtocolConfig=ProtocolConfig,
+        Cluster=Cluster, NetConfig=NetConfig,
+        completion_tuples=completion_tuples,
+        completion_digest=completion_digest, workload=workload,
+        kv_to_lanes=kv_to_lanes, replay=replay, noop_kind=NOOP,
+        apply_ops=apply_ops, propose_ops=propose_ops,
+        BatchedMachine=BatchedMachine, cluster_engine=cluster_engine,
+        np=np, pv=pv, ARCHS=ARCHS, PaxosRegistry=PaxosRegistry,
+        blocks=blocks,
+        build_model=build_model, fa_ops=fa_ops, ssd_ops=ssd_ops,
+        wkv_ops=wkv_ops, DecodeEngine=DecodeEngine, ServeConfig=ServeConfig,
+        loadgen=loadgen, FlightRecorder=FlightRecorder,
+        flight_guard=flight_guard, catchup=catchup, store=store,
+        leaves=leaves, DataConfig=DataConfig, synth_batch=synth_batch,
+        AdamWConfig=AdamWConfig, make_train_step=make_train_step,
+        TrainConfig=TrainConfig, train=train, build=_build)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2154,46 +2552,7 @@ def main(argv=None) -> int:
               "script measures the port on a CUDA card", file=sys.stderr)
         return 1
 
-    import numpy as np
-
-    from repro_torch.configs.archs import ARCHS
-    from repro_torch.coord.registry import PaxosRegistry
-    from repro_torch.core import checkers
-    from repro_torch.core import proposer_vector as pv
-    from repro_torch.core import replay
-    from repro_torch.core.lanes import kv_to_lanes
-    from repro_torch.core.node import Machine, ProtocolConfig
-    from repro_torch.core.sim import Cluster, NetConfig, completion_digest, \
-        completion_tuples, workload
-    from repro_torch.core.vector import NOOP
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
-    from repro_torch.kernels.paxos_apply import ops as apply_ops
-    from repro_torch.kernels.paxos_propose import ops as propose_ops
-    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
-    from repro_torch.models import blocks
-    from repro_torch.models.registry import build_model
-    from repro_torch.obs import FlightRecorder, flight_guard
-    from repro_torch.reconfig import catchup
-    from repro_torch.serve import loadgen
-    from repro_torch.serve.engine import DecodeEngine, ServeConfig
-    from repro_torch.serve.paxos import BatchedMachine, cluster_engine
-
-    mods = argparse.Namespace(
-        checkers=checkers, Machine=Machine, ProtocolConfig=ProtocolConfig,
-        Cluster=Cluster, NetConfig=NetConfig,
-        completion_tuples=completion_tuples,
-        completion_digest=completion_digest, workload=workload,
-        kv_to_lanes=kv_to_lanes, replay=replay, noop_kind=NOOP,
-        apply_ops=apply_ops, propose_ops=propose_ops,
-        BatchedMachine=BatchedMachine, cluster_engine=cluster_engine,
-        np=np, pv=pv, ARCHS=ARCHS, PaxosRegistry=PaxosRegistry,
-        blocks=blocks,
-        build_model=build_model, fa_ops=fa_ops, ssd_ops=ssd_ops,
-        wkv_ops=wkv_ops, DecodeEngine=DecodeEngine, ServeConfig=ServeConfig,
-        loadgen=loadgen, FlightRecorder=FlightRecorder,
-        flight_guard=flight_guard, catchup=catchup)
+    mods = load_modules()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     # float32 products in full float32 (the model checks' tolerances
@@ -2206,16 +2565,16 @@ def main(argv=None) -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}; "
         f"nvidia-smi: {card}")
 
-    phase_build(_build)
-    apply_ok, propose_ok = phase_kernels(torch, apply_ops, propose_ops, pv,
-                                         dev)
+    phase_build(mods.build)
+    apply_ok, propose_ok = phase_kernels(torch, mods.apply_ops,
+                                         mods.propose_ops, mods.pv, dev)
     if args.n_ops < N_OPS:
         log(f"[serve] n_ops cut from {N_OPS} to {args.n_ops}")
     runs, rec_r, rec_i, launches, waves_all = phase_serve(
         torch, mods, dev, args.n_ops)
     phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
     phase_schedule_replay(torch, mods, dev, args.n_ops)
-    times = phase_timings(torch, mods, pv, dev, waves_all)
+    times = phase_timings(torch, mods, mods.pv, dev, waves_all)
     phase_idle(torch, mods, dev, args.n_ops)
     phase_open_loop(torch, mods, dev, apply_ok, propose_ok)
     phase_reconfig(torch, mods, dev, apply_ok, propose_ok)
@@ -2231,6 +2590,7 @@ def main(argv=None) -> int:
     times.update(phase_model_timings(
         torch, mods, dev,
         {**prefill["per_launch_ms"], **rwkv_prefill["per_launch_ms"]}))
+    trained = phase_train(torch, mods, dev)
     torch.cuda.synchronize()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -2249,7 +2609,8 @@ def main(argv=None) -> int:
             "launches": launches[name], "mismatches": agree.mismatches,
             "max_abs_err": agree.max_abs_err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "bound_by": t["bound_by"], "library_ms": None,
+            "train_launches": trained["launches"][name]})
     # each float kernel's launches: its model's main path (the f32 prefill)
     model_launches = {"flash_attention": zamba_launches["flash_attention"],
                       "mamba2_ssd": zamba_launches["mamba2_ssd"],
@@ -2274,6 +2635,8 @@ def main(argv=None) -> int:
             "max_rel_err": agree.max_rel_err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if name in trained["launches"]:
+            kernels[-1]["train_launches"] = trained["launches"][name]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

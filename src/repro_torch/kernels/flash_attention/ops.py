@@ -12,6 +12,12 @@ float32: bfloat16 on the tensor cores (``mma.sync``), rounding the
 probabilities to bfloat16 before the value product as
 :func:`attention_plain` does; float32 on the CUDA cores.
 
+Its gradient is the reference's ``custom_vjp`` backward
+(``repro/kernels/flash_attention/ops.py:25-43``): ``flash_attention`` is a
+``torch.autograd.Function`` whose forward is the dispatch above and whose
+backward recomputes :func:`attention_plain` from the saved inputs
+(:func:`repro_torch.kernels._grad.plain_vjp`); there is no backward kernel.
+
 :func:`decode_attention` (one query token against a padded cache) stays
 plain PyTorch on every device, as the reference computes it outside any
 Pallas kernel.
@@ -24,6 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import plain_vjp
 
 MAX_HEAD_DIM = 256
 
@@ -112,12 +119,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"Hkv={k.shape[1]}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Attention forward, q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D] -> [B,Hq,Sq,D]
-    in q's dtype.  CPU: :func:`attention_plain`; CUDA: the kernel."""
-    _check(q, k, v)
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: Optional[int],
+             scale: Optional[float]) -> torch.Tensor:
+    """CPU: :func:`attention_plain`; CUDA: the kernel or raise."""
     dev = q.device
     if dev.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
@@ -150,6 +155,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"CUDA error {err}")
     flash_attention.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, scale=scale)
+        return _forward(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return plain_vjp(attention_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad[:3], grad_out,
+                         **ctx.kw) + (None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention forward, q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D] -> [B,Hq,Sq,D]
+    in q's dtype.  CPU: :func:`attention_plain`; CUDA: the kernel.  The
+    gradient recomputes :func:`attention_plain` (k and v's come back as
+    [B,Hkv,Sk,D] under GQA)."""
+    _check(q, k, v)
+    return _FlashAttention.apply(q, k, v, causal, window, scale)
 
 
 flash_attention.launches = 0

@@ -16,6 +16,13 @@ the chunked dual form on the tensor cores (chunks of 64 steps, the state
 in float32), float32 inputs the sequential scan on the CUDA cores.  :func:`ssd_decode`
 is one step of the recurrence, plain PyTorch on every device, as the
 reference's ``ssd_decode_ref``.
+
+Its gradient is the reference's ``custom_vjp`` backward
+(``repro/kernels/mamba2_ssd/ops.py:14-29``): ``ssd`` is a
+``torch.autograd.Function`` whose backward recomputes :func:`ssd_plain`
+from the saved inputs (:func:`repro_torch.kernels._grad.plain_vjp`); there
+is no backward kernel.  That recompute is the sequential scan's graph: one
+``[B, H, N, P]`` float32 state a step is kept for the call's backward.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import plain_vjp
 
 MAX_STATE = 128          # N the kernel takes (its mma tiles and registers)
 
@@ -90,12 +98,9 @@ def _check(x, dt, A, Bm, Cm) -> None:
                              f"{x.device}")
 
 
-def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-        Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
-    """Mamba2 SSD token mixing -> y [B,T,H,P] in x's dtype.  CPU:
-    :func:`ssd_plain`; CUDA: the kernel (x, dt, Bm, Cm of one dtype,
-    float32 or bfloat16; A is read as float32)."""
-    _check(x, dt, A, Bm, Cm)
+def _forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """CPU: :func:`ssd_plain`; CUDA: the kernel or raise."""
     dev = x.device
     if dev.type == "cpu":
         return ssd_plain(x, dt, A, Bm, Cm)
@@ -129,6 +134,28 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            f"{err}")
     ssd.launches += 1
     return y
+
+
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        return _forward(x, dt, A, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return plain_vjp(ssd_plain, ctx.saved_tensors, ctx.needs_input_grad,
+                         grad_out)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+        Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """Mamba2 SSD token mixing -> y [B,T,H,P] in x's dtype.  CPU:
+    :func:`ssd_plain`; CUDA: the kernel (x, dt, Bm, Cm of one dtype,
+    float32 or bfloat16; A is read as float32).  The gradient recomputes
+    :func:`ssd_plain` (A's sums over the batch)."""
+    _check(x, dt, A, Bm, Cm)
+    return _SSD.apply(x, dt, A, Bm, Cm)
 
 
 ssd.launches = 0

@@ -17,6 +17,12 @@ CUDA cores.  The kernels take any T (the TPU launcher's ``t % chunk``
 contract does not apply).
 :func:`wkv6_decode` is one step of the recurrence, plain PyTorch on every
 device, as the reference's ``wkv6_decode_ref``.
+
+Its gradient is the reference's ``custom_vjp`` backward
+(``repro/kernels/rwkv6_wkv/ops.py:14-29``): ``wkv6`` is a
+``torch.autograd.Function`` whose backward recomputes :func:`wkv6_plain`
+from the saved inputs (:func:`repro_torch.kernels._grad.plain_vjp`); there
+is no backward kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import plain_vjp
 
 MAX_KEY = 64             # K the kernels take
 
@@ -79,12 +86,9 @@ def _check(r, k, v, w, u) -> None:
                              f"{r.device}")
 
 
-def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-         u: torch.Tensor) -> torch.Tensor:
-    """RWKV6 token mixing -> y [B,H,T,V] in r's dtype.  CPU:
-    :func:`wkv6_plain`; CUDA: the kernel (r, k, v, w of one dtype, float32
-    or bfloat16, K <= MAX_KEY; u is read as float32)."""
-    _check(r, k, v, w, u)
+def _forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """CPU: :func:`wkv6_plain`; CUDA: the kernel or raise."""
     dev = r.device
     if dev.type == "cpu":
         return wkv6_plain(r, k, v, w, u)
@@ -118,6 +122,28 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                            f"{err}")
     wkv6.launches += 1
     return y
+
+
+class _WKV6(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return _forward(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return plain_vjp(wkv6_plain, ctx.saved_tensors, ctx.needs_input_grad,
+                         grad_out)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor) -> torch.Tensor:
+    """RWKV6 token mixing -> y [B,H,T,V] in r's dtype.  CPU:
+    :func:`wkv6_plain`; CUDA: the kernel (r, k, v, w of one dtype, float32
+    or bfloat16, K <= MAX_KEY; u is read as float32).  The gradient
+    recomputes :func:`wkv6_plain` (u's sums over the batch)."""
+    _check(r, k, v, w, u)
+    return _WKV6.apply(r, k, v, w, u)
 
 
 wkv6.launches = 0

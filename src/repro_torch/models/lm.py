@@ -13,13 +13,15 @@ its per-invocation KV caches are stacked over ``repeats``.
 Entry points::
 
     init(generator, dtype, device)     -> params
+    train_loss(params, batch)          -> scalar next-token cross-entropy
     prefill(params, tokens)            -> last-position logits [B, vocab]
     decode_step(params, caches, tokens) -> (logits [B, vocab], caches)
 
-On a CUDA device ``prefill`` runs the flash-attention, Mamba2 SSD and
-RWKV6 WKV CUDA kernels; ``decode_step`` is plain PyTorch (one token against
-the caches).  MoE and M-RoPE layers raise ``NotImplementedError`` (ROADMAP,
-Queue 1 item 6).
+On a CUDA device ``train_loss`` and ``prefill`` run the flash-attention,
+Mamba2 SSD and RWKV6 WKV CUDA kernels (their gradients recompute the plain
+versions, as the reference's ``custom_vjp`` does); ``decode_step`` is
+plain PyTorch (one token against the caches).  MoE and M-RoPE layers
+raise ``NotImplementedError`` (ROADMAP, Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from .blocks import (
@@ -149,7 +152,8 @@ def _zeros(spec, lead, device):
 
 
 class LM:
-    """Functional model object: init / logits / prefill / decode_step."""
+    """Functional model object: init / train_loss / logits / prefill /
+    decode_step."""
 
     def __init__(self, cfg: ModelConfig):
         if cfg.family == "encdec":
@@ -200,19 +204,30 @@ class LM:
         only, nothing allocated."""
         return self._init(None, dtype, torch.device("meta"))
 
-    # -- forward (prefill) ---------------------------------------------------
+    # -- forward (train / prefill) -------------------------------------------
 
-    def _backbone(self, params, x, positions):
+    def _unit(self, params, r: int, x, positions):
+        """Repeat ``r`` of the unit, then zamba2's shared block."""
         cfg = self.cfg
+        for i, kind in enumerate(self.unit):
+            x = _apply_layer(cfg, kind, _index(params["units"][i], r), x,
+                             positions=positions)
         shared = params.get("shared_attn")
+        if shared is not None:
+            x = apply_attention(cfg, shared["attn"], x, positions=positions)
+            x = apply_mlp(cfg, shared["mlp"], x)
+        return x
+
+    def _backbone(self, params, x, positions, remat: bool = False):
+        """``remat`` keeps only each repeat's input for the backward, which
+        runs the repeat's forward again (``jax.checkpoint(unit_body)``)."""
+        cfg = self.cfg
         for r in range(self.repeats):
-            for i, kind in enumerate(self.unit):
-                x = _apply_layer(cfg, kind, _index(params["units"][i], r), x,
-                                 positions=positions)
-            if shared is not None:
-                x = apply_attention(cfg, shared["attn"], x,
-                                    positions=positions)
-                x = apply_mlp(cfg, shared["mlp"], x)
+            if remat:
+                x = checkpoint(self._unit, params, r, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._unit(params, r, x, positions)
         for i, kind in enumerate(self.tail):
             x = _apply_layer(cfg, kind, params["tail"][i], x,
                              positions=positions)
@@ -226,6 +241,24 @@ class LM:
         h = norm_apply(cfg, params["final_norm"], x)
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         return (h @ w.to(h.dtype)).float()
+
+    def train_loss(self, params, batch: Dict[str, torch.Tensor], *,
+                   remat: bool = True) -> torch.Tensor:
+        """batch: dict(tokens [B, S]).  The mean next-token cross-entropy
+        over ``logits[:, :-1]``, in float32.  The reference adds ``0.01 *
+        aux``, the MoE balance loss, which is 0 for every ported family."""
+        if batch.get("vision_embeds") is not None or \
+                batch.get("mrope_positions") is not None:
+            raise NotImplementedError(f"VLM inputs {NOT_PORTED}")
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        b, s, _ = x.shape
+        positions = default_positions(b, s, device=x.device)
+        x = self._backbone(params, x, positions, remat=remat)
+        logits = self.logits(params, x)
+        lp = torch.log_softmax(logits[:, :-1], dim=-1)
+        nll = -lp.gather(-1, tokens[:, 1:, None].long())[..., 0]
+        return nll.mean()
 
     def prefill(self, params, tokens: torch.Tensor, vision_embeds=None,
                 mrope_positions=None) -> torch.Tensor:

@@ -125,6 +125,81 @@ def test_wkv6_matches_plain(card, dtype, b, h, t, k, v, regime):
     assert ((got - want).abs().max() / want.abs().max()).item() <= TOL[dtype]
 
 
+# the gradients: each Function's backward recomputes the plain version, so
+# its gradients are the plain version's own autograd up to the order of
+# float32 sums (1e-5 relative to each gradient's largest magnitude); the
+# forward launches the kernel once
+GRAD_TOL = 1e-5
+
+
+def _grads_vs_plain(wrapper, plain, inputs, kw, dtype):
+    """(forward error, worst gradient error), both relative to max |plain|,
+    and the launches the wrapper counted."""
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    ref = [t.detach().clone().requires_grad_(True) for t in inputs]
+    before = wrapper.launches
+    out = wrapper(*ins, **kw)
+    launched = wrapper.launches - before
+    want = plain(*ref, **kw)
+    g_out = torch.randn(want.shape, generator=torch.Generator(
+        device=want.device).manual_seed(7), device=want.device).to(dtype)
+    got_g = torch.autograd.grad(out, ins, g_out)
+    want_g = torch.autograd.grad(want, ref, g_out)
+    fwd = float((out - want).detach().abs().max() / want.detach().abs().max())
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(got_g, want_g))
+    for a, b in zip(got_g, want_g):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    return fwd, worst, launched
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (1, 4, 4, 130, 112, None),        # zamba2's head dim, ragged S
+    (2, 8, 2, 97, 64, 33),            # GQA and a window
+])
+def test_flash_attention_grads_match_plain(card, b, hq, hkv, s, d, window):
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (b, hq, s, d), torch.float32, card)
+    k = _randn(rng, (b, hkv, s, d), torch.float32, card)
+    v = _randn(rng, (b, hkv, s, d), torch.float32, card)
+    fwd, worst, launched = _grads_vs_plain(
+        fa.flash_attention, fa.attention_plain, (q, k, v),
+        dict(causal=True, window=window), torch.float32)
+    assert launched == 1
+    assert fwd <= TOL["float32"] and worst <= GRAD_TOL
+
+
+def test_ssd_grads_match_plain(card):
+    rng = np.random.default_rng(4)
+    b, t, h, p, g, n = 2, 70, 6, 16, 2, 8
+    x = _randn(rng, (b, t, h, p), torch.float32, card)
+    dt = torch.nn.functional.softplus(_randn(rng, (b, t, h), torch.float32,
+                                             card))
+    A = -torch.exp(_randn(rng, (h,), torch.float32, card))
+    Bm = _randn(rng, (b, t, g, n), torch.float32, card)
+    Cm = _randn(rng, (b, t, g, n), torch.float32, card)
+    fwd, worst, launched = _grads_vs_plain(sd.ssd, sd.ssd_plain,
+                                           (x, dt, A, Bm, Cm), {},
+                                           torch.float32)
+    assert launched == 1
+    assert fwd <= TOL["float32"] and worst <= GRAD_TOL
+
+
+def test_wkv6_grads_match_plain(card):
+    rng = np.random.default_rng(5)
+    b, h, t, k, v = 2, 3, 50, 16, 24
+    r = _randn(rng, (b, h, t, k), torch.float32, card)
+    kk = _randn(rng, (b, h, t, k), torch.float32, card)
+    vv = _randn(rng, (b, h, t, v), torch.float32, card)
+    w = torch.from_numpy(_wkv_decays(rng, (b, h, t, k), "moderate")).to(card)
+    u = _randn(rng, (h, k), torch.float32, card)
+    fwd, worst, launched = _grads_vs_plain(wk.wkv6, wk.wkv6_plain,
+                                           (r, kk, vv, w, u), {},
+                                           torch.float32)
+    assert launched == 1
+    assert fwd <= TOL["float32"] and worst <= GRAD_TOL
+
+
 def test_unsupported_inputs_raise(card):
     q = torch.zeros((1, 2, 4, 8), device=card, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
