@@ -83,7 +83,10 @@ Phases (any failure exits nonzero and prints no result):
    the seconds and bytes of every snapshot taken and installed.
 8. **Float kernels vs plain** on unit-normal inputs made on the card:
    ``flash_attention`` at zamba2's, gemma3's local, qwen1.5's ragged,
-   Sq < Sk, non-causal and MQA shapes and a window straddling key tiles,
+   Sq < Sk, non-causal and MQA shapes, a window straddling key tiles,
+   mixtral's 4096-token window slid past its edge (Sq = Sk = 4608, GQA
+   32/8), qwen2-vl's GQA 64/8 and whisper's cross-attention (Sq = 64 and
+   Sq = 1 against Sk = 1500, non-causal),
    ``mamba2_ssd`` at zamba2's layer, ragged T (T = 65 and 4097 are ragged
    by one step against its 64-step chunks), G = 2 and N = 128,
    ``rwkv6_wkv`` at rwkv6-7b's prefill and the smoke
@@ -108,11 +111,40 @@ Phases (any failure exits nonzero and prints no result):
    weights, drawn after zamba2's are freed): phase 9 again, with 32
    ``rwkv6_wkv`` launches in the prefill.
 12. **bf16 rwkv6-7b prefill** at 1 x 4096 tokens, as phase 10.
-13. **Timings** of the three float kernels at their prefill shapes, their
+13. **mixtral-8x7b** (``[mixtral]``) at full width (8 experts top-2 x
+    14336, 32 / 8 heads x 128, window 4096) cut to 4 of 32 layers
+    (6,067,228,672 float32 parameters).  Gate 1: a prefill of 1 x 4608
+    tokens, past the window's edge, through the kernels against the same
+    prefill with ``attention_plain`` on the card (same top-1, max logit
+    error <= 1e-3 of max |logit|, 4 flash-attention launches); prints how
+    many top-2 expert choices differ between the two (expected 0).  Gate
+    2: at capacity factor 8 (nothing drops) a prefill of 1 x 256 tokens
+    against the teacher-forced ``decode_step`` loop, with the published
+    factor's dropped assignments printed beside it.  Then
+    ``DecodeEngine`` routes and generates 16 steps, and a bf16 prefill of
+    1 x 4608 is timed and profiled, split into attention, MoE dispatch
+    (the ``moe.dispatch`` and ``moe.combine`` ranges: routing, sort,
+    scatter, gather), expert products (``moe.experts``) and the rest.
+14. **qwen2-vl-72b** (``[qwen2_vl]``) at full width (64 / 8 heads x 128,
+    M-RoPE sections (16, 24, 24)) cut to 2 of 80 layers (4,246,794,240
+    float32 parameters).  Gate 1: 256 vision embeddings (a 16 x 16 grid
+    in M-RoPE) and 512 text tokens through the kernels against the plain
+    prefill (2 launches); gate 2: a text-only prefill of 2 x 128 against
+    the teacher-forced decode.  Then its bf16 prefill.
+15. **whisper-large-v3** (``[whisper]``) at full width and depth (32 + 32
+    layers, 1,578,672,640 float32 parameters).  Gate 1: the prefill of 2
+    x 1500 frames and 2 x 64 tokens through the kernels against the plain
+    prefill (96 launches: 32 encoder, 32 self, 32 cross); gate 2: decode
+    step 64 with cross caches from ``_enc_kv`` against the same step with
+    ``attention_plain`` (32 launches).  The prefill against the
+    teacher-forced decode is printed and not held: the reference's decode
+    rotates by RoPE and its prefill does not.  Then ``DecodeEngine``
+    generates 16 steps, and the bf16 prefill is timed and profiled.
+16. **Timings** of the three float kernels at their prefill shapes, their
     bounds, plain versions and, for attention, one
     ``scaled_dot_product_attention`` call (a yardstick the port never
     calls).
-14. **Training** (``[train]``): zamba2-7b at full width cut to one unit
+17. **Training** (``[train]``): zamba2-7b at full width cut to one unit
     (6 Mamba2 layers and one call of the shared attention block,
     902,732,256 float32 parameters), ``DataConfig(vocab=32000,
     seq_len=1024, batch=2, batches_per_shard=2)``, AdamW, remat on.
@@ -141,13 +173,18 @@ Phases (any failure exits nonzero and prints no result):
 The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, one JSON object describing the five kernels (with their
 launches in the two training runs, ``train_launches``, for the four on
-that path), and ``{"ok": true, "device": {...}}``.
+that path; for ``flash_attention`` also ``zoo_launches``, its launches in
+the f32 prefills of phases 13-15 and in whisper's decode step, and
+``zoo_bf16_ms``, its device time a call in their bf16 prefills), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import dataclasses
 import functools
 import json
 import pathlib
@@ -1631,6 +1668,11 @@ FA_CASES = [
     ("non-causal", 1, 20, 20, 1500, 1500, 64, False, None),
     ("MQA", 1, 8, 1, 512, 512, 128, True, None),
     ("window straddles key tiles", 1, 8, 8, 129, 129, 112, True, 70),
+    ("mixtral window past its edge", 1, 32, 8, 4608, 4608, 128, True, 4096),
+    ("qwen2-vl GQA 64/8", 1, 64, 8, 768, 768, 128, True, None),
+    ("whisper cross-attention", 2, 20, 20, 64, 1500, 64, False, None),
+    ("whisper cross-attention, decode", 2, 20, 20, 1, 1500, 64, False,
+     None),
 ]
 # (label, B, T, H, P, G, N)
 SSD_CASES = [
@@ -1791,6 +1833,9 @@ def phase_model_kernels(torch, mods, dev):
 def _describe(model) -> str:
     """``81 layers (13 x 6 mamba + shared attention + 3 tail)``."""
     cfg = model.cfg
+    if cfg.family == "encdec":
+        return (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder "
+                f"layers")
     unit = "+".join(sorted(set(model.unit)))
     shared = " + shared attention" if cfg.family == "hybrid" else ""
     return (f"{cfg.n_layers} layers ({model.repeats} x {len(model.unit)} "
@@ -1836,7 +1881,12 @@ def _plain(mods, name):
 def expected_launches(model):
     """Float-kernel launches of one prefill: one flash attention per
     attention layer and shared-block call, one SSD per Mamba2 layer, one
-    WKV per RWKV6 layer."""
+    WKV per RWKV6 layer; an encoder-decoder's flash attention once an
+    encoder layer and twice a decoder layer (self and cross)."""
+    cfg = model.cfg
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers,
+                "mamba2_ssd": 0, "rwkv6_wkv": 0}
     kinds = list(model.unit) * model.repeats + list(model.tail)
     shared = model.repeats if model.cfg.family == "hybrid" else 0
     return {"flash_attention": shared + sum(k not in ("mamba", "rwkv")
@@ -1845,16 +1895,17 @@ def expected_launches(model):
             "rwkv6_wkv": kinds.count("rwkv")}
 
 
-def _prefill_counted(torch, mods, model, params, tokens, recorders=None):
-    """One prefill with every float kernel's count set to 0 just before it
-    and read just after; optionally through call recorders."""
+def _prefill_counted(torch, mods, model, params, args, recorders=None):
+    """One prefill, ``model.prefill(params, *args)``, with every float
+    kernel's count set to 0 just before it and read just after; optionally
+    through call recorders."""
     recorders = recorders or {}
     for name in FLOAT_KERNELS:
         _wrapper(mods, name).launches = 0
     for name, rec in recorders.items():
         setattr(mods.blocks, FLOAT_KERNELS[name][1], rec)
     try:
-        logits = model.prefill(params, tokens)
+        logits = model.prefill(params, *args)
         torch.cuda.synchronize()
     finally:
         for name in recorders:
@@ -1883,8 +1934,8 @@ def phase_model(torch, mods, dev, name, keep, agree):
     recs = {k: Recorder(torch, _wrapper(mods, k), calls)
             for k, calls in keep.items()}
     t0 = time.perf_counter()
-    logits, launches = _prefill_counted(torch, mods, model, params, tokens,
-                                        recs)
+    logits, launches = _prefill_counted(torch, mods, model, params,
+                                        (tokens,), recs)
     t_prefill = time.perf_counter() - t0
     log(f"[{tag}] main-path launches of one prefill "
         f"({PROMPT_BATCH} x {PROMPT_LEN} tokens, float32): "
@@ -1939,7 +1990,17 @@ def phase_model(torch, mods, dev, name, keep, agree):
         raise AssertionError("prefill and teacher-forced decode disagree")
     del caches, dec
 
-    # DecodeEngine: routes through PaxosRegistry over BatchedMachine
+    phase_engine(torch, mods, dev, tag, model, params, GEN_STEPS)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_engine(torch, mods, dev, tag, model, params, steps):
+    """``DecodeEngine`` routes GEN_SESSIONS sessions through
+    ``PaxosRegistry`` over ``BatchedMachine`` (sticky across two engines),
+    then generates ``steps`` tokens for each."""
+    cfg = model.cfg
     mods.apply_ops.paxos_apply.launches = 0
     mods.propose_ops.paxos_propose.launches = 0
     t0 = time.perf_counter()
@@ -1964,20 +2025,17 @@ def phase_model(torch, mods, dev, name, keep, agree):
                for _ in sessions]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = engines[0].generate(prompts, steps=GEN_STEPS)
+    out = engines[0].generate(prompts, steps=steps)
     t_gen = time.perf_counter() - t0
-    if out.shape != (GEN_SESSIONS, GEN_STEPS) or out.min() < 0 or \
+    if out.shape != (GEN_SESSIONS, steps) or out.min() < 0 or \
             out.max() >= cfg.vocab:
         raise AssertionError(f"generate returned {out.shape} tokens outside "
                              f"[0, {cfg.vocab})")
     log(f"[{tag}] routes {routes} sticky across 2 engines "
         f"({t_route:.2f} s, Paxos kernel launches {json.dumps(paxos)}); "
         f"generate {GEN_SESSIONS} sessions (prompts "
-        f"{[len(p) for p in prompts]} tokens) x {GEN_STEPS} steps in "
+        f"{[len(p) for p in prompts]} tokens) x {steps} steps in "
         f"{t_gen:.2f} s; first row {out[0].tolist()}")
-    del engines, registry, params
-    torch.cuda.empty_cache()
-    return launches
 
 
 def _kernel_group(key: str) -> str:
@@ -1993,24 +2051,48 @@ def _kernel_group(key: str) -> str:
     return "other torch kernels"
 
 
-def phase_prefill_bf16(torch, mods, dev, name):
-    """bfloat16 prefill of ``name`` at 1 x PREFILL_SEQ tokens: wall time,
-    one profiled pass, and its float kernels' device time per launch."""
-    cfg = mods.ARCHS[name]
+def _range_device_ms(rows, label):
+    """Device time of the kernels launched inside a ``record_function``
+    range: its CPU row's total over its children's kernels, or None.  (The
+    range's own device-side row spans its kernels' gaps too.)"""
+    hits = [r for r in rows if r.key == label and not _is_device_row(r)]
+    if not hits:
+        return None
+    total = 0.0
+    for r in hits:
+        for attr in ("device_time_total", "cuda_time_total"):
+            if hasattr(r, attr):
+                total += float(getattr(r, attr))
+                break
+    return total / 1e3
+
+
+def phase_prefill_bf16(torch, mods, dev, name, cfg=None, make_args=None,
+                       ranges=()):
+    """bfloat16 prefill of ``name`` (``cfg``, a depth cut, if given) at
+    1 x PREFILL_SEQ tokens, or on ``make_args(cfg, generator) -> (args,
+    description)``: wall time, peak memory, one profiled pass, its float
+    kernels' device time per launch, and the device time inside each of
+    the model's profiler ``ranges``."""
+    cfg = cfg or mods.ARCHS[name]
     model = mods.build_model(cfg)
     params = _model_params(torch, model, torch.bfloat16, dev, 0, "prefill")
     gen = torch.Generator(device=dev).manual_seed(3)
-    tokens = torch.randint(1, cfg.vocab, (1, PREFILL_SEQ), generator=gen,
-                           device=dev, dtype=torch.int32)
+    if make_args is None:
+        args = (torch.randint(1, cfg.vocab, (1, PREFILL_SEQ), generator=gen,
+                              device=dev, dtype=torch.int32),)
+        what = f"1 x {PREFILL_SEQ} tokens"
+    else:
+        args, what = make_args(cfg, gen)
     torch.cuda.reset_peak_memory_stats()
-    logits, launches = _prefill_counted(torch, mods, model, params, tokens)
+    logits, launches = _prefill_counted(torch, mods, model, params, args)
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name} bf16 prefill logits are not finite")
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.prefill(params, tokens)
+        model.prefill(params, *args)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
@@ -2018,13 +2100,15 @@ def phase_prefill_bf16(torch, mods, dev, name):
     for k in FLOAT_KERNELS:
         _wrapper(mods, k).launches = 0
     rows, prof_ms = profile_device(torch, lambda: model.prefill(params,
-                                                                tokens))
+                                                                *args))
     # wrapper calls over the profiled pass: a design may launch several
     # CUDA kernels a call, so a call's time is its group's time over these
     prof_calls = {k: _wrapper(mods, k).launches for k in FLOAT_KERNELS}
-    dev_rows = [r for r in rows if _is_device_row(r) and _device_us(r) > 0]
+    # kernels only: a range's device-side annotation row is not a kernel
+    dev_rows = [r for r in rows if _is_device_row(r) and _device_us(r) > 0
+                and r.key not in ranges]
     dev_ms = sum(_device_us(r) for r in dev_rows) / 1e3
-    log(f"[prefill] {name} bf16 1 x {PREFILL_SEQ} tokens: "
+    log(f"[prefill] {name} bf16 {what}: "
         f"{json.dumps(launches)} launches; wall {wall_ms:.2f} ms (median of "
         f"3: {', '.join(f'{w:.2f}' for w in walls)}), profiled wall "
         f"{prof_ms:.2f} ms, device busy {dev_ms:.2f} ms (busy share "
@@ -2047,10 +2131,370 @@ def phase_prefill_bf16(torch, mods, dev, name):
             per_launch[k] = t_ms / prof_calls[k]
             log(f"[prefill]   {k}: {prof_calls[k]} wrapper calls, {cnt} CUDA "
                 f"kernels, {per_launch[k]:.6f} ms a call")
+    in_ranges = {}
+    for label in ranges:
+        in_ranges[label] = _range_device_ms(rows, label)
+        shown = ("not measured (no row)" if in_ranges[label] is None else
+                 f"{in_ranges[label]:.3f} ms "
+                 f"({in_ranges[label] / dev_ms:.3f} of device time)")
+        log(f"[prefill]   range {label}: {shown}")
+    if ranges and None not in in_ranges.values():
+        rest = dev_ms - sum(in_ranges.values()) - sum(
+            groups.get(f"{k}_kernel", (0.0, 0))[0] for k in FLOAT_KERNELS)
+        log(f"[prefill]   outside the ranges and the float kernels "
+            f"(projections, norms, elementwise passes): {rest:.3f} ms "
+            f"({rest / dev_ms:.3f} of device time)")
     del params, logits
     torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, device_ms=dev_ms, launches=launches,
-                per_launch_ms=per_launch)
+                per_launch_ms=per_launch, ranges_ms=in_ranges, what=what,
+                peak_gb=peak_gb)
+
+
+# ---------------------------------------------------------------------------
+# [mixtral], [qwen2_vl], [whisper]: the rest of the model zoo at full width
+# ---------------------------------------------------------------------------
+
+MIXTRAL = "mixtral-8x7b"
+MIXTRAL_LAYERS = 4        # of 32: 6,067,228,672 float32 parameters, 24.3 GB
+MIXTRAL_SEQ = 4608        # 512 tokens past the 4096-token window
+MIXTRAL_GATE2_TOKENS = 256
+MIXTRAL_ROOMY = 8.0       # a capacity factor at which nothing drops
+QWEN2_VL = "qwen2-vl-72b"
+QWEN2_VL_LAYERS = 2       # of 80: 4,246,794,240 float32 parameters, 17.0 GB
+VLM_GRID = 16             # the image's 256 tokens as a 16 x 16 grid
+VLM_TEXT = 512
+WHISPER = "whisper-large-v3"   # full depth: 32 + 32 layers, 6.3 GB
+WHISPER_BATCH, WHISPER_TOKENS = 2, 64
+ZOO_GEN_STEPS = 16
+MODEL_TOL = 1e-3          # max logit error over max |logit|
+MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine")
+
+
+def _cut(mods, name, n_layers):
+    return dataclasses.replace(mods.ARCHS[name], n_layers=n_layers)
+
+
+def _slice(tree, i):
+    """Layer ``i`` of a parameter tree stacked over layers."""
+    if isinstance(tree, dict):
+        return {k: _slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+@contextlib.contextmanager
+def plain_attention(mods):
+    """Every attention of the model through ``attention_plain`` on the
+    card (the kernel's plain version, as the reference's ``impl="xla"``)."""
+    mods.blocks.flash_attention = mods.fa_ops.attention_plain
+    try:
+        yield
+    finally:
+        mods.blocks.flash_attention = mods.fa_ops.flash_attention
+
+
+class RouteRecorder:
+    """Wraps ``blocks.moe_route``: keeps each MoE call's expert ids and
+    its dropped-assignment count."""
+
+    def __init__(self, fn):
+        self.fn, self.idx, self.dropped = fn, [], []
+
+    def __call__(self, cfg, router, h):
+        r = self.fn(cfg, router, h)
+        self.idx.append(r.idx.clone())
+        self.dropped.append(r.dropped())
+        return r
+
+
+@contextlib.contextmanager
+def recorded_routes(mods):
+    rec = RouteRecorder(mods.blocks.moe_route)
+    mods.blocks.moe_route = rec
+    try:
+        yield rec
+    finally:
+        mods.blocks.moe_route = rec.fn
+
+
+def hold_logits(tag, what, got, want, tol=MODEL_TOL):
+    """Same top-1 and max |got - want| <= tol max |want|, or raise."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    top_g, top_w = got.argmax(-1), want.argmax(-1)
+    log(f"[{tag}] {what}: max abs logit err {err:.3e}, relative "
+        f"{err / scale:.3e} (tolerance {tol:g}), top-1 {top_g.tolist()} vs "
+        f"{top_w.tolist()}")
+    if not (bool(got.isfinite().all()) and err / scale <= tol
+            and bool((top_g == top_w).all())):
+        raise AssertionError(f"{tag}: {what} disagree")
+    return err / scale
+
+
+def kernel_vs_plain_prefill(torch, mods, tag, model, params, args, what):
+    """The prefill through the kernels (the main path: counts from 0) held
+    to the same prefill with ``attention_plain`` on the card."""
+    t0 = time.perf_counter()
+    logits, launches = _prefill_counted(torch, mods, model, params, args)
+    t_kernel = time.perf_counter() - t0
+    mods.fa_ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with plain_attention(mods):
+        plain = model.prefill(params, *args)
+        torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    if mods.fa_ops.flash_attention.launches:
+        raise AssertionError(f"{tag}: the plain prefill launched the kernel")
+    log(f"[{tag}] main-path launches of one prefill ({what}, float32): "
+        f"{json.dumps(launches)}; {t_kernel:.3f} s through the kernels, "
+        f"{t_plain:.3f} s plain")
+    hold_logits(tag, "prefill through the kernels vs attention_plain",
+                logits, plain)
+    return logits, launches
+
+
+def prefill_vs_decode(torch, tag, model, params, tokens, want, dev,
+                      gate=True):
+    """The teacher-forced ``decode_step`` loop over ``tokens`` against the
+    prefill's last logits ``want`` -> (the decode's logits, relative
+    error); a gate unless ``gate`` is False."""
+    b, s = tokens.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches = model.init_cache(b, s, dtype=torch.float32, device=dev)
+    for t in range(s):
+        dec, caches = model.decode_step(params, caches, tokens[:, t:t + 1])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    what = (f"prefill vs teacher-forced decode ({b} x {s}, {secs:.2f} s, "
+            f"{secs / s * 1e3:.1f} ms a step)")
+    if gate:
+        return dec, hold_logits(tag, what, dec, want)
+    rel = float((dec - want).abs().max() / want.abs().max())
+    log(f"[{tag}] {what}: relative {rel:.3e} (not a gate)")
+    return dec, rel
+
+
+def phase_mixtral(torch, mods, dev):
+    """mixtral-8x7b at full width cut to MIXTRAL_LAYERS layers, float32."""
+    tag = "mixtral"
+    cfg = _cut(mods, MIXTRAL, MIXTRAL_LAYERS)
+    model = mods.build_model(cfg)
+    params = _model_params(torch, model, torch.float32, dev, 0, tag)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(1, cfg.vocab, (1, MIXTRAL_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    # gate 1: past the window's edge, through the kernels vs plain
+    with recorded_routes(mods) as kr:
+        logits, launches = kernel_vs_plain_prefill(
+            torch, mods, tag, model, params, (tokens,),
+            f"1 x {MIXTRAL_SEQ} tokens, window {cfg.window}")
+    pr = kr.idx[len(kr.idx) // 2:]
+    kr_idx = kr.idx[:len(kr.idx) // 2]
+    if len(kr_idx) != MIXTRAL_LAYERS or len(pr) != MIXTRAL_LAYERS:
+        raise AssertionError(f"{tag}: {len(kr.idx)} routed MoE calls, "
+                             f"expected 2 x {MIXTRAL_LAYERS}")
+    differ = sum(int((a != b).sum()) for a, b in zip(kr_idx, pr))
+    log(f"[{tag}] top-{cfg.top_k} expert choices that differ between the "
+        f"kernel and the plain prefill: {differ} of "
+        f"{sum(a.numel() for a in kr_idx)}; dropped assignments a layer "
+        f"(capacity factor {cfg.capacity_factor}): "
+        f"{kr.dropped[:MIXTRAL_LAYERS]}")
+    del logits
+    # gate 2: at a capacity where nothing drops, prefill == decode
+    roomy = mods.build_model(dataclasses.replace(
+        cfg, capacity_factor=MIXTRAL_ROOMY))
+    short = tokens[:, :MIXTRAL_GATE2_TOKENS]
+    with recorded_routes(mods) as r8:
+        want, _ = _prefill_counted(torch, mods, roomy, params, (short,))
+    with recorded_routes(mods) as r_pub:
+        published = model.prefill(params, short)
+    if sum(r8.dropped):
+        raise AssertionError(f"{tag}: capacity factor {MIXTRAL_ROOMY} "
+                             f"dropped {r8.dropped}")
+    dec, _ = prefill_vs_decode(torch, tag, roomy, params, short, want, dev)
+    rel = float((dec - published).abs().max() / published.abs().max())
+    log(f"[{tag}] capacity factor {MIXTRAL_ROOMY}: 0 dropped; the published "
+        f"{cfg.capacity_factor} drops {sum(r_pub.dropped)} assignments "
+        f"({r_pub.dropped} a layer) over 1 x {MIXTRAL_GATE2_TOKENS} tokens, "
+        f"its prefill {rel:.3e} from the decode (not a gate: the capacity "
+        f"depends on the token count)")
+    del want, published, dec
+    phase_engine(torch, mods, dev, tag, model, params, ZOO_GEN_STEPS)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def qwen2_vl_positions(torch, b, n_text, dev, grid=VLM_GRID):
+    """Qwen2-VL's M-RoPE streams [3, b, grid^2 + n_text] for one image in
+    front of the text: the image's tokens as a grid (temporal 0, height the
+    row, width the column), then the text from ``grid`` on, all three
+    streams equal."""
+    cell = torch.arange(grid * grid, device=dev)
+    vis = torch.stack([torch.zeros_like(cell), cell // grid, cell % grid])
+    text = (grid + torch.arange(n_text, device=dev)).expand(3, n_text)
+    pos = torch.cat([vis, text], dim=1).to(torch.int32)
+    return pos[:, None].expand(3, b, pos.shape[1]).contiguous()
+
+
+def vlm_inputs(torch, mods, cfg, b, n_text, dtype, gen, dev):
+    """(tokens, vision_embeds, mrope_positions) as ``input_specs`` shapes
+    them; vision embeddings at the token embeddings' scale (std 0.02)."""
+    spec = mods.input_specs(cfg, mods.Shape("vlm", n_text, b, "prefill"),
+                            dtype)
+    tokens = torch.randint(1, cfg.vocab, spec["tokens"][0], generator=gen,
+                           device=dev, dtype=spec["tokens"][1])
+    vshape, vdtype = spec["vision_embeds"]
+    vis = (0.02 * torch.randn(vshape, generator=gen, device=dev)).to(vdtype)
+    grid = int(round(vshape[1] ** 0.5))
+    pos = qwen2_vl_positions(torch, b, n_text, dev, grid)
+    if tuple(pos.shape) != spec["mrope_positions"][0] or \
+            torch.equal(pos[0], pos[1]) or torch.equal(pos[1], pos[2]):
+        raise AssertionError(f"M-RoPE streams {tuple(pos.shape)} do not "
+                             f"differ or do not match input_specs")
+    return tokens, vis, pos
+
+
+def phase_qwen2_vl(torch, mods, dev):
+    """qwen2-vl-72b at full width cut to QWEN2_VL_LAYERS layers, float32."""
+    tag = "qwen2_vl"
+    cfg = _cut(mods, QWEN2_VL, QWEN2_VL_LAYERS)
+    model = mods.build_model(cfg)
+    params = _model_params(torch, model, torch.float32, dev, 0, tag)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    tokens, vis, pos = vlm_inputs(torch, mods, cfg, 1, VLM_TEXT,
+                                  torch.float32, gen, dev)
+    _, launches = kernel_vs_plain_prefill(
+        torch, mods, tag, model, params, (tokens, vis, pos),
+        f"{vis.shape[1]} vision embeddings + {VLM_TEXT} tokens, M-RoPE "
+        f"{cfg.mrope_sections}")
+    text = torch.randint(1, cfg.vocab, (PROMPT_BATCH, PROMPT_LEN),
+                         generator=gen, device=dev, dtype=torch.int32)
+    want = model.prefill(params, text)
+    prefill_vs_decode(torch, tag, model, params, text, want, dev)
+    del params, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def whisper_inputs(torch, mods, cfg, dtype, gen, dev):
+    spec = mods.input_specs(cfg, mods.Shape("whisper", WHISPER_TOKENS,
+                                            WHISPER_BATCH, "prefill"), dtype)
+    frames = torch.randn(spec["frames"][0], generator=gen,
+                         device=dev).to(spec["frames"][1])
+    tokens = torch.randint(1, cfg.vocab, spec["tokens"][0], generator=gen,
+                           device=dev, dtype=spec["tokens"][1])
+    return frames, tokens
+
+
+def phase_whisper(torch, mods, dev):
+    """whisper-large-v3 at full width and depth, float32."""
+    tag = "whisper"
+    cfg = mods.ARCHS[WHISPER]
+    model = mods.build_model(cfg)
+    params = _model_params(torch, model, torch.float32, dev, 0, tag)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    frames, tokens = whisper_inputs(torch, mods, cfg, torch.float32, gen, dev)
+    logits, launches = kernel_vs_plain_prefill(
+        torch, mods, tag, model, params, (frames, tokens),
+        f"{WHISPER_BATCH} x {cfg.enc_seq} frames, {WHISPER_BATCH} x "
+        f"{WHISPER_TOKENS} tokens")
+    # gate 2: one decode step, cross caches from _enc_kv, after the
+    # teacher-forced decode of the first S - 1 tokens
+    enc = model.encode(params, frames)
+    caches = model.init_cache(WHISPER_BATCH, WHISPER_TOKENS,
+                              dtype=torch.float32, device=dev)
+    for i in range(cfg.n_layers):
+        k, v = model._enc_kv(cfg, _slice(params["dec"], i), enc)
+        caches["cross"]["k"][i] = k
+        caches["cross"]["v"][i] = v
+    del enc
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(WHISPER_TOKENS - 1):
+        _, caches = model.decode_step(params, caches, tokens[:, t:t + 1])
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+
+    def step():
+        c = {"self": {k: v.clone() for k, v in caches["self"].items()},
+             "cross": caches["cross"]}
+        out, _ = model.decode_step(params, c, tokens[:, -1:])
+        torch.cuda.synchronize()
+        return out
+
+    mods.fa_ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    dec = step()
+    t_step = time.perf_counter() - t0
+    step_launches = mods.fa_ops.flash_attention.launches
+    mods.fa_ops.flash_attention.launches = 0
+    with plain_attention(mods):
+        dec_plain = step()
+    if mods.fa_ops.flash_attention.launches:
+        raise AssertionError(f"{tag}: the plain decode step launched the "
+                             f"kernel")
+    log(f"[{tag}] decode step {WHISPER_TOKENS} (after {WHISPER_TOKENS - 1} "
+        f"teacher-forced steps, {t_dec / (WHISPER_TOKENS - 1) * 1e3:.1f} ms "
+        f"a step): flash_attention launches {step_launches} (one a "
+        f"cross-attention), {t_step * 1e3:.1f} ms")
+    if step_launches != cfg.n_layers:
+        raise AssertionError(f"{tag}: a decode step launched "
+                             f"{step_launches}, expected {cfg.n_layers}")
+    hold_logits(tag, "decode step through the kernels vs attention_plain",
+                dec, dec_plain)
+    rel = float((dec - logits).abs().max() / logits.abs().max())
+    log(f"[{tag}] prefill vs teacher-forced decode: relative {rel:.3e}, "
+        f"top-1 {logits.argmax(-1).tolist()} vs {dec.argmax(-1).tolist()} "
+        f"(not a gate: the reference's decode rotates q and k by RoPE and "
+        f"its prefill does not, ROADMAP Queue 3)")
+    del caches, dec, dec_plain, logits
+    phase_engine(torch, mods, dev, tag, model, params, ZOO_GEN_STEPS)
+    del params
+    torch.cuda.empty_cache()
+    return launches, step_launches
+
+
+def phase_zoo(torch, mods, dev):
+    """[mixtral], [qwen2_vl] and [whisper], each with its bf16 prefill;
+    one full-width model resident at a time."""
+    out = {}
+    t0 = time.perf_counter()
+    out["mixtral"] = phase_mixtral(torch, mods, dev)
+    out["mixtral_prefill"] = phase_prefill_bf16(
+        torch, mods, dev, MIXTRAL, cfg=_cut(mods, MIXTRAL, MIXTRAL_LAYERS),
+        make_args=lambda cfg, gen: ((torch.randint(
+            1, cfg.vocab, (1, MIXTRAL_SEQ), generator=gen, device=dev,
+            dtype=torch.int32),), f"1 x {MIXTRAL_SEQ} tokens, "
+            f"{MIXTRAL_LAYERS} layers"),
+        ranges=MOE_RANGES)
+    log(f"[mixtral] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["qwen2_vl"] = phase_qwen2_vl(torch, mods, dev)
+
+    def vlm_args(cfg, gen):
+        args = vlm_inputs(torch, mods, cfg, 1, VLM_TEXT, torch.bfloat16,
+                          gen, dev)
+        return args, (f"{args[1].shape[1]} vision embeddings + {VLM_TEXT} "
+                      f"tokens, {QWEN2_VL_LAYERS} layers")
+
+    out["qwen2_vl_prefill"] = phase_prefill_bf16(
+        torch, mods, dev, QWEN2_VL, cfg=_cut(mods, QWEN2_VL, QWEN2_VL_LAYERS),
+        make_args=vlm_args)
+    log(f"[qwen2_vl] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["whisper"], out["whisper_decode"] = phase_whisper(torch, mods, dev)
+
+    def whisper_args(cfg, gen):
+        args = whisper_inputs(torch, mods, cfg, torch.bfloat16, gen, dev)
+        return args, (f"{WHISPER_BATCH} x {cfg.enc_seq} frames + "
+                      f"{WHISPER_BATCH} x {WHISPER_TOKENS} tokens")
+
+    out["whisper_prefill"] = phase_prefill_bf16(
+        torch, mods, dev, WHISPER, make_args=whisper_args)
+    log(f"[whisper] phase {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def fa_visible_pairs(sq, sk, causal, window):
@@ -2487,6 +2931,7 @@ def load_modules():
 
     from repro_torch.checkpoint import store
     from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.shapes import Shape
     from repro_torch.coord.registry import PaxosRegistry
     from repro_torch.core import checkers
     from repro_torch.core import proposer_vector as pv
@@ -2505,7 +2950,7 @@ def load_modules():
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import blocks
-    from repro_torch.models.registry import build_model
+    from repro_torch.models.registry import build_model, input_specs
     from repro_torch.obs import FlightRecorder, flight_guard
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.reconfig import catchup
@@ -2525,7 +2970,8 @@ def load_modules():
         BatchedMachine=BatchedMachine, cluster_engine=cluster_engine,
         np=np, pv=pv, ARCHS=ARCHS, PaxosRegistry=PaxosRegistry,
         blocks=blocks,
-        build_model=build_model, fa_ops=fa_ops, ssd_ops=ssd_ops,
+        build_model=build_model, input_specs=input_specs, Shape=Shape,
+        fa_ops=fa_ops, ssd_ops=ssd_ops,
         wkv_ops=wkv_ops, DecodeEngine=DecodeEngine, ServeConfig=ServeConfig,
         loadgen=loadgen, FlightRecorder=FlightRecorder,
         flight_guard=flight_guard, catchup=catchup, store=store,
@@ -2587,6 +3033,7 @@ def main(argv=None) -> int:
     rwkv_launches = phase_model(torch, mods, dev, RWKV,
                                 {"rwkv6_wkv": (0, 15, 31)}, float_ok)
     rwkv_prefill = phase_prefill_bf16(torch, mods, dev, RWKV)
+    zoo = phase_zoo(torch, mods, dev)
     times.update(phase_model_timings(
         torch, mods, dev,
         {**prefill["per_launch_ms"], **rwkv_prefill["per_launch_ms"]}))
@@ -2637,6 +3084,17 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         if name in trained["launches"]:
             kernels[-1]["train_launches"] = trained["launches"][name]
+    # the zoo's paths: each f32 prefill (and whisper's decode step) run
+    # from 0, and the kernel's device time a call in each bf16 prefill
+    fa = next(k for k in kernels if k["name"] == "flash_attention")
+    fa["zoo_launches"] = {
+        "mixtral_prefill": zoo["mixtral"]["flash_attention"],
+        "qwen2_vl_prefill": zoo["qwen2_vl"]["flash_attention"],
+        "whisper_prefill": zoo["whisper"]["flash_attention"],
+        "whisper_decode_step": zoo["whisper_decode"]}
+    fa["zoo_bf16_ms"] = {
+        k: zoo[f"{k}_prefill"]["per_launch_ms"].get("flash_attention")
+        for k in ("mixtral", "qwen2_vl", "whisper")}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

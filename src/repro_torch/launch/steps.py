@@ -70,7 +70,12 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,
 
 
 def make_prefill(model):
+    """(params, batch) -> last-position logits: ``frames`` and ``tokens``
+    for the encoder-decoder family, ``tokens`` and the VLM inputs if any
+    for an LM."""
     def prefill(params, batch):
+        if model.cfg.family == "encdec":
+            return model.prefill(params, batch["frames"], batch["tokens"])
         return model.prefill(params, batch["tokens"],
                              batch.get("vision_embeds"),
                              batch.get("mrope_positions"))
@@ -78,6 +83,8 @@ def make_prefill(model):
 
 
 def make_decode_step(model):
+    """(params, caches, batch) -> (logits, caches); one signature for both
+    families (an ``EncDec``'s caches carry the encoder's keys and values)."""
     def decode(params, caches, batch):
         return model.decode_step(params, caches, batch["tokens"])
     return decode

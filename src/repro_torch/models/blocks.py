@@ -1,11 +1,11 @@
-"""Layer blocks: attention (GQA / RoPE / sliding window), MLP, Mamba2 and
-RWKV6.
+"""Layer blocks: attention (GQA / RoPE / M-RoPE / sliding window /
+non-causal / cross), MLP, MoE, Mamba2 and RWKV6.
 
 Port of ``repro.models.blocks``.  Every block is a pair of plain functions
 on tensors::
 
     init_<block>(cfg, init, lead=())  -> params (a dict of tensors)
-    apply_<block>(cfg, params, x, ...) -> y  (or (y, new_cache))
+    apply_<block>(cfg, params, x, ...) -> y  (or (y, aux) / (y, new_cache))
 
 ``lead`` prefixes every parameter's shape (the LM stacks a unit position's
 layers over ``repeats`` that way).  The full-sequence attention goes
@@ -13,10 +13,10 @@ through :func:`repro_torch.kernels.flash_attention.ops.flash_attention`,
 the Mamba2 mixing through :func:`repro_torch.kernels.mamba2_ssd.ops.ssd`
 and the RWKV6 time mixing through
 :func:`repro_torch.kernels.rwkv6_wkv.ops.wkv6`: on a CUDA tensor they
-launch the CUDA kernels.  Decode steps stay plain PyTorch, as the
-reference computes them outside Pallas.  There are no sharding
-annotations.  MoE blocks are not ported yet (ROADMAP, Queue 1 item 6);
-M-RoPE waits for the VLM slice.
+launch the CUDA kernels.  Decode steps and the MoE dispatch stay plain
+PyTorch, as the reference computes them outside Pallas.  There are no
+sharding annotations and no mesh, so :func:`apply_moe` always takes the
+reference's no-mesh branch, :func:`apply_moe_spmd`.
 
 Decode caches are updated in place where that saves a copy of the whole
 cache: :func:`apply_attention_decode` writes the new key and value into the
@@ -27,22 +27,19 @@ cache tensors it is given and returns them with ``length + 1``;
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.kernels.flash_attention.ops import (
     decode_attention, flash_attention,
 )
 from repro_torch.kernels.mamba2_ssd.ops import ssd, ssd_decode
 from repro_torch.kernels.rwkv6_wkv.ops import wkv6, wkv6_decode
-from .common import Init, apply_rope, rms_norm
+from .common import Init, apply_mrope, apply_rope, rms_norm
 from .config import ModelConfig
-
-NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP, Queue 1 item 6: "
-              "the model-zoo scaffold; MoE, M-RoPE/VLM and whisper are "
-              "left)")
 
 CacheSpec = Tuple[Tuple[int, ...], torch.dtype]     # (shape, dtype)
 
@@ -118,19 +115,33 @@ def _qkv(cfg: ModelConfig, p, x: torch.Tensor):
     return q, k, v
 
 
-def _rope_qk(cfg: ModelConfig, q, k, positions):
+def _rope_qk(cfg: ModelConfig, q, k, positions, mrope_positions=None):
+    """M-RoPE when the config has sections and the [3, B, S] streams are
+    given; RoPE by ``positions`` [B, S] otherwise."""
+    if cfg.mrope_sections is not None and mrope_positions is not None:
+        return (apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                            cfg.rope_theta),
+                apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                            cfg.rope_theta))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
 
 def apply_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
-                    window: Optional[int] = None):
-    """Full-sequence causal self-attention (prefill).  The encoder's
-    non-causal and cross-attention forms come with whisper."""
+                    window: Optional[int] = None, causal: bool = True,
+                    mrope_positions=None,
+                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Full-sequence attention: prefill and training, the encoder
+    (``causal=False``) and cross-attention (``kv``, the encoder's keys and
+    values [B, Hkv, Sk, hd], which replace this block's own and are not
+    rotated).  ``positions=None`` rotates nothing."""
     h = norm_apply(cfg, p["norm"], x)
     q, k, v = _qkv(cfg, p, h)
-    q, k = _rope_qk(cfg, q, k, positions)
-    o = flash_attention(q, k, v, causal=True, window=window)
+    if kv is not None:
+        k, v = kv
+    elif positions is not None:
+        q, k = _rope_qk(cfg, q, k, positions, mrope_positions)
+    o = flash_attention(q, k, v, causal=causal, window=window)
     out = torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(o.dtype))
     return x + out
 
@@ -200,6 +211,122 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     else:                          # plain GELU (whisper)
         up = _gelu(up)
     return x + _mm(up, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (sort-based capacity dispatch)
+#
+# The reference has two paths: ``apply_moe_spmd`` (a global argsort and a
+# capacity scatter) and ``apply_moe_shardmap`` (experts split over a
+# mesh's "model" axis, one psum a layer), which it takes only under a mesh
+# with a "model" axis.  The port has no mesh, so both ``moe_impl``s run
+# ``apply_moe_spmd``, as the reference does without one.  Routing, the
+# sort, the scatter into the capacity buffer, the expert products and the
+# weighted scatter-add are plain PyTorch on every device: the reference
+# computes them outside any Pallas kernel.
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: ModelConfig, init: Init, lead: Sequence[int] = ()):
+    """``router [d, E]``, ``w_gate``/``w_up [E, d, f]``, ``w_down
+    [E, f, d]`` and the pre-norm, as the reference stores them."""
+    d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
+    lead = tuple(lead)
+    return dict(router=init.normal(lead + (d, e)),
+                w_gate=init.normal(lead + (e, d, f)),
+                w_up=init.normal(lead + (e, d, f)),
+                w_down=init.normal(lead + (e, f, d)),
+                norm=init_norm(cfg, init, lead=lead))
+
+
+class MoERoute(NamedTuple):
+    """One MoE layer's routing of T tokens to top-k of E experts."""
+    gate_w: torch.Tensor      # [T, k] float32, renormalised over the k
+    idx: torch.Tensor         # [T, k] int64 expert ids, best first
+    aux: torch.Tensor         # [] float32 Switch load-balance loss
+    capacity: int             # slots an expert's buffer keeps
+    order: torch.Tensor       # [T*k] stable argsort of idx.reshape(-1)
+    sorted_e: torch.Tensor    # [T*k] expert of each sorted assignment
+    pos: torch.Tensor         # [T*k] its slot; ``capacity`` = dropped
+
+    def dropped(self) -> int:
+        """Assignments past their expert's capacity (their output is 0)."""
+        return int((self.pos == self.capacity).sum())
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis.  On an exact tie the lower
+    index comes first in the reference; ``torch.topk`` promises no order
+    among equal values, so the port takes the first k of a stable
+    descending sort, which keeps equal probabilities in index order."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(cfg: ModelConfig, router: torch.Tensor,
+              h: torch.Tensor) -> MoERoute:
+    """Top-k routing and capacity slots of the normed tokens h [T, d]."""
+    t = h.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    logits = h @ router.to(h.dtype)                        # [T, E]
+    probs = torch.softmax(logits.float(), -1)
+    gate_w, idx = _top_k(probs, k)                         # [T, k]
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True)
+    flat_e = idx.reshape(-1)                               # [T*k]
+    # load-balance aux (Switch): E * sum_e(frac_tokens_e * mean_prob_e)
+    frac = torch.bincount(flat_e, minlength=e).float() / (t * k)
+    aux = e * torch.sum(frac * probs.mean(0))
+    # the reference's formula: the integer // before the float multiply
+    capacity = int(t * k // e * cfg.capacity_factor) + 1
+    order = torch.argsort(flat_e, stable=True)             # jnp.argsort
+    sorted_e = flat_e[order]
+    counts = torch.bincount(sorted_e, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(t * k, device=h.device) - starts[sorted_e]
+    pos = torch.where(rank < capacity, rank,
+                      torch.full_like(rank, capacity))     # overflow slot
+    return MoERoute(gate_w, idx, aux, capacity, order, sorted_e, pos)
+
+
+def apply_moe(cfg: ModelConfig, p, x: torch.Tensor):
+    """The MoE layer -> (y, aux).  Both ``moe_impl``s take
+    :func:`apply_moe_spmd`: the reference's shard_map path needs a mesh,
+    which the port does not have (ROADMAP, Queue 1 item 5)."""
+    return apply_moe_spmd(cfg, p, x)
+
+
+def apply_moe_spmd(cfg: ModelConfig, p, x: torch.Tensor):
+    """Top-k MoE with sort-based capacity dispatch -> (x + y, aux).
+
+    Assignments are sorted by expert, scattered into an [E, C + 1, d]
+    buffer (slot C takes every overflow and is cut off), run through the
+    experts as batched products, read back with a zero row padded on at
+    slot C (so a dropped assignment contributes 0), and combined by a
+    weighted scatter-add over tokens.
+    """
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    h = norm_apply(cfg, p["norm"], x).reshape(t, d)
+    # three profiler ranges (no cost unless a profiler records): routing
+    # and the scatter, the expert products, the gather and the combine
+    with record_function("moe.dispatch"):
+        r = moe_route(cfg, p["router"], h)
+        src = r.order // k                                 # token index
+        buf = h.new_zeros((e, r.capacity + 1, d))
+        buf[r.sorted_e, r.pos] = h[src]
+        buf = buf[:, :r.capacity]
+    with record_function("moe.experts"):
+        gate = torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(h.dtype))
+        up = torch.einsum("ecd,edf->ecf", buf, p["w_up"].to(h.dtype))
+        y_e = torch.einsum("ecf,efd->ecd", F.silu(gate) * up,
+                           p["w_down"].to(h.dtype))
+    with record_function("moe.combine"):
+        y_e = F.pad(y_e, (0, 0, 0, 1))                     # overflow reads 0
+        gathered = y_e[r.sorted_e, r.pos]                  # [T*k, d]
+        w_sorted = r.gate_w.reshape(-1)[r.order].to(h.dtype)
+        out = h.new_zeros((t, d)).index_add(0, src,
+                                            w_sorted[:, None] * gathered)
+    return x + out.reshape(b, s, d), r.aux
 
 
 # ---------------------------------------------------------------------------

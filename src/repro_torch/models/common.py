@@ -1,10 +1,10 @@
-"""Shared model primitives: norms, RoPE, positions and parameter init.
+"""Shared model primitives: norms, RoPE and M-RoPE, positions and
+parameter init.
 
 Port of ``repro.models.common``.  Parameters are plain nested dicts of
 tensors with the reference's keys and layouts; there are no sharding specs.
 The init helpers draw from an explicit ``torch.Generator`` (normal with
-std 0.02, zeros, ones).  M-RoPE (``apply_mrope``) is not ported yet: it
-comes with the VLM slice (ROADMAP, Queue 1 item 6).
+std 0.02, zeros, ones).
 """
 
 from __future__ import annotations
@@ -80,6 +80,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     ang = positions[:, None, :, None].float() * freqs           # [B,1,S,D/2]
     cos = torch.cos(ang).to(x.dtype)
     sin = torch.sin(ang).to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: Sequence[int],
+                theta: float = 1000000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: [B, H, S, D]; positions3: [3, B, S]
+    int, the (temporal, height, width) streams.  The head dim's D/2
+    frequency slots are split into ``sections`` (summing to D/2), each
+    rotated by its own stream.  Angles in float32, cast to x's dtype
+    before the rotation, as :func:`apply_rope`."""
+    d = x.shape[-1]
+    half = d // 2
+    assert sum(sections) == half, (sections, d)
+    freqs = rope_freqs(d, theta, x.device)                      # [half]
+    sec_id = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                   device=x.device)
+                        for i, s in enumerate(sections)])
+    pos = positions3[sec_id]                                    # [half,B,S]
+    ang = pos.permute(1, 2, 0).float() * freqs                  # [B,S,half]
+    cos = torch.cos(ang)[:, None].to(x.dtype)                   # [B,1,S,half]
+    sin = torch.sin(ang)[:, None].to(x.dtype)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
 

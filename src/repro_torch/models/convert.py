@@ -1,15 +1,19 @@
 """Carry a parameter tree of the JAX reference over to the port.
 
 ``params_from_reference(cfg, tree)`` takes the reference's
-``LM(cfg).init(key)[0]`` tree with its leaves as numpy arrays (or
-anything ``numpy.asarray`` takes) and returns the port's parameters:
-``embed`` / ``unembed``, ``final_norm``, ``units`` (a tuple over unit
-positions of dicts stacked over ``repeats``), ``tail`` and ``shared_attn``.
-The two packages store every leaf in the same layout (attention weights
-3-D, ``[d, H, hd]`` / ``[H, hd, d]``), so the conversion is a copy; it
-checks every key and shape against :meth:`LM.param_shapes` and raises on
-the first difference, so both packages provably compute one function of
-the same weights.
+``build_model(cfg).init(key)[0]`` tree with its leaves as numpy arrays (or
+anything ``numpy.asarray`` takes) and returns the port's parameters.  For
+an ``LM``: ``embed`` / ``unembed``, ``final_norm``, ``units`` (a tuple over
+unit positions of dicts stacked over ``repeats``; a MoE layer's ``moe``
+holds ``router``, ``w_gate``, ``w_up``, ``w_down`` and ``norm``), ``tail``
+and ``shared_attn``.  For an ``EncDec``: ``embed``, ``pos_dec``,
+``pos_enc``, ``enc`` and ``dec`` stacked over layers, ``enc_norm`` and
+``final_norm``.  The two packages store every leaf in the same layout
+(attention weights 3-D, ``[d, H, hd]`` / ``[H, hd, d]``; experts
+``[E, d, f]`` / ``[E, f, d]``), so the conversion is a copy; it checks
+every key and shape against the model's ``param_shapes`` and raises on the
+first difference, so both packages provably compute one function of the
+same weights.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from .config import ModelConfig
-from .lm import LM
+from .registry import build_model
 
 
 def _convert(want, got, path: str, dtype, device):
@@ -52,5 +56,5 @@ def params_from_reference(cfg: ModelConfig, tree: Any,
     """The port's parameters holding the reference tree's values, in
     ``dtype`` on ``device`` (``None`` means ``"cuda"``)."""
     dev = resolve_device(device)
-    want = LM(cfg).param_shapes(dtype)
+    want = build_model(cfg).param_shapes(dtype)
     return _convert(want, tree, "", dtype, dev)

@@ -1,5 +1,5 @@
-"""Decoder-only LM: dense / GQA / gemma local:global / Mamba2 hybrid
-(zamba2) / RWKV6 (Finch).
+"""Decoder-only LM: dense / GQA / gemma local:global / MoE / Mamba2 hybrid
+(zamba2) / RWKV6 (Finch) / the VLM backbone (qwen2-vl, M-RoPE).
 
 Port of ``repro.models.lm``.  The layer stack is ``repeats`` x ``unit``
 (+ tail), where ``unit`` is the repeating pattern (gemma3: 5 local + 1
@@ -13,15 +13,20 @@ its per-invocation KV caches are stacked over ``repeats``.
 Entry points::
 
     init(generator, dtype, device)     -> params
-    train_loss(params, batch)          -> scalar next-token cross-entropy
-    prefill(params, tokens)            -> last-position logits [B, vocab]
+    train_loss(params, batch)          -> next-token cross-entropy + 0.01 aux
+    prefill(params, tokens, vision_embeds, mrope_positions)
+                                       -> last-position logits [B, vocab]
     decode_step(params, caches, tokens) -> (logits [B, vocab], caches)
+
+``aux`` is the MoE layers' load-balance loss (0 for the other kinds).  The
+VLM inputs, as in the reference: ``vision_embeds`` [B, V, d] go in front of
+the token embeddings, and ``mrope_positions`` [3, B, V + S] rotate the
+repeats' attention by M-RoPE (the tail's layers take plain RoPE).
 
 On a CUDA device ``train_loss`` and ``prefill`` run the flash-attention,
 Mamba2 SSD and RWKV6 WKV CUDA kernels (their gradients recompute the plain
 versions, as the reference's ``custom_vjp`` does); ``decode_step`` is
-plain PyTorch (one token against the caches).  MoE and M-RoPE layers
-raise ``NotImplementedError`` (ROADMAP, Queue 1 item 6).
+plain PyTorch (one token against the caches), and so is the MoE dispatch.
 """
 
 from __future__ import annotations
@@ -33,16 +38,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from .blocks import (
-    NOT_PORTED, apply_attention, apply_attention_decode, apply_mamba2,
-    apply_mamba2_decode, apply_mlp, apply_rwkv6, apply_rwkv6_decode,
-    attn_cache_spec, init_attention, init_mamba2, init_mlp, init_norm,
-    init_rwkv6, mamba_cache_spec, norm_apply, rwkv_cache_spec,
+    apply_attention, apply_attention_decode, apply_mamba2,
+    apply_mamba2_decode, apply_mlp, apply_moe, apply_rwkv6,
+    apply_rwkv6_decode, attn_cache_spec, init_attention, init_mamba2,
+    init_mlp, init_moe, init_norm, init_rwkv6, mamba_cache_spec, norm_apply,
+    rwkv_cache_spec,
 )
 from .common import Init, default_positions
 from .config import ModelConfig
 
 ATTN_KINDS = ("attn", "swa", "local", "global")
-PORTED_KINDS = ATTN_KINDS + ("mamba", "rwkv")
+MOE_KINDS = ("moe", "moe_swa")
 
 
 def derive_unit(cfg: ModelConfig) -> List[str]:
@@ -64,61 +70,68 @@ def _layer_kinds(cfg: ModelConfig):
     return unit, repeats, unit[:tail]
 
 
-def _not_ported(kind: str):
-    return NotImplementedError(f"layer kind {kind!r} {NOT_PORTED}")
-
-
 def _init_layer(cfg: ModelConfig, kind: str, init: Init, lead=()):
     if kind in ATTN_KINDS:
         return {"attn": init_attention(cfg, init, lead),
                 "mlp": init_mlp(cfg, init, lead=lead)}
+    if kind in MOE_KINDS:
+        return {"attn": init_attention(cfg, init, lead),
+                "moe": init_moe(cfg, init, lead=lead)}
     if kind == "mamba":
         return init_mamba2(cfg, init, lead)
     if kind == "rwkv":
         return init_rwkv6(cfg, init, lead)
-    raise _not_ported(kind)
+    raise ValueError(kind)
 
 
 def _kind_window(cfg: ModelConfig, kind: str) -> Optional[int]:
-    if kind in ("swa", "local"):
+    if kind in ("swa", "moe_swa", "local"):
         return cfg.window
     return None
 
 
-def _apply_layer(cfg, kind, p, x, *, positions):
-    if kind in ATTN_KINDS:
+def _apply_layer(cfg, kind, p, x, *, positions, mrope_positions=None):
+    """One layer of the full-sequence forward -> (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in ATTN_KINDS or kind in MOE_KINDS:
         x = apply_attention(cfg, p["attn"], x, positions=positions,
-                            window=_kind_window(cfg, kind))
-        return apply_mlp(cfg, p["mlp"], x)
+                            window=_kind_window(cfg, kind),
+                            mrope_positions=mrope_positions)
+        if kind in MOE_KINDS:
+            return apply_moe(cfg, p["moe"], x)
+        return apply_mlp(cfg, p["mlp"], x), aux
     if kind == "mamba":
-        return apply_mamba2(cfg, p, x)
+        return apply_mamba2(cfg, p, x), aux
     if kind == "rwkv":
-        return apply_rwkv6(cfg, p, x)
-    raise _not_ported(kind)
+        return apply_rwkv6(cfg, p, x), aux
+    raise ValueError(kind)
 
 
 def _apply_layer_decode(cfg, kind, p, x, cache):
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS or kind in MOE_KINDS:
         x, new = apply_attention_decode(cfg, p["attn"], x, cache,
                                         window=_kind_window(cfg, kind))
+        if kind in MOE_KINDS:
+            x, _ = apply_moe(cfg, p["moe"], x)
+            return x, new
         return apply_mlp(cfg, p["mlp"], x), new
     if kind == "mamba":
         return apply_mamba2_decode(cfg, p, x, cache)
     if kind == "rwkv":
         return apply_rwkv6_decode(cfg, p, x, cache)
-    raise _not_ported(kind)
+    raise ValueError(kind)
 
 
 def _layer_cache_spec(cfg, kind, b, s, dtype):
-    if kind in ("attn", "global"):
+    if kind in ("attn", "global", "moe"):
         return attn_cache_spec(cfg, b, s, None, dtype)
-    if kind in ("swa", "local"):
+    if kind in ("swa", "local", "moe_swa"):
         return attn_cache_spec(cfg, b, s, cfg.window, dtype)
     if kind == "mamba":
         return mamba_cache_spec(cfg, b, dtype)
     if kind == "rwkv":
         return rwkv_cache_spec(cfg, b, dtype)
-    raise _not_ported(kind)
+    raise ValueError(kind)
 
 
 def _index(tree, r: int):
@@ -156,14 +169,8 @@ class LM:
     decode_step."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family == "encdec":
-            raise NotImplementedError(f"the encoder-decoder family "
-                                      f"(whisper) {NOT_PORTED}")
         self.cfg = cfg
         self.unit, self.repeats, self.tail = _layer_kinds(cfg)
-        for kind in self.unit:
-            if kind not in PORTED_KINDS:
-                raise _not_ported(kind)
 
     # -- init ----------------------------------------------------------------
 
@@ -206,35 +213,48 @@ class LM:
 
     # -- forward (train / prefill) -------------------------------------------
 
-    def _unit(self, params, r: int, x, positions):
-        """Repeat ``r`` of the unit, then zamba2's shared block."""
+    def _unit(self, params, r: int, x, positions, mrope_positions=None):
+        """Repeat ``r`` of the unit, then zamba2's shared block ->
+        (x, the repeat's aux)."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(self.unit):
-            x = _apply_layer(cfg, kind, _index(params["units"][i], r), x,
-                             positions=positions)
+            x, a = _apply_layer(cfg, kind, _index(params["units"][i], r), x,
+                                positions=positions,
+                                mrope_positions=mrope_positions)
+            aux = aux + a
         shared = params.get("shared_attn")
         if shared is not None:
             x = apply_attention(cfg, shared["attn"], x, positions=positions)
             x = apply_mlp(cfg, shared["mlp"], x)
-        return x
+        return x, aux
 
-    def _backbone(self, params, x, positions, remat: bool = False):
-        """``remat`` keeps only each repeat's input for the backward, which
-        runs the repeat's forward again (``jax.checkpoint(unit_body)``)."""
+    def _backbone(self, params, x, positions, mrope_positions=None,
+                  remat: bool = False):
+        """-> (x, aux summed over every layer).  ``remat`` keeps only each
+        repeat's input for the backward, which runs the repeat's forward
+        again (``jax.checkpoint(unit_body)``).  The tail takes plain RoPE,
+        as in the reference."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for r in range(self.repeats):
             if remat:
-                x = checkpoint(self._unit, params, r, x, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(self._unit, params, r, x, positions,
+                                  mrope_positions, use_reentrant=False)
             else:
-                x = self._unit(params, r, x, positions)
+                x, a = self._unit(params, r, x, positions, mrope_positions)
+            aux = aux + a
         for i, kind in enumerate(self.tail):
-            x = _apply_layer(cfg, kind, params["tail"][i], x,
-                             positions=positions)
-        return x
+            x, a = _apply_layer(cfg, kind, params["tail"][i], x,
+                                positions=positions)
+            aux = aux + a
+        return x, aux
 
-    def _embed(self, params, tokens):
-        return params["embed"][tokens.long()] * 1.0
+    def _embed(self, params, tokens, vision_embeds=None):
+        x = params["embed"][tokens.long()] * 1.0
+        if vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+        return x
 
     def logits(self, params, x):
         cfg = self.cfg
@@ -244,32 +264,33 @@ class LM:
 
     def train_loss(self, params, batch: Dict[str, torch.Tensor], *,
                    remat: bool = True) -> torch.Tensor:
-        """batch: dict(tokens [B, S]).  The mean next-token cross-entropy
-        over ``logits[:, :-1]``, in float32.  The reference adds ``0.01 *
-        aux``, the MoE balance loss, which is 0 for every ported family."""
-        if batch.get("vision_embeds") is not None or \
-                batch.get("mrope_positions") is not None:
-            raise NotImplementedError(f"VLM inputs {NOT_PORTED}")
+        """batch: dict(tokens [B, S], and for a VLM ``vision_embeds``
+        [B, V, d] and ``mrope_positions`` [3, B, V + S]).  The mean
+        next-token cross-entropy over the text positions' ``logits[:, :-1]``
+        in float32, plus ``0.01 * aux``."""
         tokens = batch["tokens"]
-        x = self._embed(params, tokens)
+        vis = batch.get("vision_embeds")
+        x = self._embed(params, tokens, vis)
         b, s, _ = x.shape
         positions = default_positions(b, s, device=x.device)
-        x = self._backbone(params, x, positions, remat=remat)
+        x, aux = self._backbone(params, x, positions,
+                                batch.get("mrope_positions"), remat=remat)
         logits = self.logits(params, x)
+        if vis is not None:
+            logits = logits[:, vis.shape[1]:]
         lp = torch.log_softmax(logits[:, :-1], dim=-1)
         nll = -lp.gather(-1, tokens[:, 1:, None].long())[..., 0]
-        return nll.mean()
+        return nll.mean() + 0.01 * aux
 
     def prefill(self, params, tokens: torch.Tensor, vision_embeds=None,
                 mrope_positions=None) -> torch.Tensor:
-        """Full-sequence forward of ``tokens`` [B, S]; returns the
-        last-position logits [B, vocab] in float32."""
-        if vision_embeds is not None or mrope_positions is not None:
-            raise NotImplementedError(f"VLM inputs {NOT_PORTED}")
-        x = self._embed(params, tokens)
+        """Full-sequence forward of ``tokens`` [B, S] (after
+        ``vision_embeds``, if given); returns the last-position logits
+        [B, vocab] in float32."""
+        x = self._embed(params, tokens, vision_embeds)
         b, s, _ = x.shape
         positions = default_positions(b, s, device=x.device)
-        x = self._backbone(params, x, positions)
+        x, _ = self._backbone(params, x, positions, mrope_positions)
         return self.logits(params, x[:, -1:])[:, 0]
 
     # -- serving -------------------------------------------------------------

@@ -24,11 +24,13 @@ from repro.models.registry import build_model as ref_build_model
 from repro.serve.engine import DecodeEngine as RefEngine
 from repro.serve.engine import ServeConfig as RefServeConfig
 from repro_torch.configs.archs import ARCHS, SMOKE
+from repro_torch.configs.shapes import Shape
 from repro_torch.coord.registry import PaxosRegistry
+from repro_torch.launch.steps import make_prefill
 from repro_torch.models import blocks, common
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.lm import LM
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, input_specs
 from repro_torch.serve.engine import DecodeEngine, ServeConfig
 
 BLOCK_TOL = 2e-5
@@ -348,14 +350,44 @@ def test_generate_and_route_match_ref():
 
 
 # ---------------------------------------------------------------------------
-# what is not ported raises
+# every architecture of the zoo builds and serves
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["whisper-large-v3", "kimi-k2-1t-a32b",
-                                  "mixtral-8x7b"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(SMOKE[name])
+def _smoke_inputs(cfg, b, s):
+    """Seeded inputs of every kind ``input_specs`` names for a prefill."""
+    rng = np.random.default_rng(9)
+    out = {}
+    for key, (shape, dtype) in input_specs(
+            cfg, Shape("smoke", s, b, "prefill"), torch.float32).items():
+        if key == "tokens":
+            arr = rng.integers(1, cfg.vocab, shape)
+        elif key == "mrope_positions":
+            arr = np.broadcast_to(np.arange(shape[2]), shape)
+        else:
+            arr = 0.5 * rng.standard_normal(shape)
+        out[key] = torch.from_numpy(np.array(arr)).to(dtype)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_every_family_builds_prefills_and_decodes(name):
+    cfg = SMOKE[name]
+    full = build_model(ARCHS[name]).param_shapes()
+    assert all(t.device.type == "meta" for t in jax.tree.leaves(
+        full, is_leaf=lambda t: isinstance(t, torch.Tensor)))
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    b, s = 2, 6
+    batch = _smoke_inputs(cfg, b, s)
+    logits = make_prefill(model)(params, batch)
+    assert tuple(logits.shape) == (b, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    caches = model.init_cache(b, 8, dtype=torch.float32, device="cpu")
+    for t in range(2):
+        logits, caches = model.decode_step(params, caches,
+                                           batch["tokens"][:, t:t + 1])
+        assert tuple(logits.shape) == (b, cfg.vocab)
+        assert bool(torch.isfinite(logits).all())
 
 
 def test_params_from_reference_checks_shapes():

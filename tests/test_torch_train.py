@@ -107,12 +107,38 @@ def test_train_loss_and_grads_match_ref(name, remat):
 
 
 def test_train_loss_rejects_vlm_inputs():
-    port = build_model(SMOKE["qwen2.5-32b"])
-    params = port.init(0, device="cpu")
-    toks = torch.from_numpy(_tokens(512, 1, 8, seed=2))
-    with pytest.raises(NotImplementedError, match="VLM"):
-        port.train_loss(params, {"tokens": toks,
-                                 "vision_embeds": torch.zeros(1, 2, 128)})
+    """VLM inputs are taken as the reference takes them (its gradients
+    too); M-RoPE streams that do not cover the vision tokens are refused
+    in both packages."""
+    cfg, ref, rparams, port = _models("qwen2-vl-72b")
+    params = params_from_reference(cfg, rparams, device="cpu")
+    rng = np.random.default_rng(2)
+    toks = _tokens(cfg.vocab, 2, 8, seed=2)
+    vis = rng.standard_normal((2, 4, cfg.d_model)).astype(np.float32)
+    pos = np.stack([np.zeros((2, 12)), np.tile(np.arange(12) % 3, (2, 1)),
+                    np.tile(np.arange(12), (2, 1))]).astype(np.int32)
+    batch = {"tokens": toks, "vision_embeds": vis, "mrope_positions": pos}
+    want_loss, want_grads = jax.jit(jax.value_and_grad(ref.train_loss))(
+        jax.tree.map(jnp.asarray, rparams),
+        jax.tree.map(jnp.asarray, batch))
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss = port.train_loss(params, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, ps)
+    for p in ps:
+        p.requires_grad_(False)
+    assert abs(float(loss.detach()) / float(want_loss) - 1) <= LOSS_TOL
+    for g, w in zip(grads, _port_leaves(cfg, want_grads)):
+        assert float((g - w).abs().max()) <= GRAD_TOL * float(w.abs().max())
+    short = dict(batch, mrope_positions=pos[:, :, 4:])
+    with pytest.raises(TypeError):
+        jax.jit(ref.train_loss)(jax.tree.map(jnp.asarray, rparams),
+                                jax.tree.map(jnp.asarray, short))
+    with pytest.raises(RuntimeError):
+        port.train_loss(params, {k: torch.from_numpy(v)
+                                 for k, v in short.items()})
 
 
 # ---------------------------------------------------------------------------
