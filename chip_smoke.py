@@ -140,11 +140,28 @@ Phases (any failure exits nonzero and prints no result):
     teacher-forced decode is printed and not held: the reference's decode
     rotates by RoPE and its prefill does not.  Then ``DecodeEngine``
     generates 16 steps, and the bf16 prefill is timed and profiled.
-16. **Timings** of the three float kernels at their prefill shapes, their
+16. **The parallel layer** (``[parallel]``): the one-card dry run
+    (``repro_torch.launch.dryrun``, ``meta`` tensors, no compiler) of all
+    34 ``ARCHS`` x ``SHAPES`` cells printed as the roofline table at the
+    H100 datasheet's constants; then a one-rank NCCL group (``FileStore``
+    in a temporary directory) and a 1 x 1 ``("data", "model")``
+    ``DeviceMesh``.  mixtral-8x7b (TP, capacity factor 1.25) cut to 4
+    layers as in phase 13: a float32 prefill of 1 x 1024 tokens under
+    ``use_mesh`` (the shard_map MoE) against the same prefill without it
+    (spmd): max logit error <= 1e-5 of max |logit|, every expert choice
+    and drop equal, ``apply_moe_shardmap.all_reduces`` (``moe.all_reduce``)
+    4 and ``flash_attention`` 4 launches (counts set to 0 just before the
+    shard_map run), no all-reduce in the spmd run.  kimi-k2's MoE block at
+    full width (d_model 7168, 384 experts top-8 x 2048; 33.8 GB bf16,
+    drawn an expert at a time) on 1 x 512 tokens through the shard_map
+    path (EP, ``e_local`` = 384) and through ``apply_moe_spmd``: expert
+    choices equal, max |dy| <= 1e-2 of max |y|, and both paths' bf16
+    device ms.  The group is destroyed at the end.
+17. **Timings** of the three float kernels at their prefill shapes, their
     bounds, plain versions and, for attention, one
     ``scaled_dot_product_attention`` call (a yardstick the port never
     calls).
-17. **Training** (``[train]``): zamba2-7b at full width cut to one unit
+18. **Training** (``[train]``): zamba2-7b at full width cut to one unit
     (6 Mamba2 layers and one call of the shared attention block,
     902,732,256 float32 parameters), ``DataConfig(vocab=32000,
     seq_len=1024, batch=2, batches_per_shard=2)``, AdamW, remat on.
@@ -174,7 +191,8 @@ The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, one JSON object describing the five kernels (with their
 launches in the two training runs, ``train_launches``, for the four on
 that path; for ``flash_attention`` also ``zoo_launches``, its launches in
-the f32 prefills of phases 13-15 and in whisper's decode step, and
+the f32 prefills of phases 13-15, in whisper's decode step and in phase
+16's shard_map prefill, and
 ``zoo_bf16_ms``, its device time a call in their bf16 prefills), and
 ``{"ok": true, "device": {...}}``.
 """
@@ -2200,8 +2218,8 @@ class RouteRecorder:
     def __init__(self, fn):
         self.fn, self.idx, self.dropped = fn, [], []
 
-    def __call__(self, cfg, router, h):
-        r = self.fn(cfg, router, h)
+    def __call__(self, cfg, router, h, *keep):
+        r = self.fn(cfg, router, h, *keep)
         self.idx.append(r.idx.clone())
         self.dropped.append(r.dropped())
         return r
@@ -2495,6 +2513,202 @@ def phase_zoo(torch, mods, dev):
         torch, mods, dev, WHISPER, make_args=whisper_args)
     log(f"[whisper] phase {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# [parallel]: the parallel layer over a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+PARALLEL_SEQ = 1024       # mixtral's f32 prefill, shard_map against spmd
+KIMI = "kimi-k2-1t-a32b"  # one MoE block at full width, bf16 (33.8 GB)
+KIMI_TOKENS = 512
+PARALLEL_TOL = 1e-5       # mixtral: max logit error over max |logit|
+KIMI_TOL = 1e-2           # kimi's bf16 block: max |dy| over max |y|
+
+
+def _moe_block_bf16(torch, cfg, gen, dev):
+    """One MoE block's parameters in bf16 on the card, drawn an expert at a
+    time (normal std 0.02 in float32, then cast), so the peak stays the
+    block's own bytes: a whole [E, d, f] draw in float32 would be 22.5 GB
+    at kimi-k2's width."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+
+    def normal(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+
+    p = {"router": normal(d, e),
+         "norm": {"scale": torch.ones(d, dtype=torch.bfloat16, device=dev)}}
+    for name, shape in (("w_gate", (d, f)), ("w_up", (d, f)),
+                        ("w_down", (f, d))):
+        w = torch.empty((e,) + shape, dtype=torch.bfloat16, device=dev)
+        for i in range(e):
+            w[i] = normal(*shape)
+        p[name] = w
+    return p
+
+
+def phase_parallel(torch, mods, dev):
+    """[parallel]: the one-card dry run's roofline table; then, in a
+    one-rank NCCL group, mixtral-8x7b's f32 prefill through the shard_map
+    MoE (TP) against spmd, and kimi-k2's bf16 MoE block (EP, 384 experts)
+    both ways.  Returns the mixtral shard_map prefill's launch counts."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    tag = "parallel"
+    t0 = time.perf_counter()
+    recs = [r for r in mods.dryrun.run_all("1xH100") if "skipped" not in r]
+    rows = [mods.roofline.terms(r, mods.ARCHS[r["arch"]]) for r in recs]
+    if len(rows) != 34:
+        raise AssertionError(f"{tag}: {len(rows)} dry-run cells, not 34")
+    log(f"[{tag}] one-card dry run of the {len(rows)} ARCHS x SHAPES cells "
+        f"({time.perf_counter() - t0:.2f} s; terms at the H100 datasheet's "
+        f"989 TFLOP/s bf16 and 3.35 TB/s, no collectives on one card):")
+    for line in mods.roofline.fmt_table(rows).splitlines():
+        log(f"[{tag}] {line}")
+    blocks = mods.blocks
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            log(f"[{tag}] NCCL group of 1, mesh {mesh}")
+            launches = _parallel_mixtral(torch, mods, dev, mesh, tag)
+            _parallel_kimi(torch, mods, dev, mesh, tag)
+        finally:
+            dist.destroy_process_group()
+    log(f"[{tag}] moe.all_reduce {blocks.apply_moe_shardmap.all_reduces} "
+        f"in all; phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _parallel_mixtral(torch, mods, dev, mesh, tag):
+    cfg = _cut(mods, MIXTRAL, MIXTRAL_LAYERS)
+    if (cfg.moe_impl, cfg.moe_strategy) != ("shardmap", "tp"):
+        raise AssertionError(f"{tag}: {MIXTRAL} publishes "
+                             f"{cfg.moe_impl}/{cfg.moe_strategy}")
+    model = mods.build_model(cfg)
+    params = _model_params(torch, model, torch.float32, dev, 0, tag)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tokens = torch.randint(1, cfg.vocab, (1, PARALLEL_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    fa = mods.fa_ops.flash_attention
+    blocks = mods.blocks
+    # the main path: every count set to 0 just before, read just after
+    fa.launches = 0
+    blocks.apply_moe_shardmap.all_reduces = 0
+    with recorded_routes(mods) as r_sm, mods.use_mesh(mesh):
+        t1 = time.perf_counter()
+        sm = model.prefill(params, tokens)
+        torch.cuda.synchronize()
+        t_sm = time.perf_counter() - t1
+    launches = {"flash_attention": fa.launches,
+                "moe.all_reduce": blocks.apply_moe_shardmap.all_reduces}
+    fa.launches = 0
+    with recorded_routes(mods) as r_spmd:
+        t1 = time.perf_counter()
+        spmd = model.prefill(params, tokens)
+        torch.cuda.synchronize()
+        t_spmd = time.perf_counter() - t1
+    spmd_launches = {"flash_attention": fa.launches,
+                     "moe.all_reduce": blocks.apply_moe_shardmap.all_reduces
+                     - launches["moe.all_reduce"]}
+    with mods.use_mesh(mesh):
+        t1 = time.perf_counter()
+        model.prefill(params, tokens)
+        torch.cuda.synchronize()
+        t_sm2 = time.perf_counter() - t1
+    log(f"[{tag}] {MIXTRAL} (tp, capacity factor {cfg.capacity_factor}), "
+        f"1 x {PARALLEL_SEQ} tokens, float32: shard_map {t_sm:.3f} s (its "
+        f"first all-reduce sets up the NCCL communicator; {t_sm2:.3f} s "
+        f"again) {json.dumps(launches)}; spmd {t_spmd:.3f} s "
+        f"{json.dumps(spmd_launches)}")
+    want = {"flash_attention": MIXTRAL_LAYERS,
+            "moe.all_reduce": MIXTRAL_LAYERS}
+    if launches != want or spmd_launches != dict(want, **{
+            "moe.all_reduce": 0}):
+        raise AssertionError(f"{tag}: launches {launches} / "
+                             f"{spmd_launches}, expected {want} / no "
+                             f"all-reduce")
+    _same_routes(tag, MIXTRAL, r_sm, r_spmd, MIXTRAL_LAYERS)
+    hold_logits(tag, "shard_map prefill vs spmd", sm, spmd,
+                tol=PARALLEL_TOL)
+    del params, sm, spmd
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _same_routes(tag, name, a, b, calls):
+    if len(a.idx) != calls or len(b.idx) != calls:
+        raise AssertionError(f"{tag}: {len(a.idx)} / {len(b.idx)} routed "
+                             f"MoE calls, expected {calls}")
+    differ = sum(int((x != y).sum()) for x, y in zip(a.idx, b.idx))
+    log(f"[{tag}] {name}: expert choices that differ between shard_map and "
+        f"spmd: {differ} of {sum(x.numel() for x in a.idx)}; dropped "
+        f"assignments a call {a.dropped} / {b.dropped}")
+    if differ or a.dropped != b.dropped:
+        raise AssertionError(f"{tag}: {name}'s routes differ")
+
+
+def _parallel_kimi(torch, mods, dev, mesh, tag):
+    cfg = mods.ARCHS[KIMI]
+    if (cfg.moe_impl, cfg.moe_strategy) != ("shardmap", "ep"):
+        raise AssertionError(f"{tag}: {KIMI} publishes "
+                             f"{cfg.moe_impl}/{cfg.moe_strategy}")
+    blocks = mods.blocks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    p = _moe_block_bf16(torch, cfg, gen, dev)
+    x = torch.randn((1, KIMI_TOKENS, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(p))
+    log(f"[{tag}] {KIMI} MoE block: d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} x {cfg.expert_d_ff}, {n} "
+        f"parameters, {n * 2 / 1e9:.2f} GB bf16, drawn in "
+        f"{time.perf_counter() - t1:.2f} s (peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+    before = blocks.apply_moe_shardmap.all_reduces
+    with recorded_routes(mods) as r_sm, mods.use_mesh(mesh):
+        y_sm, aux_sm = blocks.apply_moe(cfg, p, x)
+    with recorded_routes(mods) as r_spmd:
+        y_spmd, aux_spmd = blocks.apply_moe_spmd(cfg, p, x)
+    y_again, _ = blocks.apply_moe_spmd(cfg, p, x)
+    torch.cuda.synchronize()
+    if blocks.apply_moe_shardmap.all_reduces - before != 1:
+        raise AssertionError(f"{tag}: {KIMI}'s block ran no all-reduce")
+    _same_routes(tag, KIMI, r_sm, r_spmd, 1)
+    scale = float(y_spmd.float().abs().max())
+    err = float((y_sm.float() - y_spmd.float()).abs().max())
+    again = float((y_again.float() - y_spmd.float()).abs().max())
+    log(f"[{tag}] {KIMI} 1 x {KIMI_TOKENS} tokens, bf16: max |dy| {err:.3e}, "
+        f"relative {err / scale:.3e} (tolerance {KIMI_TOL:g}); spmd against "
+        f"itself run again {again:.3e}; aux "
+        f"{float(aux_sm):.6f} / {float(aux_spmd):.6f}")
+    if not (bool(y_sm.isfinite().all()) and err / scale <= KIMI_TOL):
+        raise AssertionError(f"{tag}: {KIMI}'s shard_map block disagrees")
+
+    def sm():
+        with mods.use_mesh(mesh):
+            blocks.apply_moe(cfg, p, x)
+
+    ms_sm = cuda_ms(torch, sm, reps=5)
+    ms_spmd = cuda_ms(torch, lambda: blocks.apply_moe_spmd(cfg, p, x),
+                      reps=5)
+    ms_sm2 = cuda_ms(torch, sm, reps=5)
+    log(f"[{tag}] {KIMI} block device ms (CUDA events, median of 5, in "
+        f"turns): shard_map {ms_sm:.3f} / {ms_sm2:.3f}, spmd "
+        f"{ms_spmd:.3f}; weights {n * 2 / 1e9:.2f} GB at 3.35 TB/s = "
+        f"{n * 2 / 3.35e12 * 1e3:.3f} ms; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del p, x, y_sm, y_spmd, y_again
+    torch.cuda.empty_cache()
 
 
 def fa_visible_pairs(sq, sk, causal, window):
@@ -2948,11 +3162,13 @@ def load_modules():
     from repro_torch.kernels.paxos_apply import ops as apply_ops
     from repro_torch.kernels.paxos_propose import ops as propose_ops
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.launch import dryrun, roofline
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import blocks
     from repro_torch.models.registry import build_model, input_specs
     from repro_torch.obs import FlightRecorder, flight_guard
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import use_mesh
     from repro_torch.reconfig import catchup
     from repro_torch.serve import loadgen
     from repro_torch.serve.engine import DecodeEngine, ServeConfig
@@ -2977,7 +3193,8 @@ def load_modules():
         flight_guard=flight_guard, catchup=catchup, store=store,
         leaves=leaves, DataConfig=DataConfig, synth_batch=synth_batch,
         AdamWConfig=AdamWConfig, make_train_step=make_train_step,
-        TrainConfig=TrainConfig, train=train, build=_build)
+        TrainConfig=TrainConfig, train=train, build=_build,
+        dryrun=dryrun, roofline=roofline, use_mesh=use_mesh)
 
 
 def main(argv=None) -> int:
@@ -3034,6 +3251,7 @@ def main(argv=None) -> int:
                                 {"rwkv6_wkv": (0, 15, 31)}, float_ok)
     rwkv_prefill = phase_prefill_bf16(torch, mods, dev, RWKV)
     zoo = phase_zoo(torch, mods, dev)
+    parallel = phase_parallel(torch, mods, dev)
     times.update(phase_model_timings(
         torch, mods, dev,
         {**prefill["per_launch_ms"], **rwkv_prefill["per_launch_ms"]}))
@@ -3091,7 +3309,8 @@ def main(argv=None) -> int:
         "mixtral_prefill": zoo["mixtral"]["flash_attention"],
         "qwen2_vl_prefill": zoo["qwen2_vl"]["flash_attention"],
         "whisper_prefill": zoo["whisper"]["flash_attention"],
-        "whisper_decode_step": zoo["whisper_decode"]}
+        "whisper_decode_step": zoo["whisper_decode"],
+        "mixtral_shardmap_prefill": parallel["flash_attention"]}
     fa["zoo_bf16_ms"] = {
         k: zoo[f"{k}_prefill"]["per_launch_ms"].get("flash_attention")
         for k in ("mixtral", "qwen2_vl", "whisper")}

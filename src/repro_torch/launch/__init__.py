@@ -1,2 +1,2 @@
-"""Step builders (port of ``repro.launch.steps``; the mesh, dry-run and
-roofline modules are not ported yet)."""
+"""Step builders and their shardings, meshes, the roofline and the dry
+run (port of ``repro.launch``)."""

@@ -1,20 +1,110 @@
-"""Step functions: train, prefill and decode.
+"""Step functions (train, prefill, decode) and their shardings.
 
-Port of the step builders of ``repro.launch.steps`` (``make_train_step``,
-``make_prefill``, ``make_decode_step``).  PyTorch runs eagerly, so there
-is nothing to jit or lower: each builder returns a plain callable.  The
-reference's sharding helpers (``abstract_init``, ``param_shardings``,
-``batch_shardings``, ``cache_shardings``, ``opt_state_specs``,
-``build_cell``) belong to the mesh work and wait for ROADMAP Queue 1 item
-5.
+Port of ``repro.launch.steps``.  PyTorch runs eagerly, so there is nothing
+to jit or lower: each ``make_*`` builder returns a plain callable.  The
+sharding helpers give, for an (arch, shape, mesh) cell, the layout of
+every argument as a :class:`~repro_torch.parallel.sharding.NamedSharding`
+(the resolved spec, with ``.placements`` for DTensor and
+``.shard_shape``), over a ``DeviceMesh`` or a ``MeshShape``.
+:func:`build_cell` assembles them with ``meta`` tensors for the dry run
+(``launch/dryrun.py``); placing real tensors on several cards by them
+waits for ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict, Optional
+
 import torch
 
+from repro_torch.configs.shapes import Shape
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.registry import build_model, input_specs
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import (
+    Mesh, NamedSharding, mesh_axis_sizes, resolve, spec_map,
+)
 from repro_torch.tree import leaves, unflatten
+
+
+# ---------------------------------------------------------------------------
+# Abstract init: shapes + specs without allocating a single parameter
+# ---------------------------------------------------------------------------
+
+def abstract_init(model, dtype: torch.dtype = torch.bfloat16):
+    """(the parameter tree on the ``meta`` device, its logical specs)."""
+    return model.param_shapes(dtype), model.param_specs()
+
+
+def param_shardings(specs, shapes, mesh: Mesh):
+    return spec_map(lambda spec, t: NamedSharding(
+        mesh, resolve(spec, mesh, shape=tuple(t.shape))), specs, shapes)
+
+
+BATCH_AXES = {
+    "tokens": ("batch", None),
+    "labels": ("batch", None),
+    "vision_embeds": ("batch", None, None),
+    "mrope_positions": (None, "batch", None),
+    "frames": ("batch", None, None),
+}
+
+
+def batch_shardings(spec_tree: Dict[str, Any], mesh: Mesh):
+    """Shardings of the model inputs of ``registry.input_specs`` (a
+    ``(shape, dtype)`` leaf each)."""
+    return {k: NamedSharding(mesh, resolve(BATCH_AXES[k], mesh,
+                                           shape=tuple(sd[0])))
+            for k, sd in spec_tree.items()}
+
+
+def _cache_axes(name: Optional[str], rank: int, seq_shard: bool):
+    lead = (None,) * (rank - 4)
+    if name in ("k", "v"):            # [..., B, H, S, D]
+        return lead + (("batch", "kv_heads", "seq", None) if seq_shard
+                       else ("batch", "kv_heads", None, None))
+    if name in ("ssm", "wkv"):        # [..., B, H, N, P] / [..., B, nh, K, V]
+        return lead + ("batch", "heads", None, None)
+    if name == "conv":                # [..., B, K-1, C]
+        return (None,) * (rank - 3) + ("batch", None, None)
+    if name in ("last_t", "last_c"):
+        return (None,) * (rank - 2) + ("batch", None)
+    return (None,) * rank             # length scalars etc.
+
+
+def _is_cache_leaf(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and \
+        isinstance(x[1], torch.dtype)
+
+
+def cache_shardings(model, mesh: Mesh, b: int, seq_len: int, *,
+                    seq_shard: bool):
+    """KV/state cache shardings, dispatched on the cache leaf's name.
+
+    ``seq_shard`` (long-context decode, global_batch=1) shards the KV
+    sequence dim over "data" — sequence parallelism — since the batch dim
+    cannot shard.
+    """
+    def walk(node, name):
+        if _is_cache_leaf(node):
+            shape = tuple(node[0])
+            ax = _cache_axes(name, len(shape), seq_shard)
+            return NamedSharding(mesh, resolve(ax, mesh, shape=shape))
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return type(node)(walk(v, name) for v in node)
+
+    return walk(model.cache_specs(b, seq_len), None)
+
+
+def _meta(spec_tree):
+    """``meta`` tensors for a tree of ``(shape, dtype)`` leaves."""
+    if _is_cache_leaf(spec_tree):
+        return torch.empty(tuple(spec_tree[0]), dtype=spec_tree[1],
+                           device="meta")
+    if isinstance(spec_tree, dict):
+        return {k: _meta(v) for k, v in spec_tree.items()}
+    return type(spec_tree)(_meta(v) for v in spec_tree)
 
 
 def _value_and_grad(model, params, batch, remat: bool):
@@ -88,3 +178,73 @@ def make_decode_step(model):
     def decode(params, caches, batch):
         return model.decode_step(params, caches, batch["tokens"])
     return decode
+
+
+# ---------------------------------------------------------------------------
+# Cell assembly (used by the dry run)
+# ---------------------------------------------------------------------------
+
+def opt_state_specs(param_specs, opt_cfg: adamw.AdamWConfig):
+    """ZeRO-1: the moments (and error residuals) take their parameters'
+    specs; the step counter is replicated."""
+    err = param_specs if opt_cfg.compress_grads else None
+    return adamw.OptState(step=(), m=param_specs, v=param_specs, err=err)
+
+
+def build_cell(cfg: ModelConfig, shape: Shape, mesh: Mesh,
+               opt_cfg: Optional[adamw.AdamWConfig] = None,
+               remat: bool = True):
+    """(fn, meta args, in-shardings, out-shardings, donate) of one cell.
+
+    The args are ``meta`` tensors (shapes and dtypes, nothing allocated):
+    bf16 parameters, the optimizer state (train), the caches (decode) and
+    the inputs.  Each sharding tree mirrors its argument; ``donate`` names
+    the arguments a step may overwrite in place."""
+    model = build_model(cfg)
+    p_shapes, p_specs = abstract_init(model)
+    p_shard = param_shardings(p_specs, p_shapes, mesh)
+    inputs = input_specs(cfg, shape)
+    b_shard = batch_shardings(inputs, mesh)
+    batch = _meta(inputs)
+
+    if shape.kind == "train":
+        opt_cfg = opt_cfg or adamw.AdamWConfig(
+            state_dtype=torch.bfloat16 if cfg.n_params() > 2e11
+            else torch.float32)
+        o_shapes = adamw.init(opt_cfg, p_shapes)
+        o_shard = param_shardings(opt_state_specs(p_specs, opt_cfg),
+                                  o_shapes, mesh)
+        fn = make_train_step(model, opt_cfg, remat=remat)
+        args = (p_shapes, o_shapes, batch)
+        in_sh = (p_shard, o_shard, b_shard)
+        donate = (0, 1)
+        out_sh = (p_shard, o_shard, None)
+    elif shape.kind == "prefill":
+        fn = make_prefill(model)
+        args = (p_shapes, batch)
+        in_sh = (p_shard, b_shard)
+        donate = ()
+        out_sh = None
+    else:
+        seq_shard = shape.global_batch == 1
+        c_shapes = _meta(model.cache_specs(shape.global_batch,
+                                           shape.seq_len))
+        c_shard = cache_shardings(model, mesh, shape.global_batch,
+                                  shape.seq_len, seq_shard=seq_shard)
+        # Decode is weight-stationary: params are read-only, so paying an
+        # FSDP all-gather per generated token is pure waste.  Drop the
+        # "embed_fsdp" (data-axis) shard dim whenever the model-axis-only
+        # layout fits the per-device HBM budget.  kimi-k2's 1T params keep
+        # the 2-D layout (130 GB/dev otherwise).
+        per_dev = cfg.n_params() * 2 / mesh_axis_sizes(mesh).get("model", 1)
+        if per_dev < 10e9:
+            serve_specs = spec_map(
+                lambda sp: tuple(None if a == "embed_fsdp" else a
+                                 for a in sp), p_specs)
+            p_shard = param_shardings(serve_specs, p_shapes, mesh)
+        fn = make_decode_step(model)
+        args = (p_shapes, c_shapes, batch)
+        in_sh = (p_shard, c_shard, b_shard)
+        donate = (1,)
+        out_sh = (None, c_shard)
+    return fn, args, in_sh, out_sh, donate

@@ -14,9 +14,16 @@ the Mamba2 mixing through :func:`repro_torch.kernels.mamba2_ssd.ops.ssd`
 and the RWKV6 time mixing through
 :func:`repro_torch.kernels.rwkv6_wkv.ops.wkv6`: on a CUDA tensor they
 launch the CUDA kernels.  Decode steps and the MoE dispatch stay plain
-PyTorch, as the reference computes them outside Pallas.  There are no
-sharding annotations and no mesh, so :func:`apply_moe` always takes the
-reference's no-mesh branch, :func:`apply_moe_spmd`.
+PyTorch, as the reference computes them outside Pallas.
+
+Each block's ``<block>_specs(cfg)`` gives the reference's logical axes of
+its parameters (``repro_torch.parallel.sharding``), which the reference's
+``init_<block>`` returns beside the arrays; the port's ``init_<block>``
+returns the tensors only.  Activations carry no sharding annotations:
+under a :func:`~repro_torch.parallel.sharding.use_mesh` block whose mesh
+has a "model" axis, :func:`apply_moe` of a ``moe_impl="shardmap"`` config
+runs :func:`apply_moe_shardmap` over the mesh's process groups, and every
+other path computes on the whole tensors it is given.
 
 Decode caches are updated in place where that saves a copy of the whole
 cache: :func:`apply_attention_decode` writes the new key and value into the
@@ -27,10 +34,13 @@ cache tensors it is given and returns them with ``length + 1``;
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 from torch.profiler import record_function
 
 from repro_torch.kernels.flash_attention.ops import (
@@ -38,10 +48,13 @@ from repro_torch.kernels.flash_attention.ops import (
 )
 from repro_torch.kernels.mamba2_ssd.ops import ssd, ssd_decode
 from repro_torch.kernels.rwkv6_wkv.ops import wkv6, wkv6_decode
+from repro_torch.parallel.sharding import current_mesh, mesh_axes, \
+    mesh_axis_sizes
 from .common import Init, apply_mrope, apply_rope, rms_norm
 from .config import ModelConfig
 
 CacheSpec = Tuple[Tuple[int, ...], torch.dtype]     # (shape, dtype)
+Specs = Dict[str, tuple]                            # leaf -> logical axes
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -80,6 +93,12 @@ def init_norm(cfg: ModelConfig, init: Init, d: Optional[int] = None,
     return {"scale": init.ones(lead + (d,))}
 
 
+def norm_specs(cfg: ModelConfig) -> Specs:
+    if cfg.norm == "layer":
+        return {"scale": (None,), "bias": (None,)}
+    return {"scale": (None,)}
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -102,6 +121,20 @@ def init_attention(cfg: ModelConfig, init: Init, lead: Sequence[int] = ()):
                  bk=init.zeros(lead + (hkv, hd)),
                  bv=init.zeros(lead + (hkv, hd)))
     return p
+
+
+def attention_specs(cfg: ModelConfig) -> Specs:
+    """The head dim stays explicit, so the divisibility-aware resolver
+    replicates heads a model axis does not divide (8 KV heads on 16)."""
+    s = dict(wq=("embed_fsdp", "heads", None),
+             wk=("embed_fsdp", "kv_heads", None),
+             wv=("embed_fsdp", "kv_heads", None),
+             wo=("heads", None, "embed_fsdp"),
+             norm=norm_specs(cfg))
+    if cfg.qkv_bias:
+        s.update(bq=("heads", None), bk=("kv_heads", None),
+                 bv=("kv_heads", None))
+    return s
 
 
 def _qkv(cfg: ModelConfig, p, x: torch.Tensor):
@@ -201,6 +234,14 @@ def init_mlp(cfg: ModelConfig, init: Init, d_ff: Optional[int] = None,
     return p
 
 
+def mlp_specs(cfg: ModelConfig) -> Specs:
+    s = dict(w_up=("embed_fsdp", "mlp"), w_down=("mlp", "embed_fsdp"),
+             norm=norm_specs(cfg))
+    if cfg.act in ("silu", "geglu"):
+        s["w_gate"] = ("embed_fsdp", "mlp")
+    return s
+
+
 def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     h = norm_apply(cfg, p["norm"], x)
     up = _mm(h, p["w_up"])
@@ -214,16 +255,21 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# MoE (sort-based capacity dispatch)
+# MoE (sort-based capacity dispatch; EP or TP sharding strategy)
 #
-# The reference has two paths: ``apply_moe_spmd`` (a global argsort and a
-# capacity scatter) and ``apply_moe_shardmap`` (experts split over a
-# mesh's "model" axis, one psum a layer), which it takes only under a mesh
-# with a "model" axis.  The port has no mesh, so both ``moe_impl``s run
-# ``apply_moe_spmd``, as the reference does without one.  Routing, the
-# sort, the scatter into the capacity buffer, the expert products and the
-# weighted scatter-add are plain PyTorch on every device: the reference
-# computes them outside any Pallas kernel.
+# Two paths, as in the reference:
+#   * apply_moe_spmd      — one program: a global argsort and a capacity
+#     scatter over all E experts.
+#   * apply_moe_shardmap  — explicit MoE parallelism over a DeviceMesh.
+#     Each rank takes its batch block and its slice of the experts (EP:
+#     E/|model| whole experts; TP: every expert's ff dim cut |model| ways),
+#     routes locally, runs its expert products, and one all-reduce over
+#     "model" sums the partial outputs.
+# Both run _moe_local_compute: the spmd path is its one-rank case (rank 0,
+# all E experts), which the reference's own test holds bit for bit.
+# Routing, the sort, the scatter into the capacity buffer, the expert
+# products and the weighted scatter-add are plain PyTorch on every device:
+# the reference computes them outside any Pallas kernel.
 # ---------------------------------------------------------------------------
 
 def init_moe(cfg: ModelConfig, init: Init, lead: Sequence[int] = ()):
@@ -238,19 +284,35 @@ def init_moe(cfg: ModelConfig, init: Init, lead: Sequence[int] = ()):
                 norm=init_norm(cfg, init, lead=lead))
 
 
+def moe_specs(cfg: ModelConfig) -> Specs:
+    """EP shards the expert dim, TP the within-expert ff dim."""
+    ff_axis = "expert_mlp" if cfg.moe_strategy == "tp" else None
+    e_axis = None if cfg.moe_strategy == "tp" else "experts"
+    return dict(router=(None, None),
+                w_gate=(e_axis, "embed_fsdp", ff_axis),
+                w_up=(e_axis, "embed_fsdp", ff_axis),
+                w_down=(e_axis, ff_axis, "embed_fsdp"),
+                norm=norm_specs(cfg))
+
+
 class MoERoute(NamedTuple):
-    """One MoE layer's routing of T tokens to top-k of E experts."""
+    """One MoE layer's routing of T tokens to top-k of E experts, slotted
+    into the capacity buffers of ``n_local`` of them (all E but under the
+    shard_map path's expert split)."""
     gate_w: torch.Tensor      # [T, k] float32, renormalised over the k
     idx: torch.Tensor         # [T, k] int64 expert ids, best first
     aux: torch.Tensor         # [] float32 Switch load-balance loss
     capacity: int             # slots an expert's buffer keeps
-    order: torch.Tensor       # [T*k] stable argsort of idx.reshape(-1)
-    sorted_e: torch.Tensor    # [T*k] expert of each sorted assignment
-    pos: torch.Tensor         # [T*k] its slot; ``capacity`` = dropped
+    order: torch.Tensor       # [T*k] stable argsort of the local ids
+    sorted_e: torch.Tensor    # [T*k] local expert of each sorted
+    #                           assignment; ``n_local`` = another rank's
+    pos: torch.Tensor         # [T*k] its slot; ``capacity`` = not kept
+    n_local: int              # experts kept, ids from 0
 
     def dropped(self) -> int:
-        """Assignments past their expert's capacity (their output is 0)."""
-        return int((self.pos == self.capacity).sum())
+        """Kept experts' assignments past their capacity (output 0)."""
+        return int(((self.pos == self.capacity)
+                    & (self.sorted_e < self.n_local)).sum())
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -262,11 +324,17 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_route(cfg: ModelConfig, router: torch.Tensor,
-              h: torch.Tensor) -> MoERoute:
-    """Top-k routing and capacity slots of the normed tokens h [T, d]."""
+def moe_route(cfg: ModelConfig, router: torch.Tensor, h: torch.Tensor,
+              lo: int = 0, n_local: Optional[int] = None) -> MoERoute:
+    """Top-k routing and capacity slots of the normed tokens h [T, d].
+
+    ``lo``/``n_local`` keep the experts ``lo .. lo + n_local - 1``,
+    renumbered from 0 (a rank's experts under the shard_map path); the
+    other assignments go to a trash expert ``n_local`` and no slot.  The
+    default keeps all E."""
     t = h.shape[0]
     e, k = cfg.n_experts, cfg.top_k
+    n_local = e if n_local is None else n_local
     logits = h @ router.to(h.dtype)                        # [T, E]
     probs = torch.softmax(logits.float(), -1)
     gate_w, idx = _top_k(probs, k)                         # [T, k]
@@ -277,56 +345,167 @@ def moe_route(cfg: ModelConfig, router: torch.Tensor,
     aux = e * torch.sum(frac * probs.mean(0))
     # the reference's formula: the integer // before the float multiply
     capacity = int(t * k // e * cfg.capacity_factor) + 1
-    order = torch.argsort(flat_e, stable=True)             # jnp.argsort
-    sorted_e = flat_e[order]
-    counts = torch.bincount(sorted_e, minlength=e)
+    le = flat_e - lo
+    le = torch.where((le >= 0) & (le < n_local), le,
+                     torch.full_like(le, n_local))         # trash expert
+    order = torch.argsort(le, stable=True)                 # jnp.argsort
+    sorted_e = le[order]
+    counts = torch.bincount(sorted_e, minlength=n_local + 1)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(t * k, device=h.device) - starts[sorted_e]
-    pos = torch.where(rank < capacity, rank,
+    pos = torch.where((rank < capacity) & (sorted_e < n_local), rank,
                       torch.full_like(rank, capacity))     # overflow slot
-    return MoERoute(gate_w, idx, aux, capacity, order, sorted_e, pos)
+    return MoERoute(gate_w, idx, aux, capacity, order, sorted_e, pos,
+                    n_local)
 
 
 def apply_moe(cfg: ModelConfig, p, x: torch.Tensor):
-    """The MoE layer -> (y, aux).  Both ``moe_impl``s take
-    :func:`apply_moe_spmd`: the reference's shard_map path needs a mesh,
-    which the port does not have (ROADMAP, Queue 1 item 5)."""
+    """The MoE layer -> (y, aux).  A ``moe_impl="shardmap"`` config takes
+    :func:`apply_moe_shardmap` under a :func:`use_mesh` block whose mesh
+    has a "model" axis that its strategy can split over (TP always, EP when
+    |model| divides E), as the reference decides; else
+    :func:`apply_moe_spmd`."""
+    if cfg.moe_impl == "shardmap":
+        mesh = current_mesh()
+        ok = mesh is not None and "model" in mesh_axes(mesh) and (
+            cfg.moe_strategy == "tp"                      # ff-sliced experts
+            or cfg.n_experts % mesh_axis_sizes(mesh)["model"] == 0)
+        if ok:
+            return apply_moe_shardmap(cfg, p, x, mesh)
     return apply_moe_spmd(cfg, p, x)
 
 
-def apply_moe_spmd(cfg: ModelConfig, p, x: torch.Tensor):
-    """Top-k MoE with sort-based capacity dispatch -> (x + y, aux).
+def _moe_local_compute(cfg: ModelConfig, p_local, h: torch.Tensor,
+                       my_rank: int, e_local: int):
+    """Route ``h`` [t, d] against this rank's ``e_local`` experts (ids
+    ``my_rank * e_local`` on, whose weights ``p_local`` holds) -> (partial
+    output [t, d], aux).  Local math, no collectives.
 
-    Assignments are sorted by expert, scattered into an [E, C + 1, d]
-    buffer (slot C takes every overflow and is cut off), run through the
-    experts as batched products, read back with a zero row padded on at
-    slot C (so a dropped assignment contributes 0), and combined by a
-    weighted scatter-add over tokens.
-    """
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    t = b * s
-    h = norm_apply(cfg, p["norm"], x).reshape(t, d)
+    Assignments are sorted by local expert, scattered into an
+    [e_local, C + 1, d] buffer (slot C takes every overflow and every
+    other rank's assignment, and is cut off), run through the experts as
+    batched products, read back with a zero row padded on at slot C (so
+    an assignment without a slot contributes 0), and combined by a
+    weighted scatter-add over tokens.  The capacity C comes from the local
+    token count t."""
+    t, d = h.shape
+    k = cfg.top_k
     # three profiler ranges (no cost unless a profiler records): routing
     # and the scatter, the expert products, the gather and the combine
     with record_function("moe.dispatch"):
-        r = moe_route(cfg, p["router"], h)
+        r = moe_route(cfg, p_local["router"], h, my_rank * e_local, e_local)
         src = r.order // k                                 # token index
-        buf = h.new_zeros((e, r.capacity + 1, d))
-        buf[r.sorted_e, r.pos] = h[src]
+        ex = r.sorted_e.clamp(max=e_local - 1)             # trash: slot C
+        buf = h.new_zeros((e_local, r.capacity + 1, d))
+        buf[ex, r.pos] = h[src]
         buf = buf[:, :r.capacity]
     with record_function("moe.experts"):
-        gate = torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(h.dtype))
-        up = torch.einsum("ecd,edf->ecf", buf, p["w_up"].to(h.dtype))
+        gate = torch.einsum("ecd,edf->ecf", buf,
+                            p_local["w_gate"].to(h.dtype))
+        up = torch.einsum("ecd,edf->ecf", buf, p_local["w_up"].to(h.dtype))
         y_e = torch.einsum("ecf,efd->ecd", F.silu(gate) * up,
-                           p["w_down"].to(h.dtype))
+                           p_local["w_down"].to(h.dtype))
     with record_function("moe.combine"):
-        y_e = F.pad(y_e, (0, 0, 0, 1))                     # overflow reads 0
-        gathered = y_e[r.sorted_e, r.pos]                  # [T*k, d]
+        y_e = F.pad(y_e, (0, 0, 0, 1))                     # slot C reads 0
+        gathered = y_e[ex, r.pos]                          # [t*k, d]
         w_sorted = r.gate_w.reshape(-1)[r.order].to(h.dtype)
         out = h.new_zeros((t, d)).index_add(0, src,
                                             w_sorted[:, None] * gathered)
-    return x + out.reshape(b, s, d), r.aux
+    return out, r.aux
+
+
+def apply_moe_shardmap(cfg: ModelConfig, p, x: torch.Tensor, mesh):
+    """Explicit MoE parallelism over a ``DeviceMesh`` with a "model" axis:
+    one all-reduce over "model" a layer -> (this rank's batch block of
+    x + y, aux).
+
+    ``x`` [B, S, d] and ``p`` are whole on every rank.  The batch splits
+    over the data axes ("pod", "data") that divide B (dropping the major
+    ones first, as the reference does, e.g. at decode B = 1); the rank
+    takes its block, as the reference's ``in_specs=P(batch_axes)``, and
+    returns it, as its ``out_specs``.
+
+    * strategy "ep" (kimi): experts sharded over "model"; each rank keeps
+      the assignments to its own E/|model| experts.
+    * strategy "tp" (mixtral): every rank holds ALL experts, each cut to
+      its ff slice; the expert products give partial sums over the ff dim.
+
+    Either way one all-reduce sums the partial outputs over the "model"
+    group (counted in ``apply_moe_shardmap.all_reduces``) and a second one
+    averages aux over it.  Gradients flow through a one-rank mesh; the
+    backward across ranks waits for the multi-card work (ROADMAP Queue 1
+    item 5).
+    """
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"apply_moe_shardmap runs over a DeviceMesh, not "
+                        f"{type(mesh).__name__} (a MeshShape has no ranks)")
+    b, s, d = x.shape
+    e, f = cfg.n_experts, cfg.expert_d_ff
+    sizes = mesh_axis_sizes(mesh)
+    msize = sizes["model"]
+    tp = cfg.moe_strategy == "tp"
+    e_local = e if tp else e // msize
+    if (f if tp else e) % msize:
+        raise ValueError(f"|model| = {msize} does not divide "
+                         f"{'expert_d_ff' if tp else 'n_experts'}")
+    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    # divisibility: drop batch axes that don't divide b (e.g. decode b=1)
+    while batch_axes and b % math.prod(sizes[a] for a in batch_axes):
+        batch_axes = batch_axes[1:]
+    coord = dict(zip(mesh_axes(mesh), mesh.get_coordinate()))
+    blk = 0
+    for a in batch_axes:                                   # major first
+        blk = blk * sizes[a] + coord[a]
+    bl = b // math.prod(sizes[a] for a in batch_axes)
+    x_blk = x[blk * bl:(blk + 1) * bl]
+    m = coord["model"]
+    if tp:
+        fl = f // msize
+        cut = slice(m * fl, (m + 1) * fl)
+        w = (p["w_gate"][:, :, cut], p["w_up"][:, :, cut],
+             p["w_down"][:, cut, :])
+    else:
+        cut = slice(m * e_local, (m + 1) * e_local)
+        w = (p["w_gate"][cut], p["w_up"][cut], p["w_down"][cut])
+    p_local = dict(zip(("router", "w_gate", "w_up", "w_down"),
+                       (p["router"],) + w))
+    h = rms_norm(x_blk, p["norm"]["scale"]).reshape(bl * s, d)
+    out, aux = _moe_local_compute(cfg, p_local, h, 0 if tp else m, e_local)
+    group = mesh.get_group("model")
+    out = _AllReduceSum.apply(out, group)
+    apply_moe_shardmap.all_reduces += 1
+    aux = _AllReduceSum.apply(aux, group) / msize
+    return x_blk + out.reshape(bl, s, d), aux
+
+
+apply_moe_shardmap.all_reduces = 0
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``dist.all_reduce(SUM)`` out of place, with the reference's psum
+    transpose (a sum of the cotangents over the group) as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def apply_moe_spmd(cfg: ModelConfig, p, x: torch.Tensor):
+    """Top-k MoE with sort-based capacity dispatch over all E experts ->
+    (x + y, aux): :func:`_moe_local_compute` as rank 0 of one."""
+    b, s, d = x.shape
+    h = norm_apply(cfg, p["norm"], x).reshape(b * s, d)
+    out, aux = _moe_local_compute(cfg, p, h, 0, cfg.n_experts)
+    return x + out.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +527,13 @@ def init_mamba2(cfg: ModelConfig, init: Init, lead: Sequence[int] = ()):
         gate_norm=init_norm(cfg, init, inner, lead=lead),
         w_out=init.normal(lead + (inner, d)),
     )
+
+
+def mamba2_specs(cfg: ModelConfig) -> Specs:
+    return dict(w_in=("embed_fsdp", "mlp"), conv_w=(None, None),
+                A_log=(None,), D=(None,), dt_bias=(None,),
+                norm=norm_specs(cfg), gate_norm=norm_specs(cfg),
+                w_out=("mlp", "embed_fsdp"))
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -457,6 +643,17 @@ def init_rwkv6(cfg: ModelConfig, init: Init, lead: Sequence[int] = ()):
         cv=init.normal(lead + (cfg.d_ff, d)),
         cr=init.normal(lead + (d, d)),
     )
+
+
+def rwkv6_specs(cfg: ModelConfig) -> Specs:
+    return dict(
+        norm_t=norm_specs(cfg), norm_c=norm_specs(cfg), mu=(None, None),
+        wr=("embed_fsdp", "heads"), wk=("embed_fsdp", "heads"),
+        wv=("embed_fsdp", "heads"), wg=("embed_fsdp", "heads"),
+        w_base=(None,), w_lora_a=(None, None), w_lora_b=(None, None),
+        bonus=(None, None), ln_x=(None,), wo=("heads", "embed_fsdp"),
+        mu_c=(None, None), ck=("embed_fsdp", "mlp"),
+        cv=("mlp", "embed_fsdp"), cr=("embed_fsdp", None))
 
 
 def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:

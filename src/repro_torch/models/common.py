@@ -2,7 +2,8 @@
 parameter init.
 
 Port of ``repro.models.common``.  Parameters are plain nested dicts of
-tensors with the reference's keys and layouts; there are no sharding specs.
+tensors with the reference's keys and layouts; their sharding specs come
+from each block's ``<block>_specs`` (``LM.param_specs``), not from here.
 The init helpers draw from an explicit ``torch.Generator`` (normal with
 std 0.02, zeros, ones).
 """

@@ -13,6 +13,7 @@ its per-invocation KV caches are stacked over ``repeats``.
 Entry points::
 
     init(generator, dtype, device)     -> params
+    param_specs()                      -> the reference's logical axes
     train_loss(params, batch)          -> next-token cross-entropy + 0.01 aux
     prefill(params, tokens, vision_embeds, mrope_positions)
                                        -> last-position logits [B, vocab]
@@ -40,9 +41,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from .blocks import (
     apply_attention, apply_attention_decode, apply_mamba2,
     apply_mamba2_decode, apply_mlp, apply_moe, apply_rwkv6,
-    apply_rwkv6_decode, attn_cache_spec, init_attention, init_mamba2,
-    init_mlp, init_moe, init_norm, init_rwkv6, mamba_cache_spec, norm_apply,
-    rwkv_cache_spec,
+    apply_rwkv6_decode, attention_specs, attn_cache_spec, init_attention,
+    init_mamba2, init_mlp, init_moe, init_norm, init_rwkv6, mamba2_specs,
+    mamba_cache_spec, mlp_specs, moe_specs, norm_apply, norm_specs,
+    rwkv6_specs, rwkv_cache_spec,
 )
 from .common import Init, default_positions
 from .config import ModelConfig
@@ -82,6 +84,25 @@ def _init_layer(cfg: ModelConfig, kind: str, init: Init, lead=()):
     if kind == "rwkv":
         return init_rwkv6(cfg, init, lead)
     raise ValueError(kind)
+
+
+def _layer_specs(cfg: ModelConfig, kind: str):
+    if kind in ATTN_KINDS:
+        return {"attn": attention_specs(cfg), "mlp": mlp_specs(cfg)}
+    if kind in MOE_KINDS:
+        return {"attn": attention_specs(cfg), "moe": moe_specs(cfg)}
+    if kind == "mamba":
+        return mamba2_specs(cfg)
+    if kind == "rwkv":
+        return rwkv6_specs(cfg)
+    raise ValueError(kind)
+
+
+def stack_specs(specs):
+    """A layer's specs with the leading "stack" axis of a stacked tree."""
+    if isinstance(specs, dict):
+        return {k: stack_specs(v) for k, v in specs.items()}
+    return ("stack",) + tuple(specs)
 
 
 def _kind_window(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -210,6 +231,25 @@ class LM:
         """The parameter tree on the ``meta`` device: shapes and dtypes
         only, nothing allocated."""
         return self._init(None, dtype, torch.device("meta"))
+
+    def param_specs(self) -> Dict[str, Any]:
+        """The parameter tree's logical axes, the reference's
+        ``init(key)[1]``: the same keys, a tuple of axis names or ``None``
+        a leaf, ``"stack"`` first on the leaves stacked over repeats."""
+        cfg = self.cfg
+        specs: Dict[str, Any] = {"embed": ("vocab", "embed_fsdp")}
+        if not cfg.tie_embeddings:
+            specs["unembed"] = ("embed_fsdp", "vocab")
+        specs["final_norm"] = norm_specs(cfg)
+        specs["units"] = tuple(stack_specs(_layer_specs(cfg, kind))
+                               for kind in self.unit)
+        if self.tail:
+            specs["tail"] = tuple(_layer_specs(cfg, kind)
+                                  for kind in self.tail)
+        if cfg.family == "hybrid":
+            specs["shared_attn"] = {"attn": attention_specs(cfg),
+                                    "mlp": mlp_specs(cfg)}
+        return specs
 
     # -- forward (train / prefill) -------------------------------------------
 

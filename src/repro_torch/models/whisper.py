@@ -12,6 +12,7 @@ the reference's (so converted weights compare leaf for leaf).
 Entry points::
 
     init(generator, dtype, device)          -> params
+    param_specs()                           -> the reference's logical axes
     encode(params, frames)                  -> encoder output [B, Se, d]
     train_loss(params, batch)               -> next-token cross-entropy
     prefill(params, frames, tokens)         -> last-position logits [B, V]
@@ -39,11 +40,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DeviceLike, resolve_device
 from .blocks import (
     _qkv, apply_attention, apply_attention_decode, apply_mlp,
-    attn_cache_spec, init_attention, init_mlp, init_norm, norm_apply,
+    attention_specs, attn_cache_spec, init_attention, init_mlp, init_norm,
+    mlp_specs, norm_apply, norm_specs,
 )
 from .common import Init
 from .config import ModelConfig
-from .lm import _index, _restack, _zeros
+from .lm import _index, _restack, _zeros, stack_specs
 
 
 class EncDec:
@@ -86,6 +88,18 @@ class EncDec:
     def param_shapes(self, dtype: torch.dtype = torch.float32):
         """The parameter tree on the ``meta`` device."""
         return self._init(None, dtype, torch.device("meta"))
+
+    def param_specs(self) -> Dict[str, Any]:
+        """The parameter tree's logical axes, the reference's
+        ``init(key)[1]`` (see :meth:`LM.param_specs`)."""
+        cfg = self.cfg
+        enc = {"attn": attention_specs(cfg), "mlp": mlp_specs(cfg)}
+        dec = {"self_attn": attention_specs(cfg),
+               "cross_attn": attention_specs(cfg), "mlp": mlp_specs(cfg)}
+        return {"embed": ("vocab", "embed_fsdp"), "pos_dec": (None, None),
+                "pos_enc": (None, None), "enc": stack_specs(enc),
+                "dec": stack_specs(dec), "enc_norm": norm_specs(cfg),
+                "final_norm": norm_specs(cfg)}
 
     # -- encoder -------------------------------------------------------------
 

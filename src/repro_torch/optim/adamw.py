@@ -10,9 +10,11 @@ checkpoint of ``(params, opt_state)`` has the same keys in both packages
 
 :func:`apply` updates the parameters and moments **in place** under
 ``torch.no_grad()`` and returns the same trees: at zamba2-7b's width a
-functional copy would double the state at every step.  The reference's
-sharding of the moments (ZeRO-1) waits for the mesh work (ROADMAP Queue 1
-item 5).
+functional copy would double the state at every step.  The moments'
+layout (ZeRO-1: each moment takes its parameter's spec) is given by
+``repro_torch.launch.steps.opt_state_specs``, and the dry run counts their
+bytes a device by it; placing them on several cards waits for ROADMAP
+Queue 1 item 5.
 """
 
 from __future__ import annotations
