@@ -81,7 +81,24 @@ Phases (any failure exits nonzero and prints no result):
    card; the whole-row catch-up held to the per-key one on 4096 sampled
    lanes (reads, and two installs into fresh joiners on the card); prints
    the seconds and bytes of every snapshot taken and installed.
-8. **Float kernels vs plain** on unit-normal inputs made on the card:
+8. **The fault smokes** (``[smokes]``): the port's drivers
+   ``scripts/torch_{batched,reconfig,open_loop}_smoke.py`` on the card at
+   the reference scripts' own settings (5 machines x 2 sessions over 3
+   keys; storms 3 -> 4 -> 5 -> 4 -> 5 -> 4; open loop over 48 Zipf keys):
+   the batched smoke's 20 seeds, then its 7 ``KERNEL_SEEDS`` at 4 shards,
+   the 20 storms and all 20 open-loop specs through the batched cluster
+   (the scripts' ``check_seed`` over every seed; the open-loop script's
+   own ``main`` takes only its ``BATCHED_SEEDS`` batched), each seed
+   completion-identical to the port's scalar cluster with the checkers
+   green and both select networks launched (the drivers raise
+   otherwise); each smoke's counts set to 0 just before it.  The first
+   fused call at each new shape (stacks grown from a few lanes, 1-lane
+   waves, 3 to 5 machines) is replayed through the plain versions.  Then
+   seed 0 with ``--inject-failure``'s corrupted commit record must be
+   caught by the checkers, leave its dump under ``build/flight_dumps/``
+   and be summarised by ``scripts/torch_trace_report.py``.  Prints each
+   smoke's seconds and launches.
+9. **Float kernels vs plain** on unit-normal inputs made on the card:
    ``flash_attention`` at zamba2's, gemma3's local, qwen1.5's ragged,
    Sq < Sk, non-causal and MQA shapes, a window straddling key tiles,
    mixtral's 4096-token window slid past its edge (Sq = Sk = 4608, GQA
@@ -94,7 +111,7 @@ Phases (any failure exits nonzero and prints no result):
    ragged V, K = 40 and B = 2 (decays exp(-exp(x)), x uniform on [-6, 1]),
    strong decays with exact zeros, and w = 1 over 4096 steps, each in
    float32 and bfloat16.
-9. **Full-width zamba2-7b** (81 layers, d_model 3584, float32 weights from
+10. **Full-width zamba2-7b** (81 layers, d_model 3584, float32 weights from
    a seeded ``torch.Generator`` on the card): one prefill of 2 x 128
    tokens, the main path of its float kernels (their counts set to 0 just
    before it and read just after: 13 flash attention, 81 SSD), held
@@ -103,15 +120,15 @@ Phases (any failure exits nonzero and prints no result):
    kernel calls replayed through the plain versions; then ``DecodeEngine``
    routes 4 sessions through ``PaxosRegistry(n_machines=5)`` over
    ``BatchedMachine`` (sticky across two engines) and generates 32 steps.
-10. **bf16 zamba2-7b prefill** at 1 x 4096 tokens (cut from the dry-run's
+11. **bf16 zamba2-7b prefill** at 1 x 4096 tokens (cut from the dry-run's
    ``prefill_32k``, batch 32): wall time, peak memory and one
    ``torch.profiler`` pass; a float kernel's time a call is its CUDA
    kernels' device time over its wrapper's calls in that pass.
-11. **Full-width rwkv6-7b** (32 layers, d_model 4096, 7.5e9 float32
-   weights, drawn after zamba2's are freed): phase 9 again, with 32
+12. **Full-width rwkv6-7b** (32 layers, d_model 4096, 7.5e9 float32
+   weights, drawn after zamba2's are freed): phase 10 again, with 32
    ``rwkv6_wkv`` launches in the prefill.
-12. **bf16 rwkv6-7b prefill** at 1 x 4096 tokens, as phase 10.
-13. **mixtral-8x7b** (``[mixtral]``) at full width (8 experts top-2 x
+13. **bf16 rwkv6-7b prefill** at 1 x 4096 tokens, as phase 11.
+14. **mixtral-8x7b** (``[mixtral]``) at full width (8 experts top-2 x
     14336, 32 / 8 heads x 128, window 4096) cut to 4 of 32 layers
     (6,067,228,672 float32 parameters).  Gate 1: a prefill of 1 x 4608
     tokens, past the window's edge, through the kernels against the same
@@ -125,13 +142,13 @@ Phases (any failure exits nonzero and prints no result):
     1 x 4608 is timed and profiled, split into attention, MoE dispatch
     (the ``moe.dispatch`` and ``moe.combine`` ranges: routing, sort,
     scatter, gather), expert products (``moe.experts``) and the rest.
-14. **qwen2-vl-72b** (``[qwen2_vl]``) at full width (64 / 8 heads x 128,
+15. **qwen2-vl-72b** (``[qwen2_vl]``) at full width (64 / 8 heads x 128,
     M-RoPE sections (16, 24, 24)) cut to 2 of 80 layers (4,246,794,240
     float32 parameters).  Gate 1: 256 vision embeddings (a 16 x 16 grid
     in M-RoPE) and 512 text tokens through the kernels against the plain
     prefill (2 launches); gate 2: a text-only prefill of 2 x 128 against
     the teacher-forced decode.  Then its bf16 prefill.
-15. **whisper-large-v3** (``[whisper]``) at full width and depth (32 + 32
+16. **whisper-large-v3** (``[whisper]``) at full width and depth (32 + 32
     layers, 1,578,672,640 float32 parameters).  Gate 1: the prefill of 2
     x 1500 frames and 2 x 64 tokens through the kernels against the plain
     prefill (96 launches: 32 encoder, 32 self, 32 cross); gate 2: decode
@@ -140,13 +157,13 @@ Phases (any failure exits nonzero and prints no result):
     teacher-forced decode is printed and not held: the reference's decode
     rotates by RoPE and its prefill does not.  Then ``DecodeEngine``
     generates 16 steps, and the bf16 prefill is timed and profiled.
-16. **The parallel layer** (``[parallel]``): the one-card dry run
+17. **The parallel layer** (``[parallel]``): the one-card dry run
     (``repro_torch.launch.dryrun``, ``meta`` tensors, no compiler) of all
     34 ``ARCHS`` x ``SHAPES`` cells printed as the roofline table at the
     H100 datasheet's constants; then a one-rank NCCL group (``FileStore``
     in a temporary directory) and a 1 x 1 ``("data", "model")``
     ``DeviceMesh``.  mixtral-8x7b (TP, capacity factor 1.25) cut to 4
-    layers as in phase 13: a float32 prefill of 1 x 1024 tokens under
+    layers as in phase 14: a float32 prefill of 1 x 1024 tokens under
     ``use_mesh`` (the shard_map MoE) against the same prefill without it
     (spmd): max logit error <= 1e-5 of max |logit|, every expert choice
     and drop equal, ``apply_moe_shardmap.all_reduces`` (``moe.all_reduce``)
@@ -155,13 +172,16 @@ Phases (any failure exits nonzero and prints no result):
     full width (d_model 7168, 384 experts top-8 x 2048; 33.8 GB bf16,
     drawn an expert at a time) on 1 x 512 tokens through the shard_map
     path (EP, ``e_local`` = 384) and through ``apply_moe_spmd``: expert
-    choices equal, max |dy| <= 1e-2 of max |y|, and both paths' bf16
-    device ms.  The group is destroyed at the end.
-17. **Timings** of the three float kernels at their prefill shapes, their
+    choices equal, and equal bits (max |dy| 0) with the combine's bf16
+    sum in a fixed order (``torch.use_deterministic_algorithms`` around
+    the two calls; the atomic default's own run-to-run spread is
+    printed), and both paths' bf16 device ms.  The group is destroyed at
+    the end.
+18. **Timings** of the three float kernels at their prefill shapes, their
     bounds, plain versions and, for attention, one
     ``scaled_dot_product_attention`` call (a yardstick the port never
     calls).
-18. **Training** (``[train]``): zamba2-7b at full width cut to one unit
+19. **Training** (``[train]``): zamba2-7b at full width cut to one unit
     (6 Mamba2 layers and one call of the shared attention block,
     902,732,256 float32 parameters), ``DataConfig(vocab=32000,
     seq_len=1024, batch=2, batches_per_shard=2)``, AdamW, remat on.
@@ -186,14 +206,31 @@ Phases (any failure exits nonzero and prints no result):
     ms a step, the peak memory, each kernel's forward against its
     backward recompute in device time, and the busy share of one profiled
     step.
+20. **The examples** (``[examples]``): ``examples/torch_quickstart.py``
+    (a 5-replica all-aboard registry over ``BatchedMachine``),
+    ``examples/torch_serve_kvstore.py`` (its dense demo model's routes,
+    reconfiguration, 12 generated steps and one prefill of the prompts:
+    4 flash-attention launches, held to the decode path) and
+    ``examples/torch_train_fault_tolerant.py --full`` (a dense 8-layer
+    model trained 300 steps, registry replica 4 crashed, the trainer
+    restarted at step 150, a descending loss; 2 flash-attention launches
+    a layer a step).  In each example the first call of each kernel at
+    each shape it meets (the registries' fused waves; attention at the
+    prefill's and the train step's shapes) is recorded and replayed
+    through the plain version: the select networks bit for bit,
+    attention within 1e-4 of max |plain| (float32).  Prints the launches,
+    the ms a step and the peak memory.
 
 The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, one JSON object describing the five kernels (with their
 launches in the two training runs, ``train_launches``, for the four on
-that path; for ``flash_attention`` also ``zoo_launches``, its launches in
-the f32 prefills of phases 13-15, in whisper's decode step and in phase
-16's shard_map prefill, and
-``zoo_bf16_ms``, its device time a call in their bf16 prefills), and
+that path; for the select networks also ``smoke_launches``, their
+launches in each smoke of phase 8, and ``examples_launches``, in each
+example of phase 20; for ``flash_attention`` also ``zoo_launches``, its
+launches in the f32 prefills of phases 14-16, in whisper's decode step
+and in phase 17's shard_map prefill, ``zoo_bf16_ms``, its device time a
+call in their bf16 prefills, and ``examples_launches``, its launches in
+serve_kvstore's prefill and in train_fault_tolerant's steps), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -511,9 +548,10 @@ def _serve_cluster(mods, machine_cls, seed, aboard, crash, n_ops,
 
 
 def _snapshot(v):
-    """A copy of a tensor or array argument; other values as they are."""
+    """A copy of a tensor (outside any autograd graph) or array argument;
+    other values as they are."""
     if hasattr(v, "clone"):
-        return v.clone()
+        return v.detach().clone()
     return v.copy() if hasattr(v, "copy") else v
 
 
@@ -538,7 +576,7 @@ class Recorder:
         outs = self.fn(*args, **kw)
         kept = outs if isinstance(outs, (tuple, list)) else [outs]
         self.samples.append((i, ins, kw_in,
-                             [o.clone() for o in kept]
+                             [o.detach().clone() for o in kept]
                              + [args[j].clone() for j in self.after]))
         return outs
 
@@ -2523,7 +2561,6 @@ PARALLEL_SEQ = 1024       # mixtral's f32 prefill, shard_map against spmd
 KIMI = "kimi-k2-1t-a32b"  # one MoE block at full width, bf16 (33.8 GB)
 KIMI_TOKENS = 512
 PARALLEL_TOL = 1e-5       # mixtral: max logit error over max |logit|
-KIMI_TOL = 1e-2           # kimi's bf16 block: max |dy| over max |y|
 
 
 def _moe_block_bf16(torch, cfg, gen, dev):
@@ -2675,23 +2712,35 @@ def _parallel_kimi(torch, mods, dev, mesh, tag):
         f"{time.perf_counter() - t1:.2f} s (peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
     before = blocks.apply_moe_shardmap.all_reduces
-    with recorded_routes(mods) as r_sm, mods.use_mesh(mesh):
-        y_sm, aux_sm = blocks.apply_moe(cfg, p, x)
-    with recorded_routes(mods) as r_spmd:
-        y_spmd, aux_spmd = blocks.apply_moe_spmd(cfg, p, x)
+    # the two paths compared with a fixed order of the combine's bf16 sum:
+    # by default index_add adds a token's 8 terms by atomics in no fixed
+    # order, which alone moves an output by 1-3 bf16 ulps between two runs
+    # of one path (measured below as "run again")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with recorded_routes(mods) as r_sm, mods.use_mesh(mesh):
+            y_sm, aux_sm = blocks.apply_moe(cfg, p, x)
+        with recorded_routes(mods) as r_spmd:
+            y_spmd, aux_spmd = blocks.apply_moe_spmd(cfg, p, x)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
     y_again, _ = blocks.apply_moe_spmd(cfg, p, x)
+    y_again2, _ = blocks.apply_moe_spmd(cfg, p, x)
     torch.cuda.synchronize()
     if blocks.apply_moe_shardmap.all_reduces - before != 1:
         raise AssertionError(f"{tag}: {KIMI}'s block ran no all-reduce")
     _same_routes(tag, KIMI, r_sm, r_spmd, 1)
     scale = float(y_spmd.float().abs().max())
     err = float((y_sm.float() - y_spmd.float()).abs().max())
-    again = float((y_again.float() - y_spmd.float()).abs().max())
-    log(f"[{tag}] {KIMI} 1 x {KIMI_TOKENS} tokens, bf16: max |dy| {err:.3e}, "
-        f"relative {err / scale:.3e} (tolerance {KIMI_TOL:g}); spmd against "
-        f"itself run again {again:.3e}; aux "
+    again = float((y_again.float() - y_again2.float()).abs().max())
+    log(f"[{tag}] {KIMI} 1 x {KIMI_TOKENS} tokens, bf16, combine in a fixed "
+        f"order: max |dy| {err:.3e}, relative {err / scale:.3e} (must be 0: "
+        f"the same terms summed in one order); spmd against itself run "
+        f"again with the atomic "
+        f"combine {again:.3e}; aux "
         f"{float(aux_sm):.6f} / {float(aux_spmd):.6f}")
-    if not (bool(y_sm.isfinite().all()) and err / scale <= KIMI_TOL):
+    if not (bool(y_sm.isfinite().all()) and err == 0):
         raise AssertionError(f"{tag}: {KIMI}'s shard_map block disagrees")
 
     def sm():
@@ -2707,7 +2756,7 @@ def _parallel_kimi(torch, mods, dev, mesh, tag):
         f"{ms_spmd:.3f}; weights {n * 2 / 1e9:.2f} GB at 3.35 TB/s = "
         f"{n * 2 / 3.35e12 * 1e3:.3f} ms; peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    del p, x, y_sm, y_spmd, y_again
+    del p, x, y_sm, y_spmd, y_again, y_again2
     torch.cuda.empty_cache()
 
 
@@ -3138,6 +3187,297 @@ def phase_train(torch, mods, dev):
                 busy_share=dev_ms / prof_ms, split=split)
 
 
+# ---------------------------------------------------------------------------
+# the system's drivers: the three fault smokes and the three examples
+# ---------------------------------------------------------------------------
+
+DRIVERS = {"batched_smoke": "scripts/torch_batched_smoke.py",
+           "reconfig_smoke": "scripts/torch_reconfig_smoke.py",
+           "open_loop_smoke": "scripts/torch_open_loop_smoke.py",
+           "trace_report": "scripts/torch_trace_report.py",
+           "quickstart": "examples/torch_quickstart.py",
+           "serve_kvstore": "examples/torch_serve_kvstore.py",
+           "train_fault_tolerant": "examples/torch_train_fault_tolerant.py"}
+def load_drivers():
+    """The port's drivers, loaded by path (they are scripts, not modules
+    of the package)."""
+    import importlib.util
+
+    out = {}
+    for name, rel in DRIVERS.items():
+        spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                      ROOT / rel)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+        out[name] = mod
+    return argparse.Namespace(**out)
+
+
+def _zero_select_counts(mods):
+    mods.apply_ops.paxos_apply.launches = 0
+    mods.propose_ops.paxos_propose.launches = 0
+
+
+def _select_recorders(torch, ce):
+    """Recorders of the two fused entries keeping the first call at each
+    new shape: the receiver's (18, M, K) stack; the issuer's staged lanes,
+    table lanes and machines."""
+    rec_r = GrowthRecorder(torch, ce._fused_receiver_step, (),
+                           lambda a: tuple(a[0].shape))
+    rec_i = GrowthRecorder(torch, ce.paxos_propose_staged, (),
+                           lambda a: (a[1].shape[1], a[0].shape[1],
+                                      a[2].shape[1]), after=(0,))
+    return rec_r, rec_i
+
+
+def phase_smokes(torch, mods, dev, apply_ok, propose_ok):
+    """The three 20-seed fault smokes of ``scripts/torch_*_smoke.py`` on
+    the card, each driven with the select networks' counts set to 0 just
+    before it and read just after; every seed must launch both kernels
+    (the drivers raise otherwise).  The first fused call at each new
+    shape (grown stacks, 1-lane waves, 3 -> 5 machines) is recorded and
+    replayed through the plain versions.  Then one injected corruption
+    must be caught by the checkers and leave a dump."""
+    d = mods.drivers
+    bs, ol = d.batched_smoke, d.open_loop_smoke
+    ce = mods.cluster_engine
+    t_phase = time.perf_counter()
+    rec_r, rec_i = _select_recorders(torch, ce)
+
+    def reconfig():
+        if d.reconfig_smoke.main([], device=dev) != 0:
+            raise AssertionError("[smokes] the reconfig smoke failed")
+
+    runs = (("batched", lambda: [bs.check_seed(seed, dev, 1, DUMP_DIR)
+                                 for seed in bs.SEEDS]),
+            ("batched_shards4", lambda: [bs.check_seed(seed, dev, 4, DUMP_DIR)
+                                         for seed in sorted(bs.KERNEL_SEEDS)]),
+            ("reconfig", reconfig),
+            # every spec batched, not only the script's BATCHED_SEEDS
+            ("open_loop", lambda: [ol.check_seed(seed, dev, True, DUMP_DIR)
+                                   for seed in ol.SEEDS]))
+    smoke_launches = {k: {} for k in ce.SELECT_NETWORKS}
+    seconds = {}
+    ce._fused_receiver_step, ce.paxos_propose_staged = rec_r, rec_i
+    try:
+        for name, drive in runs:
+            log(f"[smokes] {name}")
+            _sync(torch, dev)
+            _zero_select_counts(mods)
+            t0 = time.perf_counter()
+            drive()
+            _sync(torch, dev)
+            seconds[name] = time.perf_counter() - t0
+            counts = mods.select_launches()
+            mods.require_launches(counts, dev)
+            for k in ce.SELECT_NETWORKS:
+                smoke_launches[k][name] = counts[k]
+            log(f"[smokes] {name}: {seconds[name]:.1f} s, launches "
+                f"{json.dumps(dict(counts))}")
+    finally:
+        ce._fused_receiver_step = rec_r.fn
+        ce.paxos_propose_staged = rec_i.fn
+    log(f"[smokes] replaying the first fused call at each of "
+        f"{len(rec_r.samples)} receiver and {len(rec_i.samples)} issuer "
+        f"shapes through the plain versions")
+    phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
+
+    # the postmortem path: a corrupted commit record is caught and dumped
+    stem = DUMP_DIR / "batched_seed000"
+    for suffix in (".jsonl", ".trace.json"):
+        stem.with_suffix(suffix).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    try:
+        bs.check_seed(0, dev, 1, DUMP_DIR, inject_failure=True)
+    except mods.checkers.SafetyViolation as exc:
+        log(f"[smokes] the injected corruption caught by the checkers: "
+            f"{exc}")
+    else:
+        raise AssertionError("[smokes] the injected corruption was not "
+                             "caught")
+    jsonl = stem.with_suffix(".jsonl")
+    if not jsonl.is_file() or not stem.with_suffix(".trace.json").is_file():
+        raise AssertionError(f"[smokes] no flight dump at {jsonl}")
+    if d.trace_report.main([str(jsonl)]) != 0:
+        raise AssertionError("[smokes] torch_trace_report failed")
+    seconds["inject_failure"] = time.perf_counter() - t0
+    log(f"[smokes] seconds {json.dumps(seconds)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": smoke_launches, "seconds": seconds}
+
+
+def phase_examples(torch, mods, dev, apply_ok, propose_ok, float_ok):
+    """The three examples of ``examples/torch_*.py`` on the card: the
+    quickstart registry, serve_kvstore (its prefill through the
+    flash-attention kernel) and train_fault_tolerant at ``--full`` (300
+    steps, the resume at 150, a descending loss), each with its counts set
+    to 0 just before it and read just after.  In each, the first call of
+    every kernel at each shape it meets (the registries' fused waves, the
+    prefill's and the train step's attention) is recorded and replayed
+    through the plain version after the example."""
+    d = mods.drivers
+    ce, blocks = mods.cluster_engine, mods.blocks
+    fa = mods.fa_ops.flash_attention
+    t_phase = time.perf_counter()
+    launches = {k: {} for k in ce.SELECT_NETWORKS + ("flash_attention",)}
+    seconds = {}
+    rec_r, rec_i = _select_recorders(torch, ce)
+    rec_fa = GrowthRecorder(torch, fa, (), lambda a: tuple(
+        (tuple(t.shape), t.dtype) for t in a[:3]))
+
+    def replay(name):
+        """The example's recorded calls against the plain versions."""
+        phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
+        if launches["flash_attention"][name] and not rec_fa.samples:
+            raise AssertionError(f"[examples] {name}: no flash_attention "
+                                 f"call recorded")
+        with torch.no_grad():
+            for i, ins, kw, outs in rec_fa.samples:
+                dname = str(ins[0].dtype).removeprefix("torch.")
+                float_ok["flash_attention"].add(
+                    outs[0], mods.fa_ops.attention_plain(*ins, **kw),
+                    FLOAT_TOL[dname],
+                    f"{name}: recorded flash_attention call {i} "
+                    f"{tuple(ins[0].shape)}/{tuple(ins[1].shape)} {kw}",
+                    relative=True, tag="examples")
+        for rec in (rec_r, rec_i, rec_fa):
+            rec.samples.clear()
+            rec.seen.clear()
+
+    def counted(name, fn):
+        _sync(torch, dev)
+        _zero_select_counts(mods)
+        fa.launches = 0
+        ce._fused_receiver_step, ce.paxos_propose_staged = rec_r, rec_i
+        blocks.flash_attention = rec_fa
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            _sync(torch, dev)
+        finally:
+            ce._fused_receiver_step = rec_r.fn
+            ce.paxos_propose_staged = rec_i.fn
+            blocks.flash_attention = rec_fa.fn
+        seconds[name] = time.perf_counter() - t0
+        got = {**mods.select_launches(), "flash_attention": fa.launches}
+        for k, n in got.items():
+            launches[k][name] = n
+        mods.require_launches(got, dev)
+        log(f"[examples] {name}: {seconds[name]:.1f} s, launches "
+            f"{json.dumps(got)}")
+        replay(name)
+        return out
+
+    if counted("quickstart", lambda: d.quickstart.main([], device=dev)):
+        raise AssertionError("[examples] quickstart failed")
+    sk = d.serve_kvstore
+    model = mods.build_model(sk.CFG)
+    params = sk.init_params(model, dev)
+    served = counted("serve_kvstore",
+                     lambda: sk.serve(model, params, dev))
+    n_layers = sk.CFG.n_layers
+    if launches["flash_attention"]["serve_kvstore"] != n_layers:
+        raise AssertionError(
+            f"[examples] serve_kvstore's prefill launched flash_attention "
+            f"{launches['flash_attention']['serve_kvstore']} times, not once "
+            f"a layer ({n_layers})")
+    log(f"[examples] serve_kvstore: routes {served['routes']}, prefill "
+        f"max logit error {served['prefill_err']:.3g} of max |logit|")
+    del model, params, served
+
+    tf = d.train_fault_tolerant
+    ckpt = ROOT / "build" / "torch_ckpt_example"
+    from repro_torch.train import loop as train_loop
+
+    # each step between two synchronisations, each checkpoint save
+    real_make, real_save = train_loop.make_train_step, mods.store.save
+    step_walls, save_walls = [], []
+
+    def timed_make(*args, **kw):
+        step_fn = real_make(*args, **kw)
+        step_walls.append([])
+
+        def step(*a, **k):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            out = step_fn(*a, **k)
+            _sync(torch, dev)
+            step_walls[-1].append(time.perf_counter() - t0)
+            return out
+        return step
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        won = real_save(*args, **kw)
+        save_walls.append(time.perf_counter() - t0)
+        return won
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    train_loop.make_train_step, mods.store.save = timed_make, timed_save
+    try:
+        trained = counted("train_fault_tolerant",
+                          lambda: tf.run(True, str(ckpt), dev))
+    finally:
+        train_loop.make_train_step, mods.store.save = real_make, real_save
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # each run's first step warms up
+    step_ms = statistics.median(w * 1e3 for run in step_walls
+                                for w in run[1:])
+    _, total, _ = tf.settings(True)
+    layers = trained["model"].cfg.n_layers
+    # one launch a layer in the forward and one in its remat recompute;
+    # the backward recomputes the plain version
+    want_fa = 2 * layers * total
+    got_fa = launches["flash_attention"]["train_fault_tolerant"]
+    if got_fa != want_fa:
+        raise AssertionError(
+            f"[examples] the train steps launched flash_attention {got_fa} "
+            f"times, not {want_fa} (2 a layer a step)")
+    wall = trained["out1"]["wall_s"] + trained["out2"]["wall_s"]
+    losses = trained["losses"]
+    log(f"[examples] train_fault_tolerant --full: resumed at "
+        f"{trained['out2']['start_step']} of {total}, committed "
+        f"{[s for s, _ in trained['committed']]}, losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; flash_attention launches "
+        f"in the train steps {got_fa} ({got_fa // total} a step); ms a step "
+        f"{step_ms:.3f} (median, each run's first step excluded; "
+        f"{wall / total * 1e3:.3f} as the two runs' wall over {total} "
+        f"steps, with {len(save_walls)} checkpoint saves of "
+        f"{statistics.median(save_walls):.3f} s median and the registry's "
+        f"ops); peak memory {peak_gb:.2f} GB")
+    # one more step at the final state, profiled: the device's busy share
+    step_fn = mods.make_train_step(trained["model"], trained["opt"])
+    tokens = torch.from_numpy(
+        mods.synth_batch(trained["data"], 99, 0)).to(dev)
+    state = [trained["out2"]["params"], trained["out2"]["opt_state"]]
+    del trained
+
+    def one_step():
+        state[0], state[1], _ = step_fn(state[0], state[1],
+                                        {"tokens": tokens})
+
+    one_step()
+    rows, prof_ms = profile_device(torch, one_step, cpu=False)
+    dev_rows = [r for r in rows if _is_device_row(r) and _device_us(r) > 0]
+    dev_ms = sum(_device_us(r) for r in dev_rows) / 1e3
+    groups = collections.Counter()
+    for r in dev_rows:
+        groups[_kernel_group(r.key)] += _device_us(r) / 1e3
+    log(f"[examples] one profiled train step: wall {prof_ms:.1f} ms, device "
+        f"busy {dev_ms:.1f} ms (busy share {dev_ms / prof_ms:.4f}); "
+        + ", ".join(f"{g} {t:.3f} ms" for g, t in groups.most_common()))
+    del state, step_fn
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[examples] seconds {json.dumps(seconds)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "seconds": seconds, "step_ms": step_ms,
+            "wall_ms_a_step": wall / total * 1e3, "peak_gb": peak_gb,
+            "busy_share": dev_ms / prof_ms}
+
+
 def load_modules():
     """The port's modules the phases use, as one namespace (a driver that
     runs a few phases alone imports this script and calls it)."""
@@ -3172,7 +3512,8 @@ def load_modules():
     from repro_torch.reconfig import catchup
     from repro_torch.serve import loadgen
     from repro_torch.serve.engine import DecodeEngine, ServeConfig
-    from repro_torch.serve.paxos import BatchedMachine, cluster_engine
+    from repro_torch.serve.paxos import BatchedMachine, cluster_engine, \
+        require_launches, select_launches
     from repro_torch.train.loop import TrainConfig, train
     from repro_torch.tree import leaves
 
@@ -3184,6 +3525,7 @@ def load_modules():
         kv_to_lanes=kv_to_lanes, replay=replay, noop_kind=NOOP,
         apply_ops=apply_ops, propose_ops=propose_ops,
         BatchedMachine=BatchedMachine, cluster_engine=cluster_engine,
+        select_launches=select_launches, require_launches=require_launches,
         np=np, pv=pv, ARCHS=ARCHS, PaxosRegistry=PaxosRegistry,
         blocks=blocks,
         build_model=build_model, input_specs=input_specs, Shape=Shape,
@@ -3194,7 +3536,8 @@ def load_modules():
         leaves=leaves, DataConfig=DataConfig, synth_batch=synth_batch,
         AdamWConfig=AdamWConfig, make_train_step=make_train_step,
         TrainConfig=TrainConfig, train=train, build=_build,
-        dryrun=dryrun, roofline=roofline, use_mesh=use_mesh)
+        dryrun=dryrun, roofline=roofline, use_mesh=use_mesh,
+        drivers=load_drivers())
 
 
 def main(argv=None) -> int:
@@ -3241,6 +3584,7 @@ def main(argv=None) -> int:
     phase_idle(torch, mods, dev, args.n_ops)
     phase_open_loop(torch, mods, dev, apply_ok, propose_ok)
     phase_reconfig(torch, mods, dev, apply_ok, propose_ok)
+    smokes = phase_smokes(torch, mods, dev, apply_ok, propose_ok)
     float_ok = phase_model_kernels(torch, mods, dev)
     # one full-width model resident at a time: each phase frees its own
     zamba_launches = phase_model(
@@ -3256,6 +3600,8 @@ def main(argv=None) -> int:
         torch, mods, dev,
         {**prefill["per_launch_ms"], **rwkv_prefill["per_launch_ms"]}))
     trained = phase_train(torch, mods, dev)
+    examples = phase_examples(torch, mods, dev, apply_ok, propose_ok,
+                              float_ok)
     torch.cuda.synchronize()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -3275,7 +3621,9 @@ def main(argv=None) -> int:
             "max_abs_err": agree.max_abs_err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "train_launches": trained["launches"][name]})
+            "train_launches": trained["launches"][name],
+            "smoke_launches": smokes["launches"][name],
+            "examples_launches": examples["launches"][name]})
     # each float kernel's launches: its model's main path (the f32 prefill)
     model_launches = {"flash_attention": zamba_launches["flash_attention"],
                       "mamba2_ssd": zamba_launches["mamba2_ssd"],
@@ -3311,6 +3659,11 @@ def main(argv=None) -> int:
         "whisper_prefill": zoo["whisper"]["flash_attention"],
         "whisper_decode_step": zoo["whisper_decode"],
         "mixtral_shardmap_prefill": parallel["flash_attention"]}
+    fa["examples_launches"] = {
+        "serve_kvstore_prefill":
+            examples["launches"]["flash_attention"]["serve_kvstore"],
+        "train_fault_tolerant":
+            examples["launches"]["flash_attention"]["train_fault_tolerant"]}
     fa["zoo_bf16_ms"] = {
         k: zoo[f"{k}_prefill"]["per_launch_ms"].get("flash_attention")
         for k in ("mixtral", "qwen2_vl", "whisper")}

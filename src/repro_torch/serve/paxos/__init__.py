@@ -32,11 +32,13 @@ no result.
 
 from repro_torch.core.lanes import ShardMap
 from .bridge import KVBridge, ShardedKVView, SteeringTable
-from .cluster_engine import ClusterEngine, stacks_from_numpy
+from .cluster_engine import ClusterEngine, require_launches, \
+    select_launches, stacks_from_numpy
 from .machine import BatchedMachine
 from .scheduler import DEFAULT_BATCH_TARGET, IngestScheduler, \
     bucket_conflict_free
 
 __all__ = ["BatchedMachine", "ClusterEngine", "DEFAULT_BATCH_TARGET",
            "IngestScheduler", "KVBridge", "ShardMap", "ShardedKVView",
-           "SteeringTable", "bucket_conflict_free", "stacks_from_numpy"]
+           "SteeringTable", "bucket_conflict_free", "require_launches",
+           "select_launches", "stacks_from_numpy"]

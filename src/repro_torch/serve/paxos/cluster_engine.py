@@ -56,6 +56,7 @@ restart, durable KV carried by the shared bridge).
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -407,6 +408,29 @@ def _fused_issuer_step(tab_stack: torch.Tensor, rep_stack: torch.Tensor,
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
+
+SELECT_NETWORKS = ("paxos_apply", "paxos_propose")
+
+
+def select_launches() -> Counter:
+    """The select networks' launch counters (the staged issuer entry
+    counts in ``paxos_propose.launches``); the difference of two readings
+    is the launches between them."""
+    return Counter(paxos_apply=paxos_apply.launches,
+                   paxos_propose=paxos_propose.launches)
+
+
+def require_launches(launched: Counter, device: DeviceLike) -> None:
+    """Raises when a run on a CUDA ``device`` launched a select network
+    no time (``launched``: the difference of two :func:`select_launches`
+    readings).  On the CPU the wrappers run their plain versions and
+    count nothing."""
+    if torch.device(device).type != "cuda":
+        return
+    idle = [k for k in SELECT_NETWORKS if not launched[k]]
+    if idle:
+        raise AssertionError(f"no launch of {', '.join(idle)} on {device}")
+
 
 class ClusterEngine:
     """Owns the cluster's stacked planes and drives fused tick waves.

@@ -1,5 +1,6 @@
 """The port stands alone: it imports with JAX blocked, and no file of it
-(nor chip_smoke.py) imports the JAX package ``repro``."""
+(nor chip_smoke.py, nor the port's drivers ``scripts/torch_*.py`` and
+``examples/torch_*.py``) imports the JAX package ``repro``."""
 
 import ast
 import os
@@ -20,8 +21,15 @@ def _modules():
         yield ".".join(parts)
 
 
+DRIVERS = ("scripts/torch_batched_smoke.py", "scripts/torch_reconfig_smoke.py",
+           "scripts/torch_open_loop_smoke.py", "scripts/torch_trace_report.py",
+           "examples/torch_quickstart.py", "examples/torch_serve_kvstore.py",
+           "examples/torch_train_fault_tolerant.py")
+
+
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + [ROOT / rel for rel in DRIVERS])
 
 
 def test_every_module_imports_with_jax_blocked():
