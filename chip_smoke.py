@@ -102,8 +102,10 @@ Phases (any failure exits nonzero and prints no result):
    ``flash_attention`` at zamba2's, gemma3's local, qwen1.5's ragged,
    Sq < Sk, non-causal and MQA shapes, a window straddling key tiles,
    mixtral's 4096-token window slid past its edge (Sq = Sk = 4608, GQA
-   32/8), qwen2-vl's GQA 64/8 and whisper's cross-attention (Sq = 64 and
-   Sq = 1 against Sk = 1500, non-causal),
+   32/8), qwen2-vl's GQA 64/8, whisper's cross-attention (Sq = 64 and
+   Sq = 1 against Sk = 1500, non-causal) and the dense family's 4096-token
+   prefills (gemma3's global layer at head dim 256, phi3's head dim 96,
+   qwen2.5's GQA 40/8),
    ``mamba2_ssd`` at zamba2's layer, ragged T (T = 65 and 4097 are ragged
    by one step against its 64-step chunks), G = 2 and N = 128,
    ``rwkv6_wkv`` at rwkv6-7b's prefill and the smoke
@@ -157,7 +159,27 @@ Phases (any failure exits nonzero and prints no result):
     teacher-forced decode is printed and not held: the reference's decode
     rotates by RoPE and its prefill does not.  Then ``DecodeEngine``
     generates 16 steps, and the bf16 prefill is timed and profiled.
-17. **The parallel layer** (``[parallel]``): the one-card dry run
+17. **The dense family** (``[dense]``), one model resident at a time.
+    gemma3-12b at full width and depth (48 layers = 8 x (5 local + 1
+    global), head dim 256, GQA 16/8, window 1024, GeGLU, 12,772,028,160
+    float32 parameters).  Gate 1: a prefill of 1 x 2048 tokens through the
+    kernels against the same prefill with ``attention_plain`` (48 launches:
+    40 windowed, 8 global, each counted by shape and window); the first
+    and last unit's local and global calls replayed through the plain
+    version.  Gate 2: the same weights cut to one unit (6 layers), a
+    prefill of 1 x 1152 against the teacher-forced ``decode_step`` loop
+    with caches of 1152 slots, so each local layer's 1024-slot ring wraps
+    128 times.  Then the engine at full depth, and, with the float32
+    weights freed, a bf16 prefill of 1 x 4096 split into attention, the
+    MLP blocks (a profiler range "mlp") and the rest.  phi3-mini-3.8b (head
+    dim 96) and qwen1.5-4b (MHA 20/20, qkv bias) at full depth, and
+    qwen2.5-32b (GQA 40/8) cut to 16 of 64 layers: phase 10's gates (32,
+    40 and 16 launches), then each one's bf16 prefill; qwen2.5's at full
+    depth, 65.5 GB of weights drawn a slice at a time, or cut to the
+    layers that fit the card's free memory (printed with the bytes).  Last,
+    ``flash_attention`` in bf16 at each model's 1 x 4096 shape, gemma3's
+    local and global apart, against its bound and SDPA.
+18. **The parallel layer** (``[parallel]``): the one-card dry run
     (``repro_torch.launch.dryrun``, ``meta`` tensors, no compiler) of all
     34 ``ARCHS`` x ``SHAPES`` cells printed as the roofline table at the
     H100 datasheet's constants; then a one-rank NCCL group (``FileStore``
@@ -172,16 +194,15 @@ Phases (any failure exits nonzero and prints no result):
     full width (d_model 7168, 384 experts top-8 x 2048; 33.8 GB bf16,
     drawn an expert at a time) on 1 x 512 tokens through the shard_map
     path (EP, ``e_local`` = 384) and through ``apply_moe_spmd``: expert
-    choices equal, and equal bits (max |dy| 0) with the combine's bf16
-    sum in a fixed order (``torch.use_deterministic_algorithms`` around
-    the two calls; the atomic default's own run-to-run spread is
-    printed), and both paths' bf16 device ms.  The group is destroyed at
-    the end.
-18. **Timings** of the three float kernels at their prefill shapes, their
+    choices equal, and equal bits (max |dy| 0) between the two paths and
+    between two runs of spmd, in PyTorch's default mode (the combine adds
+    in a fixed order), and both paths' bf16 device ms.  The group is
+    destroyed at the end.
+19. **Timings** of the three float kernels at their prefill shapes, their
     bounds, plain versions and, for attention, one
     ``scaled_dot_product_attention`` call (a yardstick the port never
     calls).
-19. **Training** (``[train]``): zamba2-7b at full width cut to one unit
+20. **Training** (``[train]``): zamba2-7b at full width cut to one unit
     (6 Mamba2 layers and one call of the shared attention block,
     902,732,256 float32 parameters), ``DataConfig(vocab=32000,
     seq_len=1024, batch=2, batches_per_shard=2)``, AdamW, remat on.
@@ -206,7 +227,7 @@ Phases (any failure exits nonzero and prints no result):
     ms a step, the peak memory, each kernel's forward against its
     backward recompute in device time, and the busy share of one profiled
     step.
-20. **The examples** (``[examples]``): ``examples/torch_quickstart.py``
+21. **The examples** (``[examples]``): ``examples/torch_quickstart.py``
     (a 5-replica all-aboard registry over ``BatchedMachine``),
     ``examples/torch_serve_kvstore.py`` (its dense demo model's routes,
     reconfiguration, 12 generated steps and one prefill of the prompts:
@@ -226,12 +247,14 @@ power limit, one JSON object describing the five kernels (with their
 launches in the two training runs, ``train_launches``, for the four on
 that path; for the select networks also ``smoke_launches``, their
 launches in each smoke of phase 8, and ``examples_launches``, in each
-example of phase 20; for ``flash_attention`` also ``zoo_launches``, its
+example of phase 21; for ``flash_attention`` also ``zoo_launches``, its
 launches in the f32 prefills of phases 14-16, in whisper's decode step
-and in phase 17's shard_map prefill, ``zoo_bf16_ms``, its device time a
-call in their bf16 prefills, and ``examples_launches``, its launches in
-serve_kvstore's prefill and in train_fault_tolerant's steps), and
-``{"ok": true, "device": {...}}``.
+and in phase 18's shard_map prefill, ``zoo_bf16_ms``, its device time a
+call in their bf16 prefills, ``dense_launches`` and ``dense_bf16_ms``,
+the same for phase 17, and ``examples_launches``, its launches in
+serve_kvstore's prefill and in train_fault_tolerant's steps; for the
+select networks ``dense_engine_launches``, their launches in each engine
+of phase 17), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1729,6 +1752,9 @@ FA_CASES = [
     ("whisper cross-attention", 2, 20, 20, 64, 1500, 64, False, None),
     ("whisper cross-attention, decode", 2, 20, 20, 1, 1500, 64, False,
      None),
+    ("gemma3-12b global", 1, 16, 8, 4096, 4096, 256, True, None),
+    ("phi3-mini head dim 96", 1, 32, 32, 4096, 4096, 96, True, None),
+    ("qwen2.5-32b GQA 40/8", 1, 40, 8, 4096, 4096, 128, True, None),
 ]
 # (label, B, T, H, P, G, N)
 SSD_CASES = [
@@ -1898,19 +1924,52 @@ def _describe(model) -> str:
             f"{unit}{shared} + {len(model.tail)} tail)")
 
 
-def _model_params(torch, model, dtype, dev, seed, tag):
+def _model_params(torch, model, dtype, dev, seed, tag, mods=None):
+    """``model.init`` from a seeded generator on the card, or, given
+    ``mods``, :func:`_init_sliced` (a slice at a time)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = model.init(gen, dtype, dev)
+    params = (model.init(gen, dtype, dev) if mods is None else
+              _init_sliced(torch, mods, model, gen, dtype, dev))
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
     log(f"[{tag}] {model.cfg.name}: {_describe(model)}, d_model "
         f"{model.cfg.d_model}, {n} parameters, "
         f"{n * params['embed'].element_size() / 1e9:.2f} GB {dtype} on "
         f"{params['embed'].device}, drawn in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s"
+        f"{' a slice at a time' if mods is not None else ''}")
     return params
+
+
+SLICE_BYTES = 1 << 30     # float32 scratch of one sliced draw
+
+
+def _init_sliced(torch, mods, model, gen, dtype, dev):
+    """``model.init``'s tree with every normal leaf drawn in float32 a
+    slice of its first axis at a time (SLICE_BYTES at most, then cast), so
+    the float32 scratch is a layer's, not a stacked leaf's:
+    ``Init.normal`` draws qwen2.5-32b's ``w_gate`` [64, 5120, 27648] whole,
+    36.2 GB in float32.  Ones and zeros as ``Init`` makes them."""
+
+    class SlicedInit(mods.Init):
+        def normal(self, shape, *, std=0.02):
+            out = torch.empty(tuple(shape), dtype=self.dtype,
+                              device=self.device)
+            step = max(1, SLICE_BYTES // (4 * max(1, out[0].numel())))
+            for i in range(0, len(out), step):
+                blk = out[i:i + step]
+                blk.copy_(torch.randn(blk.shape, generator=self.generator,
+                                      device=self.device).mul_(std))
+            return out
+
+    plain = mods.lm.Init
+    mods.lm.Init = SlicedInit
+    try:
+        return model.init(gen, dtype, dev)
+    finally:
+        mods.lm.Init = plain
 
 
 def _leaves(tree):
@@ -1976,12 +2035,30 @@ def _prefill_counted(torch, mods, model, params, args, recorders=None):
     return logits, launches
 
 
-def phase_model(torch, mods, dev, name, keep, agree):
-    """Full-width ``name`` in float32: prefill (the float kernels' main
-    path, through recorders keeping the calls ``keep[kernel]``) against
-    its teacher-forced decode, then the Paxos-routed engine."""
+def replay_recorded(mods, recs, keep, agree, tag="kernels"):
+    """Each call that ``recs[kernel]`` kept, replayed through the kernel's
+    plain version on the same inputs (float32 tolerance, relative)."""
+    for k, rec in recs.items():
+        for i, ins, kw, outs in rec.samples:
+            extra = f" window={kw['window']}" if "window" in kw else ""
+            agree[k].add(outs[0], _plain(mods, k)(*ins, **kw),
+                         FLOAT_TOL["float32"],
+                         f"recorded prefill {k} call {i} "
+                         f"{tuple(ins[0].shape)}{extra}", relative=True,
+                         tag=tag)
+        if len(rec.samples) != len(keep[k]):
+            raise AssertionError(f"{k}: recorded {len(rec.samples)} calls, "
+                                 f"expected {len(keep[k])}")
+
+
+def phase_model(torch, mods, dev, name, keep, agree, cfg=None):
+    """Full-width ``name`` in float32 (``cfg``, a depth cut, if given):
+    prefill (the float kernels' main path, through recorders keeping the
+    calls ``keep[kernel]``) against its teacher-forced decode, then the
+    Paxos-routed engine -> (the prefill's launches, the engine's select
+    network launches)."""
     tag = name.split("-")[0]
-    cfg = mods.ARCHS[name]
+    cfg = cfg or mods.ARCHS[name]
     model = mods.build_model(cfg)
     params = _model_params(torch, model, torch.float32, dev, 0, tag)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -2002,15 +2079,7 @@ def phase_model(torch, mods, dev, name, keep, agree):
                              f"not finite [{PROMPT_BATCH}, {cfg.vocab}]")
 
     # recorded prefill calls replayed through the plain versions
-    for k, rec in recs.items():
-        for i, ins, kw, outs in rec.samples:
-            agree[k].add(outs[0], _plain(mods, k)(*ins, **kw),
-                         FLOAT_TOL["float32"],
-                         f"recorded prefill {k} call {i} "
-                         f"{tuple(ins[0].shape)}", relative=True)
-        if len(rec.samples) != len(keep[k]):
-            raise AssertionError(f"{k}: recorded {len(rec.samples)} calls, "
-                                 f"expected {len(keep[k])}")
+    replay_recorded(mods, recs, keep, agree)
     del recs
 
     # teacher-forced decode over the same tokens: kernel-free, plain torch
@@ -2046,16 +2115,17 @@ def phase_model(torch, mods, dev, name, keep, agree):
         raise AssertionError("prefill and teacher-forced decode disagree")
     del caches, dec
 
-    phase_engine(torch, mods, dev, tag, model, params, GEN_STEPS)
+    paxos = phase_engine(torch, mods, dev, tag, model, params, GEN_STEPS)
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, paxos
 
 
 def phase_engine(torch, mods, dev, tag, model, params, steps):
     """``DecodeEngine`` routes GEN_SESSIONS sessions through
     ``PaxosRegistry`` over ``BatchedMachine`` (sticky across two engines),
-    then generates ``steps`` tokens for each."""
+    then generates ``steps`` tokens for each -> the routes' select network
+    launches (both must launch)."""
     cfg = model.cfg
     mods.apply_ops.paxos_apply.launches = 0
     mods.propose_ops.paxos_propose.launches = 0
@@ -2092,6 +2162,10 @@ def phase_engine(torch, mods, dev, tag, model, params, steps):
         f"generate {GEN_SESSIONS} sessions (prompts "
         f"{[len(p) for p in prompts]} tokens) x {steps} steps in "
         f"{t_gen:.2f} s; first row {out[0].tolist()}")
+    if not all(paxos.values()):
+        raise AssertionError(f"{tag}: the engine's routes launched "
+                             f"{paxos}; both select networks must launch")
+    return paxos
 
 
 def _kernel_group(key: str) -> str:
@@ -2124,15 +2198,17 @@ def _range_device_ms(rows, label):
 
 
 def phase_prefill_bf16(torch, mods, dev, name, cfg=None, make_args=None,
-                       ranges=()):
+                       ranges=(), sliced=False):
     """bfloat16 prefill of ``name`` (``cfg``, a depth cut, if given) at
     1 x PREFILL_SEQ tokens, or on ``make_args(cfg, generator) -> (args,
     description)``: wall time, peak memory, one profiled pass, its float
     kernels' device time per launch, and the device time inside each of
-    the model's profiler ``ranges``."""
+    the model's profiler ``ranges``.  ``sliced`` draws the weights a
+    slice at a time (:func:`_init_sliced`)."""
     cfg = cfg or mods.ARCHS[name]
     model = mods.build_model(cfg)
-    params = _model_params(torch, model, torch.bfloat16, dev, 0, "prefill")
+    params = _model_params(torch, model, torch.bfloat16, dev, 0, "prefill",
+                           mods if sliced else None)
     gen = torch.Generator(device=dev).manual_seed(3)
     if make_args is None:
         args = (torch.randint(1, cfg.vocab, (1, PREFILL_SEQ), generator=gen,
@@ -2197,9 +2273,14 @@ def phase_prefill_bf16(torch, mods, dev, name, cfg=None, make_args=None,
     if ranges and None not in in_ranges.values():
         rest = dev_ms - sum(in_ranges.values()) - sum(
             groups.get(f"{k}_kernel", (0.0, 0))[0] for k in FLOAT_KERNELS)
-        log(f"[prefill]   outside the ranges and the float kernels "
-            f"(projections, norms, elementwise passes): {rest:.3f} ms "
-            f"({rest / dev_ms:.3f} of device time)")
+        if rest < 0:     # the ranges hold more than the kernels outside them
+            log(f"[prefill]   the ranges' device time exceeds the rest's by "
+                f"{-rest:.3f} ms: the profiler lost or misattributed kernel "
+                f"records in this pass, so the split is not measured")
+        else:
+            log(f"[prefill]   outside the ranges and the float kernels "
+                f"(projections, norms, elementwise passes): {rest:.3f} ms "
+                f"({rest / dev_ms:.3f} of device time)")
     del params, logits
     torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, device_ms=dev_ms, launches=launches,
@@ -2287,11 +2368,14 @@ def hold_logits(tag, what, got, want, tol=MODEL_TOL):
     return err / scale
 
 
-def kernel_vs_plain_prefill(torch, mods, tag, model, params, args, what):
-    """The prefill through the kernels (the main path: counts from 0) held
-    to the same prefill with ``attention_plain`` on the card."""
+def kernel_vs_plain_prefill(torch, mods, tag, model, params, args, what,
+                            recorders=None):
+    """The prefill through the kernels (the main path: counts from 0,
+    through ``recorders`` if given) held to the same prefill with
+    ``attention_plain`` on the card."""
     t0 = time.perf_counter()
-    logits, launches = _prefill_counted(torch, mods, model, params, args)
+    logits, launches = _prefill_counted(torch, mods, model, params, args,
+                                        recorders)
     t_kernel = time.perf_counter() - t0
     mods.fa_ops.flash_attention.launches = 0
     t0 = time.perf_counter()
@@ -2554,6 +2638,232 @@ def phase_zoo(torch, mods, dev):
 
 
 # ---------------------------------------------------------------------------
+# [dense]: the dense family whole on the card
+# ---------------------------------------------------------------------------
+
+GEMMA3 = "gemma3-12b"     # 48 layers = 8 x (5 local + 1 global), 51.1 GB
+GEMMA3_SEQ = 2048         # gate 1: two 1024-token windows
+GEMMA3_RING_SEQ = 1152    # gate 2: each 1024-slot ring wraps 128 times
+PHI3 = "phi3-mini-3.8b"   # head dim 96
+QWEN15 = "qwen1.5-4b"     # MHA 20/20 with qkv bias
+QWEN25 = "qwen2.5-32b"    # GQA 40/8
+QWEN25_F32_LAYERS = 16    # of 64: 9,358,824,448 float32 parameters, 37.4 GB
+# room a bf16 prefill of 1 x PREFILL_SEQ needs beside its weights (qwen2.5:
+# three [4096, 27648] MLP activations are 0.68 GB)
+BF16_HEADROOM = 4e9
+
+
+class CallTally:
+    """Wraps ``flash_attention``: counts its calls by (q shape, k shape,
+    window)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, collections.Counter()
+
+    def __call__(self, q, k, v, **kw):
+        self.calls[(tuple(q.shape), tuple(k.shape), kw.get("window"))] += 1
+        return self.fn(q, k, v, **kw)
+
+
+@contextlib.contextmanager
+def mlp_range(mods):
+    """Each layer's MLP block (its norm, three products and gated
+    activation) inside the profiler range "mlp"."""
+    from torch.profiler import record_function
+
+    inner = mods.lm.apply_mlp
+
+    def ranged(*args, **kw):
+        with record_function("mlp"):
+            return inner(*args, **kw)
+
+    mods.lm.apply_mlp = ranged
+    try:
+        yield
+    finally:
+        mods.lm.apply_mlp = inner
+
+
+def _head(tree, n):
+    """The first ``n`` layers of a parameter tree stacked over layers, as
+    views."""
+    if isinstance(tree, dict):
+        return {k: _head(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def phase_gemma3(torch, mods, dev, agree):
+    """gemma3-12b at full width and depth, float32: gate 1 (kernels against
+    plain past two windows), gate 2 (one unit's rings wrapped, prefill
+    against the teacher-forced decode), the engine -> (launches of each
+    prefill, the engine's select network launches)."""
+    tag = "gemma3"
+    cfg = mods.ARCHS[GEMMA3]
+    model = mods.build_model(cfg)
+    n_unit = len(model.unit)
+    if model.unit != ["local"] * cfg.local_ratio + ["global"] or model.tail:
+        raise AssertionError(f"{tag}: layers {model.unit} x {model.repeats} "
+                             f"+ {model.tail}")
+    params = _model_params(torch, model, torch.float32, dev, 0, tag)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    tokens = torch.randint(1, cfg.vocab, (1, GEMMA3_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    # gate 1: the first unit's local and global calls and the last unit's
+    keep = {"flash_attention": (0, n_unit - 1, cfg.n_layers - n_unit,
+                                cfg.n_layers - 1)}
+    tally = CallTally(mods.fa_ops.flash_attention)
+    recs = {"flash_attention": Recorder(torch, tally,
+                                        keep["flash_attention"])}
+    logits, launches = kernel_vs_plain_prefill(
+        torch, mods, tag, model, params, (tokens,),
+        f"1 x {GEMMA3_SEQ} tokens, window {cfg.window}", recorders=recs)
+    q = (1, cfg.n_heads, GEMMA3_SEQ, cfg.hd)
+    kv = (1, cfg.n_kv_heads, GEMMA3_SEQ, cfg.hd)
+    n_local = model.repeats * cfg.local_ratio
+    want = {(q, kv, cfg.window): n_local, (q, kv, None): model.repeats}
+    log(f"[{tag}] flash_attention calls by (q, k, window): "
+        f"{[(k, n) for k, n in tally.calls.items()]}")
+    if dict(tally.calls) != want:
+        raise AssertionError(f"{tag}: calls {dict(tally.calls)}, expected "
+                             f"{want}")
+    replay_recorded(mods, recs, keep, agree, tag=tag)
+    del recs, tally, logits
+
+    # gate 2: one unit of the same weights, rings wrapped
+    unit_model = mods.build_model(_cut(mods, GEMMA3, n_unit))
+    unit_params = dict(params, units=tuple(_head(u, 1)
+                                           for u in params["units"]))
+    specs = unit_model.cache_specs(1, GEMMA3_RING_SEQ, torch.float32)
+    smax = [u["k"][0][3] for u in specs["units"]]
+    if smax != [cfg.window] * cfg.local_ratio + [GEMMA3_RING_SEQ]:
+        raise AssertionError(f"{tag}: cache slots {smax}")
+    short = tokens[:, :GEMMA3_RING_SEQ]
+    t0 = time.perf_counter()
+    unit_logits, unit_launches = _prefill_counted(torch, mods, unit_model,
+                                                  unit_params, (short,))
+    log(f"[{tag}] one unit ({n_unit} layers, "
+        f"{sum(t.numel() for t in _leaves(unit_params))} parameters, the "
+        f"first repeat's weights): prefill of 1 x {GEMMA3_RING_SEQ} tokens "
+        f"{json.dumps(unit_launches)} in {time.perf_counter() - t0:.3f} s; "
+        f"cache slots {smax}: each local ring wraps "
+        f"{GEMMA3_RING_SEQ - cfg.window} tokens past its window")
+    prefill_vs_decode(torch, tag, unit_model, unit_params, short,
+                      unit_logits, dev)
+    del unit_params, unit_logits
+
+    paxos = phase_engine(torch, mods, dev, tag, model, params, GEN_STEPS)
+    del params
+    torch.cuda.empty_cache()
+    return ({"gemma3_prefill": launches["flash_attention"],
+             "gemma3_unit_prefill": unit_launches["flash_attention"]},
+            paxos)
+
+
+def _fits_bf16(torch, mods, name, tag):
+    """``name``'s config at full depth, or cut to the layers whose bf16
+    weights fit the card's free memory with BF16_HEADROOM beside them
+    (the cut and the bytes that forced it printed)."""
+    cfg = mods.ARCHS[name]
+    shapes = mods.build_model(cfg).param_shapes(torch.bfloat16)
+    total = sum(t.numel() * 2 for t in _leaves(shapes))
+    layer = sum(t[0].numel() * 2 for u in shapes["units"]
+                for t in _leaves(u))
+    free = torch.cuda.mem_get_info()[0]
+    if total + BF16_HEADROOM <= free:
+        log(f"[{tag}] {name} bf16 at full depth: {total / 1e9:.2f} GB of "
+            f"weights, {free / 1e9:.2f} GB free")
+        return cfg
+    n = int((free - BF16_HEADROOM - (total - cfg.n_layers * layer)) // layer)
+    if n < 1:
+        raise AssertionError(f"{tag}: not one layer of {name} fits "
+                             f"{free / 1e9:.2f} GB free")
+    log(f"[{tag}] {name} bf16 cut to {n} of {cfg.n_layers} layers: "
+        f"{total / 1e9:.2f} GB of weights at full depth, "
+        f"{free / 1e9:.2f} GB free, {BF16_HEADROOM / 1e9:.1f} GB kept for "
+        f"the prefill")
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+def dense_kernel_times(torch, mods, dev):
+    """``flash_attention`` in bf16 at the dense models' 1 x PREFILL_SEQ
+    prefill shapes (CUDA events, median of 10): gemma3's local and global
+    layers apart, which its prefill's profile cannot tell apart, with the
+    bound from ``fa_visible_pairs`` and SDPA where no window applies."""
+    F = torch.nn.functional
+    s = PREFILL_SEQ
+    cases = [("gemma3-12b local", 16, 8, 256, 1024),
+             ("gemma3-12b global", 16, 8, 256, None),
+             ("phi3-mini-3.8b", 32, 32, 96, None),
+             ("qwen1.5-4b", 20, 20, 128, None),
+             ("qwen2.5-32b", 40, 8, 128, None)]
+    out = {}
+    for i, (label, hq, hkv, d, window) in enumerate(cases):
+        (q, k, v), kw = fa_inputs(torch, (label, 1, hq, hkv, s, s, d, True,
+                                          window), torch.bfloat16, 70 + i,
+                                  dev)
+        ms = cuda_ms(torch, lambda: mods.fa_ops.flash_attention(q, k, v,
+                                                                **kw), 10)
+        lib = None
+        if window is None:
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=hq != hkv), 10)
+        flops = 4 * d * fa_visible_pairs(s, s, True, window) * hq
+        nbytes = (2 * hq + 2 * hkv) * s * d * 2
+        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        out[label] = dict(ms=ms, bound_ms=bound, library_ms=lib)
+        log(f"[dense] flash_attention bf16 {label} (1, {hq}/{hkv}, {s}, "
+            f"{d}) window {window}: {ms:.6f} ms a call (cuda events), bound "
+            f"{bound:.6f} ms ({flops} flop at 989 TFLOP/s), "
+            f"{ms / bound:.2f}x the bound; SDPA "
+            f"{'none (a window)' if lib is None else f'{lib:.6f} ms'}")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense(torch, mods, dev, agree):
+    """[dense]: gemma3-12b, phi3-mini-3.8b, qwen1.5-4b and qwen2.5-32b at
+    full width, each through the zoo's gates in float32, then its bf16
+    prefill at 1 x PREFILL_SEQ; one model resident at a time."""
+    t_phase = time.perf_counter()
+    launches, engines, bf16 = {}, {}, {}
+
+    def prefill_bf16(name, cfg=None, sliced=False):
+        with mlp_range(mods):
+            r = phase_prefill_bf16(torch, mods, dev, name, cfg=cfg,
+                                   ranges=("mlp",), sliced=sliced)
+        if r["device_ms"] <= 0:
+            raise AssertionError(f"{name}: no device time in its prefill")
+        bf16[name] = r
+
+    t0 = time.perf_counter()
+    gemma, engines[GEMMA3] = phase_gemma3(torch, mods, dev, agree)
+    launches.update(gemma)
+    prefill_bf16(GEMMA3)
+    log(f"[gemma3] phase {time.perf_counter() - t0:.1f} s")
+    for name, cfg in ((PHI3, None), (QWEN15, None),
+                      (QWEN25, _cut(mods, QWEN25, QWEN25_F32_LAYERS))):
+        tag = name.split("-")[0]
+        t0 = time.perf_counter()
+        n = (cfg or mods.ARCHS[name]).n_layers
+        got, engines[name] = phase_model(
+            torch, mods, dev, name, {"flash_attention": (0, n // 2, n - 1)},
+            agree, cfg=cfg)
+        launches[f"{tag}_prefill"] = got["flash_attention"]
+        if name == QWEN25:   # 65.5 GB of bf16 weights at full depth
+            prefill_bf16(name, cfg=_fits_bf16(torch, mods, name, tag),
+                         sliced=True)
+        else:
+            prefill_bf16(name)
+        log(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+    times = dense_kernel_times(torch, mods, dev)
+    log(f"[dense] flash_attention launches {json.dumps(launches)}; engines' "
+        f"select network launches {json.dumps(engines)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, engines=engines, bf16=bf16, times=times)
+
+
+# ---------------------------------------------------------------------------
 # [parallel]: the parallel layer over a one-rank NCCL group
 # ---------------------------------------------------------------------------
 
@@ -2712,36 +3022,29 @@ def _parallel_kimi(torch, mods, dev, mesh, tag):
         f"{time.perf_counter() - t1:.2f} s (peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
     before = blocks.apply_moe_shardmap.all_reduces
-    # the two paths compared with a fixed order of the combine's bf16 sum:
-    # by default index_add adds a token's 8 terms by atomics in no fixed
-    # order, which alone moves an output by 1-3 bf16 ulps between two runs
-    # of one path (measured below as "run again")
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with recorded_routes(mods) as r_sm, mods.use_mesh(mesh):
-            y_sm, aux_sm = blocks.apply_moe(cfg, p, x)
-        with recorded_routes(mods) as r_spmd:
-            y_spmd, aux_spmd = blocks.apply_moe_spmd(cfg, p, x)
-        torch.cuda.synchronize()
-    finally:
-        torch.use_deterministic_algorithms(False)
+    # the combine adds a token's 8 terms in a fixed order
+    # (blocks.combine_in_order), so both paths, and one path run twice,
+    # give the same bits in PyTorch's default (non-deterministic) mode
+    with recorded_routes(mods) as r_sm, mods.use_mesh(mesh):
+        y_sm, aux_sm = blocks.apply_moe(cfg, p, x)
+    with recorded_routes(mods) as r_spmd:
+        y_spmd, aux_spmd = blocks.apply_moe_spmd(cfg, p, x)
     y_again, _ = blocks.apply_moe_spmd(cfg, p, x)
-    y_again2, _ = blocks.apply_moe_spmd(cfg, p, x)
     torch.cuda.synchronize()
     if blocks.apply_moe_shardmap.all_reduces - before != 1:
         raise AssertionError(f"{tag}: {KIMI}'s block ran no all-reduce")
     _same_routes(tag, KIMI, r_sm, r_spmd, 1)
     scale = float(y_spmd.float().abs().max())
     err = float((y_sm.float() - y_spmd.float()).abs().max())
-    again = float((y_again.float() - y_again2.float()).abs().max())
-    log(f"[{tag}] {KIMI} 1 x {KIMI_TOKENS} tokens, bf16, combine in a fixed "
-        f"order: max |dy| {err:.3e}, relative {err / scale:.3e} (must be 0: "
-        f"the same terms summed in one order); spmd against itself run "
-        f"again with the atomic "
-        f"combine {again:.3e}; aux "
+    again = float((y_again.float() - y_spmd.float()).abs().max())
+    log(f"[{tag}] {KIMI} 1 x {KIMI_TOKENS} tokens, bf16, deterministic "
+        f"mode {torch.are_deterministic_algorithms_enabled()}: shard_map "
+        f"against spmd max |dy| {err:.3e}, relative {err / scale:.3e}; spmd "
+        f"against itself run again {again:.3e} (both must be 0); aux "
         f"{float(aux_sm):.6f} / {float(aux_spmd):.6f}")
-    if not (bool(y_sm.isfinite().all()) and err == 0):
-        raise AssertionError(f"{tag}: {KIMI}'s shard_map block disagrees")
+    if not (bool(y_sm.isfinite().all()) and err == 0 and again == 0):
+        raise AssertionError(f"{tag}: {KIMI}'s block does not give equal "
+                             f"bits")
 
     def sm():
         with mods.use_mesh(mesh):
@@ -2756,7 +3059,13 @@ def _parallel_kimi(torch, mods, dev, mesh, tag):
         f"{ms_spmd:.3f}; weights {n * 2 / 1e9:.2f} GB at 3.35 TB/s = "
         f"{n * 2 / 3.35e12 * 1e3:.3f} ms; peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    del p, x, y_sm, y_spmd, y_again, y_again2
+    rows, _ = profile_device(torch,
+                             lambda: blocks.apply_moe_spmd(cfg, p, x))
+    split = ", ".join(
+        f"{r} " + ("not measured" if v is None else f"{v:.3f}")
+        for r, v in ((r, _range_device_ms(rows, r)) for r in MOE_RANGES))
+    log(f"[{tag}] {KIMI} spmd block, device ms by profiler range: {split}")
+    del p, x, y_sm, y_spmd, y_again
     torch.cuda.empty_cache()
 
 
@@ -3505,6 +3814,8 @@ def load_modules():
     from repro_torch.launch import dryrun, roofline
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import blocks
+    from repro_torch.models import lm
+    from repro_torch.models.common import Init
     from repro_torch.models.registry import build_model, input_specs
     from repro_torch.obs import FlightRecorder, flight_guard
     from repro_torch.optim.adamw import AdamWConfig
@@ -3527,7 +3838,7 @@ def load_modules():
         BatchedMachine=BatchedMachine, cluster_engine=cluster_engine,
         select_launches=select_launches, require_launches=require_launches,
         np=np, pv=pv, ARCHS=ARCHS, PaxosRegistry=PaxosRegistry,
-        blocks=blocks,
+        blocks=blocks, lm=lm, Init=Init,
         build_model=build_model, input_specs=input_specs, Shape=Shape,
         fa_ops=fa_ops, ssd_ops=ssd_ops,
         wkv_ops=wkv_ops, DecodeEngine=DecodeEngine, ServeConfig=ServeConfig,
@@ -3587,14 +3898,15 @@ def main(argv=None) -> int:
     smokes = phase_smokes(torch, mods, dev, apply_ok, propose_ok)
     float_ok = phase_model_kernels(torch, mods, dev)
     # one full-width model resident at a time: each phase frees its own
-    zamba_launches = phase_model(
+    zamba_launches, _ = phase_model(
         torch, mods, dev, ZAMBA,
         {"flash_attention": (0, 6, 12), "mamba2_ssd": (0, 40, 80)}, float_ok)
     prefill = phase_prefill_bf16(torch, mods, dev, ZAMBA)
-    rwkv_launches = phase_model(torch, mods, dev, RWKV,
-                                {"rwkv6_wkv": (0, 15, 31)}, float_ok)
+    rwkv_launches, _ = phase_model(torch, mods, dev, RWKV,
+                                   {"rwkv6_wkv": (0, 15, 31)}, float_ok)
     rwkv_prefill = phase_prefill_bf16(torch, mods, dev, RWKV)
     zoo = phase_zoo(torch, mods, dev)
+    dense = phase_dense(torch, mods, dev, float_ok)
     parallel = phase_parallel(torch, mods, dev)
     times.update(phase_model_timings(
         torch, mods, dev,
@@ -3623,7 +3935,9 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": None,
             "train_launches": trained["launches"][name],
             "smoke_launches": smokes["launches"][name],
-            "examples_launches": examples["launches"][name]})
+            "examples_launches": examples["launches"][name],
+            "dense_engine_launches": {
+                m: dense["engines"][m][name] for m in dense["engines"]}})
     # each float kernel's launches: its model's main path (the f32 prefill)
     model_launches = {"flash_attention": zamba_launches["flash_attention"],
                       "mamba2_ssd": zamba_launches["mamba2_ssd"],
@@ -3667,6 +3981,13 @@ def main(argv=None) -> int:
     fa["zoo_bf16_ms"] = {
         k: zoo[f"{k}_prefill"]["per_launch_ms"].get("flash_attention")
         for k in ("mixtral", "qwen2_vl", "whisper")}
+    # the dense family's paths: each f32 prefill run from 0 (gemma3's and
+    # its one-unit cut's, phi3's, qwen1.5's, qwen2.5's at its cut), and the
+    # kernel's device time a call in each bf16 prefill
+    fa["dense_launches"] = dense["launches"]
+    fa["dense_bf16_ms"] = {
+        m: r["per_launch_ms"].get("flash_attention")
+        for m, r in dense["bf16"].items()}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

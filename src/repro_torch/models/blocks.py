@@ -386,7 +386,8 @@ def _moe_local_compute(cfg: ModelConfig, p_local, h: torch.Tensor,
     other rank's assignment, and is cut off), run through the experts as
     batched products, read back with a zero row padded on at slot C (so
     an assignment without a slot contributes 0), and combined by a
-    weighted scatter-add over tokens.  The capacity C comes from the local
+    weighted scatter-add over tokens in the reference's order
+    (:func:`combine_in_order`).  The capacity C comes from the local
     token count t."""
     t, d = h.shape
     k = cfg.top_k
@@ -409,9 +410,27 @@ def _moe_local_compute(cfg: ModelConfig, p_local, h: torch.Tensor,
         y_e = F.pad(y_e, (0, 0, 0, 1))                     # slot C reads 0
         gathered = y_e[ex, r.pos]                          # [t*k, d]
         w_sorted = r.gate_w.reshape(-1)[r.order].to(h.dtype)
-        out = h.new_zeros((t, d)).index_add(0, src,
-                                            w_sorted[:, None] * gathered)
+        out = combine_in_order(w_sorted[:, None] * gathered, src, t, k)
     return out, r.aux
+
+
+def combine_in_order(terms: torch.Tensor, src: torch.Tensor, t: int,
+                     k: int) -> torch.Tensor:
+    """``zeros((t, d)).at[src].add(terms)`` as the reference's scatter
+    computes it: each token's k terms added one at a time, in the order
+    they come in ``terms``, rounding to ``terms``' dtype after every add.
+
+    ``src`` [t*k] names each term's token, every token exactly k times.
+    A stable sort gives each token its k term positions in order; then k
+    gathers and k adds.  The order is fixed on every device, so the sum is
+    the same bits run after run (``index_add`` sums by atomics on a card
+    and in float32 on the CPU); each gather's backward scatters to
+    distinct rows."""
+    perm = torch.argsort(src, stable=True).reshape(t, k)
+    out = terms.new_zeros((t, terms.shape[1]))
+    for j in range(k):
+        out = out + terms[perm[:, j]]
+    return out
 
 
 def apply_moe_shardmap(cfg: ModelConfig, p, x: torch.Tensor, mesh):
