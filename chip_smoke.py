@@ -105,7 +105,7 @@ Phases (any failure exits nonzero and prints no result):
    32/8), qwen2-vl's GQA 64/8, whisper's cross-attention (Sq = 64 and
    Sq = 1 against Sk = 1500, non-causal) and the dense family's 4096-token
    prefills (gemma3's global layer at head dim 256, phi3's head dim 96,
-   qwen2.5's GQA 40/8),
+   qwen2.5's GQA 40/8) and kimi-k2's (GQA 64/8, head dim 112),
    ``mamba2_ssd`` at zamba2's layer, ragged T (T = 65 and 4097 are ragged
    by one step against its 64-step chunks), G = 2 and N = 128,
    ``rwkv6_wkv`` at rwkv6-7b's prefill and the smoke
@@ -201,7 +201,10 @@ Phases (any failure exits nonzero and prints no result):
 19. **Timings** of the three float kernels at their prefill shapes, their
     bounds, plain versions and, for attention, one
     ``scaled_dot_product_attention`` call (a yardstick the port never
-    calls).
+    calls); then attention in bf16 at the zoo's shapes (qwen2-vl's, each
+    of whisper's four, mixtral's window 4096, kimi-k2's) against its bound
+    and SDPA (with a boolean band mask where a window applies, held to
+    the kernel's output).
 20. **Training** (``[train]``): zamba2-7b at full width cut to one unit
     (6 Mamba2 layers and one call of the shared attention block,
     902,732,256 float32 parameters), ``DataConfig(vocab=32000,
@@ -209,25 +212,55 @@ Phases (any failure exits nonzero and prints no result):
     Gate 1: ``train_loss`` through the kernels at step 0's parameters on
     the first batch's 2 x 256 tokens equals the mean next-token NLL of the
     teacher-forced ``decode_step`` loop (plain PyTorch) within 1e-4
-    relative.  Gate 2: each float kernel's ``autograd.Function`` (the
-    kernel forward, the plain recompute backward) against autograd
-    through the plain version with the same upstream gradient: attention
-    at (2, 32, 1024, 112) causal and a GQA + window case, the SSD at (2,
-    1024, 112, 64, G=1, N=64), the WKV at (2, 64, 1024, 64); forwards
-    within the kernels' tolerances, every input's gradient within 1e-5
-    relative, one launch a forward.  Gate 3: ``train`` for 4 steps
-    (checkpoints at 2 and 4) over ``PaxosRegistry(n_machines=5,
-    machine_cls=BatchedMachine)``, registry replica 4 crashed, a new
-    ``train`` to step 8: it resumes at 4 from a state equal bit for bit
-    to the one saved, the registry commits 8, the shard cursor equals the
-    shards consumed, every loss and grad norm is finite, steps 7-8 end
-    below steps 1-2, every step launches 2 flash-attention and 12 SSD
-    kernels (forward and remat recompute), the Paxos kernels launch, and
-    a membership change mid-run reaches ``on_membership``.  Prints the
-    ms a step, the peak memory, each kernel's forward against its
-    backward recompute in device time, and the busy share of one profiled
-    step.
-21. **The examples** (``[examples]``): ``examples/torch_quickstart.py``
+    relative, with one launch of each kernel a layer that holds it.  Gate
+    2: each float kernel's ``autograd.Function`` (the kernel forward, the
+    plain recompute backward) against autograd through the plain version
+    with the same upstream gradient: attention at (2, 32, 1024, 112)
+    causal, a GQA + window case, whisper's encoder (2, 20, 1500, 64) and
+    cross-attention (Sq 64, Sk 1500), both non-causal, and mixtral's (2,
+    32/8, 1024, 128, window 4096), the SSD at (2, 1024, 112, 64, G=1,
+    N=64), the WKV at (2, 64, 1024, 64); forwards within the kernels'
+    tolerances, every input's gradient within 1e-5 relative, one launch a
+    forward.  Gate 3: ``train`` for 4 steps (a checkpoint at 4) over
+    ``PaxosRegistry(n_machines=5, machine_cls=BatchedMachine)``, registry
+    replica 4 crashed, a new ``train`` to step 8: it resumes at 4 from a
+    state equal bit for bit to the one saved, the registry commits 8, the
+    shard cursor equals the shards consumed, every loss and grad norm is
+    finite, steps 7-8 end below steps 1-2, every step launches 2
+    flash-attention and 12 SSD kernels (forward and remat recompute), the
+    Paxos kernels launch, and a membership change at run 2's checkpoint
+    (step 8) reaches ``on_membership``.  Prints the ms a step, the peak
+    memory, each kernel's forward against its backward recompute in
+    device time, and the busy share of one profiled step.
+21. **rwkv6-7b trained** (``[train_rwkv6]``, ``phase_train`` again): full
+    width cut to 4 of 32 layers (1,410,535,424 float32 parameters),
+    65536-token vocabulary, 2 x 1024 tokens a step.  Gate 1 as phase 20's
+    (4 WKV launches, no attention or SSD); gate 2: the loss and every
+    parameter leaf's gradient of ``train_loss`` through the kernel
+    against the same with ``wkv6_plain`` swapped in (loss within 1e-5
+    relative, each leaf within 1e-4 of its max |g|; 4 launches a forward,
+    8 with the remat recompute); gate 3 as phase 20's (checkpoints of
+    16.9 GB) with 8 WKV launches a step.
+22. **The zoo's train steps** (``[train_zoo]``): mixtral-8x7b at 2 of 32
+    layers (2 x 1024 tokens) and whisper-large-v3 whole (2 x 1500 frames,
+    2 x 64 tokens), float32: the loss and every leaf's gradient through
+    the kernels against the same with ``attention_plain`` (phase 21's
+    tolerances; 2 and 96 launches a forward, twice that with the remat
+    recompute; mixtral's expert choices and drops equal), then three
+    ``make_train_step`` AdamW steps on the same batch with the loss
+    falling.
+23. **kimi-k2-1t-a32b** (``[kimi]``) at full width (d_model 7168, 384
+    experts top-8 x 2048, 64/8 heads x 112): the memory earlier phases
+    left is released and printed; in float32 cut to 1 of 61 layers
+    (19,378,623,488 parameters, 77.51 GB, drawn a slice at a time) a
+    prefill of 1 x 1024 through the kernel against ``attention_plain``
+    (1 launch, expert choices equal), at capacity factor 8 (nothing
+    drops, the count printed) a prefill of 1 x 256 against the
+    teacher-forced decode, and the engine (31 ``paxos_apply`` and 65
+    ``paxos_propose`` launches); then in bf16 cut to 2 layers (72.82 GB)
+    a prefill of 1 x 4096 at the published capacity factor, split by the
+    ``moe.*`` ranges.
+24. **The examples** (``[examples]``): ``examples/torch_quickstart.py``
     (a 5-replica all-aboard registry over ``BatchedMachine``),
     ``examples/torch_serve_kvstore.py`` (its dense demo model's routes,
     reconfiguration, 12 generated steps and one prefill of the prompts:
@@ -244,17 +277,22 @@ Phases (any failure exits nonzero and prints no result):
 
 The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, one JSON object describing the five kernels (with their
-launches in the two training runs, ``train_launches``, for the four on
-that path; for the select networks also ``smoke_launches``, their
-launches in each smoke of phase 8, and ``examples_launches``, in each
-example of phase 21; for ``flash_attention`` also ``zoo_launches``, its
-launches in the f32 prefills of phases 14-16, in whisper's decode step
-and in phase 18's shard_map prefill, ``zoo_bf16_ms``, its device time a
-call in their bf16 prefills, ``dense_launches`` and ``dense_bf16_ms``,
-the same for phase 17, and ``examples_launches``, its launches in
-serve_kvstore's prefill and in train_fault_tolerant's steps; for the
-select networks ``dense_engine_launches``, their launches in each engine
-of phase 17), and ``{"ok": true, "device": {...}}``.
+launches in zamba2's two training runs, ``train_launches``, for the four
+on that path, and in rwkv6's, ``train_rwkv6_launches``, for the three on
+its; for the select networks also ``smoke_launches``, their launches in
+each smoke of phase 8, ``examples_launches``, in each example of phase
+24, and ``kimi_engine_launches``, in phase 23's engine; for
+``flash_attention`` also ``zoo_launches``, its launches in the f32
+prefills of phases 14-16, in whisper's decode step and in phase 18's
+shard_map prefill, ``zoo_bf16_ms``, its device time a call in their bf16
+prefills, ``dense_launches`` and ``dense_bf16_ms``, the same for phase
+17, ``train_zoo_launches``, in phase 22's gradient gates and steps,
+``kimi_launches`` and ``kimi_bf16_ms``, the same for phase 23,
+``bf16_shape_ms``, its time, bound and SDPA time at each shape of phases
+17 and 19, and ``examples_launches``, its launches in serve_kvstore's
+prefill and in train_fault_tolerant's steps; for the select networks
+``dense_engine_launches``, their launches in each engine of phase 17),
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -272,6 +310,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -1513,7 +1552,31 @@ def profile_device(torch, fn, cpu=True):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return prof.key_averages(), wall_ms
+    if cpu:
+        return prof.key_averages(), wall_ms
+    return _device_rows(prof.profiler.kineto_results.events()), wall_ms
+
+
+def _device_rows(events):
+    """key_averages' device rows (key, count, device_type,
+    self_device_time_total in us) summed straight from the raw device
+    events: a device-only trace holds no host operation that a device event
+    could nest under, so a row's self time is its events' durations, and
+    building the profiler's own event tree (tens of seconds for a train
+    step's 10^5 launches) is skipped."""
+    rows = {}
+    for e in events:
+        kind = str(e.device_type())
+        if not kind.endswith("CUDA"):
+            continue
+        r = rows.get(e.name())
+        if r is None:
+            r = rows[e.name()] = types.SimpleNamespace(
+                key=e.name(), count=0, device_type=kind,
+                self_device_time_total=0.0)
+        r.count += 1
+        r.self_device_time_total += e.duration_ns() / 1e3
+    return list(rows.values())
 
 
 def kernel_device_ms(torch, fn, calls, kernel_name):
@@ -1755,6 +1818,8 @@ FA_CASES = [
     ("gemma3-12b global", 1, 16, 8, 4096, 4096, 256, True, None),
     ("phi3-mini head dim 96", 1, 32, 32, 4096, 4096, 96, True, None),
     ("qwen2.5-32b GQA 40/8", 1, 40, 8, 4096, 4096, 128, True, None),
+    ("kimi-k2 GQA 64/8, head dim 112", 1, 64, 8, 4096, 4096, 112, True,
+     None),
 ]
 # (label, B, T, H, P, G, N)
 SSD_CASES = [
@@ -1948,18 +2013,20 @@ SLICE_BYTES = 1 << 30     # float32 scratch of one sliced draw
 
 def _init_sliced(torch, mods, model, gen, dtype, dev):
     """``model.init``'s tree with every normal leaf drawn in float32 a
-    slice of its first axis at a time (SLICE_BYTES at most, then cast), so
-    the float32 scratch is a layer's, not a stacked leaf's:
+    block of rows (its last axis) at a time, SLICE_BYTES at most, then
+    cast, so the float32 scratch stays under a gigabyte:
     ``Init.normal`` draws qwen2.5-32b's ``w_gate`` [64, 5120, 27648] whole,
-    36.2 GB in float32.  Ones and zeros as ``Init`` makes them."""
+    36.2 GB in float32, and one layer of kimi-k2's [384, 7168, 2048] is
+    22.5 GB.  Ones and zeros as ``Init`` makes them."""
 
     class SlicedInit(mods.Init):
         def normal(self, shape, *, std=0.02):
             out = torch.empty(tuple(shape), dtype=self.dtype,
                               device=self.device)
-            step = max(1, SLICE_BYTES // (4 * max(1, out[0].numel())))
-            for i in range(0, len(out), step):
-                blk = out[i:i + step]
+            rows = out.view(-1, out.shape[-1])
+            step = max(1, SLICE_BYTES // (4 * max(1, rows.shape[1])))
+            for i in range(0, len(rows), step):
+                blk = rows[i:i + step]
                 blk.copy_(torch.randn(blk.shape, generator=self.generator,
                                       device=self.device).mul_(std))
             return out
@@ -1993,6 +2060,15 @@ def _plain(mods, name):
     return getattr(getattr(mods, ops), attr)
 
 
+def _kernel_counts(mods):
+    return {k: _wrapper(mods, k).launches for k in FLOAT_KERNELS}
+
+
+def _zero_kernel_counts(mods):
+    for k in FLOAT_KERNELS:
+        _wrapper(mods, k).launches = 0
+
+
 def expected_launches(model):
     """Float-kernel launches of one prefill: one flash attention per
     attention layer and shared-block call, one SSD per Mamba2 layer, one
@@ -2015,8 +2091,7 @@ def _prefill_counted(torch, mods, model, params, args, recorders=None):
     kernel's count set to 0 just before it and read just after; optionally
     through call recorders."""
     recorders = recorders or {}
-    for name in FLOAT_KERNELS:
-        _wrapper(mods, name).launches = 0
+    _zero_kernel_counts(mods)
     for name, rec in recorders.items():
         setattr(mods.blocks, FLOAT_KERNELS[name][1], rec)
     try:
@@ -2026,7 +2101,7 @@ def _prefill_counted(torch, mods, model, params, args, recorders=None):
         for name in recorders:
             setattr(mods.blocks, FLOAT_KERNELS[name][1],
                     _wrapper(mods, name))
-    launches = {name: _wrapper(mods, name).launches for name in FLOAT_KERNELS}
+    launches = _kernel_counts(mods)
     want = expected_launches(model)
     if launches != want:
         raise AssertionError(f"prefill launched {launches}, expected {want} "
@@ -2229,13 +2304,12 @@ def phase_prefill_bf16(torch, mods, dev, name, cfg=None, make_args=None,
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for k in FLOAT_KERNELS:
-        _wrapper(mods, k).launches = 0
+    _zero_kernel_counts(mods)
     rows, prof_ms = profile_device(torch, lambda: model.prefill(params,
                                                                 *args))
     # wrapper calls over the profiled pass: a design may launch several
     # CUDA kernels a call, so a call's time is its group's time over these
-    prof_calls = {k: _wrapper(mods, k).launches for k in FLOAT_KERNELS}
+    prof_calls = _kernel_counts(mods)
     # kernels only: a range's device-side annotation row is not a kernel
     dev_rows = [r for r in rows if _is_device_row(r) and _device_us(r) > 0
                 and r.key not in ranges]
@@ -2259,7 +2333,12 @@ def phase_prefill_bf16(torch, mods, dev, name, cfg=None, make_args=None,
     per_launch = {}
     for k in FLOAT_KERNELS:
         t_ms, cnt = groups.get(f"{k}_kernel", (0.0, 0))
-        if cnt and prof_calls[k]:
+        if cnt and cnt < prof_calls[k]:
+            # every call launches at least one CUDA kernel: rows were lost
+            log(f"[prefill]   {k}: {prof_calls[k]} wrapper calls, the "
+                f"profiler saw {cnt} CUDA kernels ({t_ms:.6f} ms): a call's "
+                f"time not measured")
+        elif cnt and prof_calls[k]:
             per_launch[k] = t_ms / prof_calls[k]
             log(f"[prefill]   {k}: {prof_calls[k]} wrapper calls, {cnt} CUDA "
                 f"kernels, {per_launch[k]:.6f} ms a call")
@@ -2320,14 +2399,17 @@ def _slice(tree, i):
 
 
 @contextlib.contextmanager
-def plain_attention(mods):
-    """Every attention of the model through ``attention_plain`` on the
-    card (the kernel's plain version, as the reference's ``impl="xla"``)."""
-    mods.blocks.flash_attention = mods.fa_ops.attention_plain
+def plain_kernels(mods, names):
+    """Each float kernel in ``names`` through its plain version on the
+    card, wherever ``models/blocks.py`` calls it (the reference's
+    ``impl="xla"``)."""
+    for name in names:
+        setattr(mods.blocks, FLOAT_KERNELS[name][1], _plain(mods, name))
     try:
         yield
     finally:
-        mods.blocks.flash_attention = mods.fa_ops.flash_attention
+        for name in names:
+            setattr(mods.blocks, FLOAT_KERNELS[name][1], _wrapper(mods, name))
 
 
 class RouteRecorder:
@@ -2379,7 +2461,7 @@ def kernel_vs_plain_prefill(torch, mods, tag, model, params, args, what,
     t_kernel = time.perf_counter() - t0
     mods.fa_ops.flash_attention.launches = 0
     t0 = time.perf_counter()
-    with plain_attention(mods):
+    with plain_kernels(mods, ["flash_attention"]):
         plain = model.prefill(params, *args)
         torch.cuda.synchronize()
     t_plain = time.perf_counter() - t0
@@ -2570,7 +2652,7 @@ def phase_whisper(torch, mods, dev):
     t_step = time.perf_counter() - t0
     step_launches = mods.fa_ops.flash_attention.launches
     mods.fa_ops.flash_attention.launches = 0
-    with plain_attention(mods):
+    with plain_kernels(mods, ["flash_attention"]):
         dec_plain = step()
     if mods.fa_ops.flash_attention.launches:
         raise AssertionError(f"{tag}: the plain decode step launched the "
@@ -2784,41 +2866,94 @@ def _fits_bf16(torch, mods, name, tag):
     return dataclasses.replace(cfg, n_layers=n)
 
 
+def band_mask(torch, sq, sk, causal, window, dev):
+    """The visible (query, key) pairs as a boolean [sq, sk] mask (True =
+    attend), queries aligned to the end of the keys, as the kernel
+    aligns them."""
+    qpos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=dev)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return ok
+
+
+def fa_times(torch, mods, dev, cases, tag, seed):
+    """``flash_attention`` in bf16 at each of ``cases`` (FA_CASES rows;
+    CUDA events, median of 10) beside its bound (``fa_visible_pairs`` at
+    989 TFLOP/s against the bytes of q, k, v and the output at 3.35 TB/s)
+    and one ``scaled_dot_product_attention`` call on the same inputs: with
+    ``is_causal`` where a causal mask without a window aligns the same, else
+    with the boolean band mask (``band_mask``), held to the kernel's output
+    within the bf16 tolerance so that it computes the same function."""
+    F = torch.nn.functional
+    out = {}
+    for i, case in enumerate(cases):
+        label, b, hq, hkv, sq, sk, d, causal, window = case
+        (q, k, v), kw = fa_inputs(torch, case, torch.bfloat16, seed + i, dev)
+        ms = cuda_ms(torch, lambda: mods.fa_ops.flash_attention(q, k, v,
+                                                                **kw), 10)
+        if causal and window is None and sq == sk:
+            lib_kw, how = dict(is_causal=True), "is_causal"
+        elif causal or window is not None:
+            lib_kw = dict(attn_mask=band_mask(torch, sq, sk, causal, window,
+                                              dev))
+            how = "a boolean band mask"
+        else:
+            lib_kw, how = {}, "no mask"
+        lib = lambda: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=hq != hkv, **lib_kw)
+        FloatAgreement().add(lib(), mods.fa_ops.flash_attention(q, k, v,
+                                                                **kw),
+                             FLOAT_TOL["bfloat16"],
+                             f"scaled_dot_product_attention ({how}) "
+                             f"against the kernel, {label}", tag=tag)
+        lib_ms = cuda_ms(torch, lib, 10)
+        flops = 4 * d * fa_visible_pairs(sq, sk, causal, window) * b * hq
+        nbytes = (2 * b * hq * sq + 2 * b * hkv * sk) * d * 2
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        out[label] = dict(ms=ms, bound_ms=bound, library_ms=lib_ms,
+                          bound_by="bytes" if t_bytes >= t_ops
+                          else "operations")
+        log(f"[{tag}] flash_attention bf16 {label} ({b}, {hq}/{hkv}, "
+            f"Sq {sq}, Sk {sk}, {d}) causal={causal} window {window}: "
+            f"{ms:.6f} ms a call (cuda events), bound {bound:.6f} ms "
+            f"({out[label]['bound_by']}: {flops} flop, {nbytes} B), "
+            f"{ms / bound:.2f}x the bound; SDPA ({how}) {lib_ms:.6f} ms")
+        del q, k, v, lib_kw
+    torch.cuda.empty_cache()
+    return out
+
+
 def dense_kernel_times(torch, mods, dev):
     """``flash_attention`` in bf16 at the dense models' 1 x PREFILL_SEQ
-    prefill shapes (CUDA events, median of 10): gemma3's local and global
-    layers apart, which its prefill's profile cannot tell apart, with the
-    bound from ``fa_visible_pairs`` and SDPA where no window applies."""
-    F = torch.nn.functional
+    prefill shapes: gemma3's local and global layers apart, which its
+    prefill's profile cannot tell apart."""
     s = PREFILL_SEQ
     cases = [("gemma3-12b local", 16, 8, 256, 1024),
              ("gemma3-12b global", 16, 8, 256, None),
              ("phi3-mini-3.8b", 32, 32, 96, None),
              ("qwen1.5-4b", 20, 20, 128, None),
              ("qwen2.5-32b", 40, 8, 128, None)]
-    out = {}
-    for i, (label, hq, hkv, d, window) in enumerate(cases):
-        (q, k, v), kw = fa_inputs(torch, (label, 1, hq, hkv, s, s, d, True,
-                                          window), torch.bfloat16, 70 + i,
-                                  dev)
-        ms = cuda_ms(torch, lambda: mods.fa_ops.flash_attention(q, k, v,
-                                                                **kw), 10)
-        lib = None
-        if window is None:
-            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=hq != hkv), 10)
-        flops = 4 * d * fa_visible_pairs(s, s, True, window) * hq
-        nbytes = (2 * hq + 2 * hkv) * s * d * 2
-        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        out[label] = dict(ms=ms, bound_ms=bound, library_ms=lib)
-        log(f"[dense] flash_attention bf16 {label} (1, {hq}/{hkv}, {s}, "
-            f"{d}) window {window}: {ms:.6f} ms a call (cuda events), bound "
-            f"{bound:.6f} ms ({flops} flop at 989 TFLOP/s), "
-            f"{ms / bound:.2f}x the bound; SDPA "
-            f"{'none (a window)' if lib is None else f'{lib:.6f} ms'}")
-        del q, k, v
-    torch.cuda.empty_cache()
-    return out
+    return fa_times(torch, mods, dev, [
+        (label, 1, hq, hkv, s, s, d, True, window)
+        for label, hq, hkv, d, window in cases], "dense", 70)
+
+
+# the zoo's attention shapes, bf16: (label, B, Hq, Hkv, Sq, Sk, D, causal,
+# window) as FA_CASES
+ZOO_FA_SHAPES = [
+    ("qwen2-vl-72b", 1, 64, 8, 768, 768, 128, True, None),
+    ("whisper encoder", 2, 20, 20, 1500, 1500, 64, False, None),
+    ("whisper decoder self", 2, 20, 20, 64, 64, 64, True, None),
+    ("whisper cross", 2, 20, 20, 64, 1500, 64, False, None),
+    ("whisper cross, decode", 2, 20, 20, 1, 1500, 64, False, None),
+    ("mixtral-8x7b window 4096", 1, 32, 8, 4608, 4608, 128, True, 4096),
+    ("kimi-k2-1t-a32b", 1, 64, 8, 4096, 4096, 112, True, None),
+]
 
 
 def phase_dense(torch, mods, dev, agree):
@@ -3178,15 +3313,48 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
     return out
 
 # ---------------------------------------------------------------------------
-# [train]: zamba2-7b's full width, cut to one unit
+# [train], [train_rwkv6]: an ARCH at full width cut in depth, trained under
+# the Paxos-leased loop; [train_zoo]: the MoE and encoder-decoder steps
 # ---------------------------------------------------------------------------
 
-TRAIN_LAYERS = 6          # one unit: six Mamba2 layers + the shared block
-TRAIN_DATA = dict(vocab=32000, seq_len=1024, batch=2, batches_per_shard=2)
+
+@dataclasses.dataclass(frozen=True)
+class TrainSpec:
+    """One training phase: ``arch`` at full width cut to ``layers``, its
+    data, and its gradient gate: ``"rows"`` (each float kernel's Function
+    alone, ``GRAD_CASES``) or ``"model"`` (every parameter leaf of the
+    whole model against the plain kernels)."""
+    tag: str
+    arch: str
+    layers: int
+    data: dict
+    grad_gate: str
+
+    @property
+    def run(self) -> str:
+        return f"{self.arch.split('-')[0]}-train"
+
+
+TRAIN_DATA = dict(seq_len=1024, batch=2, batches_per_shard=2)
+# zamba2: one unit, six Mamba2 layers + the shared block (902,732,256
+# float32 parameters); a checkpoint is 10.8 GB
+TRAIN = TrainSpec("train", ZAMBA, 6, dict(TRAIN_DATA, vocab=32000), "rows")
+# rwkv6-7b at 4 of 32 layers (1,410,535,424 float32 parameters, 22.6 GB
+# with gradients and both moments; 51.1 GB at the restore's peak, which
+# holds three copies of the 16.9 GB state, so 6 layers would fit the card):
+# the script's time limit sets the cut, at 3.7 s a step and 26 s a
+# checkpoint
+TRAIN_RWKV6 = TrainSpec("train_rwkv6", RWKV, 4, dict(TRAIN_DATA, vocab=65536),
+                        "model")
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
-TRAIN_RUN = "zamba2-train"
+# gate 3: run 1 trains steps 1-4 and run 2 resumes there for 5-8; a
+# checkpoint ends each run, and a membership change comes mid-run 2
+TRAIN_CKPT_EVERY = 4
+TRAIN_JOIN_AT = 6
 TRAIN_GATE_TOKENS = 256
 GRAD_TOL = 1e-5           # each input's gradient, relative to its max
+LEAF_TOL = 1e-4           # each parameter leaf's gradient, of its max |g|
+LOSS_TOL = 1e-5           # a whole model's loss, relative
 # the gradient wiring of each Function at this slice's widths:
 # (kernel, label, shape) with the inputs of fa_inputs / ssd_inputs /
 # wkv_inputs; the first case of each is the training path's own shape
@@ -3195,6 +3363,12 @@ GRAD_CASES = [
      ("", 2, 32, 32, 1024, 1024, 112, True, None)),
     ("flash_attention", "GQA + window",
      ("", 2, 32, 8, 1024, 1024, 112, True, 256)),
+    ("flash_attention", "whisper encoder self-attention",
+     ("", 2, 20, 20, 1500, 1500, 64, False, None)),
+    ("flash_attention", "whisper cross-attention",
+     ("", 2, 20, 20, 64, 1500, 64, False, None)),
+    ("flash_attention", "mixtral GQA 32/8, window 4096",
+     ("", 2, 32, 8, 1024, 1024, 128, True, 4096)),
     ("mamba2_ssd", "zamba2 Mamba2 layer, train shape",
      ("", 2, 1024, 112, 64, 1, 64)),
     ("rwkv6_wkv", "rwkv6-7b layer",
@@ -3211,12 +3385,12 @@ def _device_ms_of(torch, fn):
     return sum(_device_us(r) for r in rows if _is_device_row(r)) / 1e3, wall
 
 
-def train_gate_grads(torch, mods, dev):
-    """Gate 2: each Function's forward (the kernel) and gradients (the plain
-    recompute) against autograd through the plain version on the card,
-    with the same upstream gradient.  Returns, per kernel, the device ms of
-    one forward launch and of one backward recompute at the first case's
-    shape."""
+def train_gate_grads(torch, mods, dev, tag="train"):
+    """Gate 2 (rows): each Function's forward (the kernel) and gradients
+    (the plain recompute) against autograd through the plain version on
+    the card, with the same upstream gradient.  Returns, per kernel, the
+    device ms of one forward launch and of one backward recompute at the
+    first case's shape."""
     split = {}
     for i, (name, label, case) in enumerate(GRAD_CASES):
         made = GRAD_INPUTS[name](torch, case, torch.float32, 700 + i, dev)
@@ -3234,22 +3408,20 @@ def train_gate_grads(torch, mods, dev):
         want_g = torch.autograd.grad(want, ref, g_out)
         torch.cuda.synchronize()
         if launched != 1:
-            raise AssertionError(f"[train] {name} {label}: the forward "
+            raise AssertionError(f"[{tag}] {name} {label}: the forward "
                                  f"launched the kernel {launched} times")
         FloatAgreement().add(out.detach(), want.detach(),
                              FLOAT_TOL["float32"],
                              f"{name} {label} forward {tuple(case[1:])}",
-                             relative=name != "flash_attention",
-                             tag="train")
+                             relative=name != "flash_attention", tag=tag)
         for j, (a, b) in enumerate(zip(got_g, want_g)):
             if a.shape != b.shape or a.dtype != b.dtype:
-                raise AssertionError(f"[train] {name} {label} input {j}: "
+                raise AssertionError(f"[{tag}] {name} {label} input {j}: "
                                      f"gradient {tuple(a.shape)} {a.dtype}, "
                                      f"plain {tuple(b.shape)} {b.dtype}")
             FloatAgreement().add(a, b, GRAD_TOL,
                                  f"{name} {label} d/d(input {j}) "
-                                 f"{tuple(a.shape)}", relative=True,
-                                 tag="train")
+                                 f"{tuple(a.shape)}", relative=True, tag=tag)
         del out, want, got_g, want_g, ref
         if name not in split:
             # cuda events: the profiler can miss a lone ctypes launch
@@ -3260,7 +3432,7 @@ def train_gate_grads(torch, mods, dev):
             split[name] = dict(shape=tuple(case[1:]), forward_ms=fwd_ms,
                                recompute_ms=bwd_ms,
                                recompute_wall_ms=bwd_wall)
-            log(f"[train] {name} at {tuple(case[1:])} float32: forward "
+            log(f"[{tag}] {name} at {tuple(case[1:])} float32: forward "
                 f"{fwd_ms:.3f} ms a wrapper call (cuda events); backward "
                 f"(plain recompute and its gradient) {bwd_ms:.3f} ms of "
                 f"device time in {bwd_wall:.1f} ms of wall (traced)")
@@ -3270,18 +3442,19 @@ def train_gate_grads(torch, mods, dev):
     return split
 
 
-def train_gate_forward(torch, mods, model, params, data_cfg, dev):
-    """Gate 1: train_loss through the kernels against the mean next-token
-    NLL of the teacher-forced decode (plain PyTorch) on the same tokens."""
+def train_gate_forward(torch, mods, model, params, data_cfg, dev, tag):
+    """Gate 1: train_loss through the kernels (one launch of each kernel
+    a layer that holds it, as a prefill: ``expected_launches``) against
+    the mean next-token NLL of the teacher-forced decode (plain PyTorch)
+    on the same tokens."""
     toks = torch.from_numpy(mods.synth_batch(data_cfg, 0, 0)[
         :, :TRAIN_GATE_TOKENS]).to(dev)
     b, s = toks.shape
-    fa, sd = _wrapper(mods, "flash_attention"), _wrapper(mods, "mamba2_ssd")
-    before = (fa.launches, sd.launches)
+    _zero_kernel_counts(mods)
     with torch.no_grad():
         loss = float(model.train_loss(params, {"tokens": toks},
                                       remat=False))
-        launched = (fa.launches - before[0], sd.launches - before[1])
+        launched = _kernel_counts(mods)
         caches = model.init_cache(b, s, dtype=torch.float32, device=dev)
         nll = torch.zeros((), dtype=torch.float64, device=dev)
         t0 = time.perf_counter()
@@ -3293,74 +3466,180 @@ def train_gate_forward(torch, mods, model, params, data_cfg, dev):
         want = float(nll) / (b * (s - 1))
         t_dec = time.perf_counter() - t0
     rel = abs(loss - want) / abs(want)
-    log(f"[train] gate 1: train_loss {loss:.7f} (kernels: {launched[0]} "
-        f"flash attention, {launched[1]} SSD launches) vs teacher-forced "
-        f"decode NLL {want:.7f} ({s - 1} steps, {t_dec:.2f} s) over {b} x "
-        f"{s} tokens: relative {rel:.3e} (tolerance 1e-4)")
-    if launched != (1, TRAIN_LAYERS) or not rel <= 1e-4:
-        raise AssertionError("[train] gate 1: the kernel forward and the "
-                             "plain decode disagree")
+    expected = expected_launches(model)
+    log(f"[{tag}] gate 1: train_loss {loss:.7f} (kernel launches "
+        f"{json.dumps(launched)}, expected {json.dumps(expected)}) vs "
+        f"teacher-forced decode NLL {want:.7f} ({s - 1} steps, "
+        f"{t_dec:.2f} s) over {b} x {s} tokens: relative {rel:.3e} "
+        f"(tolerance 1e-4)")
+    if launched != expected or not rel <= 1e-4:
+        raise AssertionError(f"[{tag}] gate 1: the kernel forward and the "
+                             f"plain decode disagree, or the launches do "
+                             f"not")
     del caches
 
 
-def phase_train(torch, mods, dev):
-    """Training at zamba2-7b's full width, cut to one unit (6 layers):
-    gate 1 (forward), gate 2 (gradients), gate 3 (fault-tolerant runs
-    through the Paxos-leased stream and CAS-committed checkpoints)."""
-    import dataclasses
+def _named_leaves(tree, prefix=""):
+    """(path, tensor) of every leaf: dict keys sorted, items by index."""
+    if isinstance(tree, dict):
+        return [nl for k in sorted(tree)
+                for nl in _named_leaves(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (tuple, list)):
+        return [nl for i, v in enumerate(tree)
+                for nl in _named_leaves(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
 
+
+def _loss_and_grads(torch, mods, model, params, batch):
+    """``train_loss`` (remat on, as the train step) and the gradient of
+    every named leaf -> (loss, [(name, grad)], the kernel launches of the
+    forward alone, wall s)."""
+    named = _named_leaves(params)
+    for _, p in named:
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        loss = model.train_loss(params, batch, remat=True)
+        fwd = _kernel_counts(mods)
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    materialize_grads=True)
+        torch.cuda.synchronize()
+    finally:
+        for _, p in named:
+            p.requires_grad_(False)
+    return (loss.detach(), list(zip([n for n, _ in named], grads)), fwd,
+            time.perf_counter() - t0)
+
+
+def grads_vs_plain(torch, mods, tag, model, params, batch):
+    """The loss and every parameter leaf's gradient of ``train_loss``
+    through the kernels (the main path: counts from 0; the forward
+    launches as a prefill, the backward's remat recompute as many again)
+    against the same with the model's kernels' plain versions swapped in:
+    the loss within LOSS_TOL relative, each leaf within LEAF_TOL of its
+    max |g|; an MoE's expert choices and drops equal.  Returns the
+    launches of the kernel run."""
+    expected = expected_launches(model)
+    kernels = [k for k, n in expected.items() if n]
+    _zero_kernel_counts(mods)
+    with recorded_routes(mods) as rk:
+        loss, grads, fwd, t_k = _loss_and_grads(torch, mods, model, params,
+                                                batch)
+    launches = _kernel_counts(mods)
+    _zero_kernel_counts(mods)
+    with recorded_routes(mods) as rp, plain_kernels(mods, kernels):
+        loss_p, grads_p, _, t_p = _loss_and_grads(torch, mods, model,
+                                                  params, batch)
+    plain_launches = _kernel_counts(mods)
+    twice = {k: 2 * n for k, n in expected.items()}
+    log(f"[{tag}] value and gradient of train_loss (remat on) over "
+        f"{' + '.join(f'{k} {tuple(v.shape)}' for k, v in batch.items())}"
+        f": {t_k:.2f} s through the kernels (launches: forward "
+        f"{json.dumps(fwd)}, with the backward's remat recompute "
+        f"{json.dumps(launches)}), {t_p:.2f} s with {kernels} plain")
+    if fwd != expected or launches != twice or any(plain_launches.values()):
+        raise AssertionError(f"[{tag}] launches {fwd} / {launches} / plain "
+                             f"{plain_launches}, expected {expected} / "
+                             f"{twice} / none")
+    rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    log(f"[{tag}] loss {float(loss):.7f} through the kernels, "
+        f"{float(loss_p):.7f} plain: relative {rel:.3e} (tolerance "
+        f"{LOSS_TOL:g})")
+    worst = []
+    for (name, g), (_, gp) in zip(grads, grads_p):
+        scale = float(gp.abs().max())
+        err = float((g - gp).abs().max())
+        worst.append((err / max(scale, 1e-30), name, scale))
+        if not bool(g.isfinite().all()):
+            raise AssertionError(f"[{tag}] d/d({name}) is not finite")
+    worst.sort(reverse=True)
+    log(f"[{tag}] {len(worst)} gradient leaves, max |g - g_plain| over max "
+        f"|g_plain|, worst three: "
+        f"{', '.join(f'{n} {e:.3e} (max |g| {s:.3e})' for e, n, s in worst[:3])}"
+        f" (tolerance {LEAF_TOL:g})")
+    if not rel <= LOSS_TOL or not worst[0][0] <= LEAF_TOL:
+        raise AssertionError(f"[{tag}] the kernels' loss or gradients "
+                             f"differ from the plain path's")
+    if rk.idx or rp.idx:
+        differ = sum(int((a != b).sum()) for a, b in zip(rk.idx, rp.idx))
+        log(f"[{tag}] routed MoE calls {len(rk.idx)} / {len(rp.idx)} "
+            f"(forward + remat recompute); expert choices that differ: "
+            f"{differ} of {sum(a.numel() for a in rk.idx)}; dropped "
+            f"assignments a call {rk.dropped} / {rp.dropped}")
+        if len(rk.idx) != len(rp.idx) or differ or rk.dropped != rp.dropped:
+            raise AssertionError(f"[{tag}] the routes differ")
+    del grads, grads_p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train(torch, mods, dev, spec, split=None):
+    """Training of ``spec.arch`` at full width cut to ``spec.layers``:
+    gate 1 (forward), gate 2 (``spec.grad_gate``), gate 3 (fault-tolerant
+    runs through the Paxos-leased stream and CAS-committed checkpoints).
+    ``split`` (a "rows" gate's output) gives the float kernels' forward
+    and recompute times for the step's breakdown."""
+    tag, run = spec.tag, spec.run
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(mods.ARCHS[ZAMBA], n_layers=TRAIN_LAYERS)
+    require_free(torch, tag)
+    cfg = dataclasses.replace(mods.ARCHS[spec.arch], n_layers=spec.layers)
     model = mods.build_model(cfg)
-    data_cfg = mods.DataConfig(**TRAIN_DATA)
+    data_cfg = mods.DataConfig(**spec.data)
     opt_cfg = mods.AdamWConfig(**TRAIN_OPT)
+    expected = expected_launches(model)
     ckpt_dir = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     ckpt_dir.mkdir(parents=True)
     free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
-    log(f"[train] {cfg.name} cut to {_describe(model)}, d_model "
-        f"{cfg.d_model}, data {TRAIN_DATA}, AdamW {TRAIN_OPT}; "
+    log(f"[{tag}] {cfg.name} cut to {_describe(model)}, d_model "
+        f"{cfg.d_model}, data {spec.data}, AdamW {TRAIN_OPT}; "
         f"{free_gb:.1f} GB free for checkpoints")
 
     params = model.init(0, device=dev)          # what train() draws first
     n = sum(t.numel() for t in mods.leaves(params))
-    log(f"[train] {n} float32 parameters ({n * 4 / 1e9:.2f} GB; with "
+    log(f"[{tag}] {n} float32 parameters ({n * 4 / 1e9:.2f} GB; with "
         f"gradients and both moments {n * 16 / 1e9:.2f} GB)")
-    train_gate_forward(torch, mods, model, params, data_cfg, dev)
-    del params
-    torch.cuda.empty_cache()
+    train_gate_forward(torch, mods, model, params, data_cfg, dev, tag)
     t0 = time.perf_counter()
-    split = train_gate_grads(torch, mods, dev)
-    log(f"[train] gate 2 took {time.perf_counter() - t0:.1f} s")
+    if spec.grad_gate == "rows":
+        del params
+        torch.cuda.empty_cache()
+        split = train_gate_grads(torch, mods, dev, tag)
+    else:
+        toks = torch.from_numpy(mods.synth_batch(data_cfg, 0, 0)).to(dev)
+        grads_vs_plain(torch, mods, tag, model, params, {"tokens": toks})
+        del params, toks
+        torch.cuda.empty_cache()
+    log(f"[{tag}] gate 2 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
 
     # gate 3: two runs over one registry, a replica crashed between them
     registry = mods.PaxosRegistry(
         n_machines=5, all_aboard=True,
         machine_cls=functools.partial(mods.BatchedMachine, device=dev))
-    fa, sd = _wrapper(mods, "flash_attention"), _wrapper(mods, "mamba2_ssd")
     paxos = (mods.apply_ops.paxos_apply, mods.propose_ops.paxos_propose)
-    for k in (fa, sd) + paxos:
+    _zero_kernel_counts(mods)
+    for k in paxos:
         k.launches = 0
-    last = dict(t=time.perf_counter(), fa=0, sd=0)
+    last = dict(t=time.perf_counter(), counts=_kernel_counts(mods))
     records, ckpts, epochs, restored, held = [], [], [], [], {}
 
     def on_log(rec):
-        now = time.perf_counter()
-        records.append(dict(rec, wall_s=now - last["t"],
-                            fa=fa.launches - last["fa"],
-                            sd=sd.launches - last["sd"]))
-        last.update(t=now, fa=fa.launches, sd=sd.launches)
+        now, counts = time.perf_counter(), _kernel_counts(mods)
+        records.append(dict(rec, wall_s=now - last["t"], launches={
+            k: counts[k] - last["counts"][k] for k in counts}))
+        if rec["step"] == TRAIN_JOIN_AT:        # steps 7-8 run after it
+            registry.join_membership(run, 1)
+        last.update(t=time.perf_counter(), counts=counts)
 
     def on_ckpt(step, won):
         now = time.perf_counter()
         ckpts.append(dict(step=step, won=won, seconds=now - last["t"]))
-        # keep the newest committed checkpoint only (10.8 GB each)
-        for old in (ckpt_dir / TRAIN_RUN).glob("step_*"):
+        # keep the newest committed checkpoint only
+        for old in (ckpt_dir / run).glob("step_*"):
             if old.name != f"step_{step:08d}":
                 shutil.rmtree(old)
-        if step == 6:                  # a membership change mid-run
-            registry.join_membership(TRAIN_RUN, 1)
         last["t"] = time.perf_counter()
 
     real_restore = mods.store.restore
@@ -3379,7 +3658,7 @@ def phase_train(torch, mods, dev):
 
     hooks = {"on_log": on_log, "on_ckpt": on_ckpt,
              "on_membership": epochs.append}
-    tcfg = mods.TrainConfig(run=TRAIN_RUN, steps=4, ckpt_every=2,
+    tcfg = mods.TrainConfig(run=run, steps=4, ckpt_every=TRAIN_CKPT_EVERY,
                             ckpt_dir=str(ckpt_dir), log_every=1)
     torch.cuda.reset_peak_memory_stats()
     out1 = mods.train(model, data_cfg, tcfg, opt_cfg, registry, hooks,
@@ -3397,20 +3676,19 @@ def phase_train(torch, mods, dev):
     torch.cuda.synchronize()
     t_runs = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {"flash_attention": fa.launches, "mamba2_ssd": sd.launches,
-                "paxos_apply": paxos[0].launches,
-                "paxos_propose": paxos[1].launches}
-    committed = registry.latest_checkpoint(TRAIN_RUN)
-    cursor = registry.fetch(f"data/{TRAIN_RUN}/cursor")
+    launches = dict(_kernel_counts(mods), paxos_apply=paxos[0].launches,
+                    paxos_propose=paxos[1].launches)
+    committed = registry.latest_checkpoint(run)
+    cursor = registry.fetch(f"data/{run}/cursor")
     for r in records:
-        log(f"[train] step {r['step']}: loss {r['loss']:.6f}, grad norm "
+        log(f"[{tag}] step {r['step']}: loss {r['loss']:.6f}, grad norm "
             f"{r['grad_norm']:.6f}, {r['wall_s'] * 1e3:.1f} ms since the "
             f"previous step (checkpoint excluded), launches: "
-            f"{r['fa']} flash attention, {r['sd']} SSD")
+            f"{json.dumps({k: v for k, v in r['launches'].items() if v})}")
     for c in ckpts:
-        log(f"[train] checkpoint step {c['step']}: committed={c['won']}, "
+        log(f"[{tag}] checkpoint step {c['step']}: committed={c['won']}, "
             f"saved in {c['seconds']:.2f} s")
-    log(f"[train] run 2 restored {restored}; start_step "
+    log(f"[{tag}] run 2 restored {restored}; start_step "
         f"{out2['start_step']}, latest checkpoint {committed}, shard cursor "
         f"{cursor}, membership epochs seen {epochs}; main-path launches "
         f"of both runs {json.dumps(launches)}; peak memory {peak_gb:.2f} "
@@ -3426,7 +3704,8 @@ def phase_train(torch, mods, dev):
         problems.append(f"start_step {out2['start_step']} != 4")
     if committed != 8:
         problems.append(f"latest checkpoint {committed} != 8")
-    if [c["step"] for c in ckpts] != [2, 4, 6, 8] or \
+    if [c["step"] for c in ckpts] != list(range(TRAIN_CKPT_EVERY, 9,
+                                                TRAIN_CKPT_EVERY)) or \
             not all(c["won"] for c in ckpts):
         problems.append(f"checkpoints {ckpts}")
     if len(restored) != 1 or restored[0]["step"] != 4 or \
@@ -3434,24 +3713,24 @@ def phase_train(torch, mods, dev):
             restored[0]["equal"] != restored[0]["leaves"]:
         problems.append(f"restore {restored} is not the step-4 state bit "
                         f"for bit")
-    shards = 8 // TRAIN_DATA["batches_per_shard"]
+    shards = 8 // spec.data["batches_per_shard"]
     if cursor != shards:
         problems.append(f"shard cursor {cursor} != {shards} shards consumed")
     if not all(mods.np.isfinite(losses)) or not all(mods.np.isfinite(norms)):
         problems.append("non-finite loss or grad norm")
     if not (losses[6] + losses[7]) / 2 < (losses[0] + losses[1]) / 2:
         problems.append("the loss of steps 7-8 is not below that of 1-2")
-    bad = [r["step"] for r in records
-           if (r["fa"], r["sd"]) != (2, 2 * TRAIN_LAYERS)]
+    per_step = {k: 2 * v for k, v in expected.items()}
+    bad = [r["step"] for r in records if r["launches"] != per_step]
     if bad:
-        problems.append(f"steps {bad} did not launch 2 flash attention and "
-                        f"{2 * TRAIN_LAYERS} SSD kernels (forward + remat)")
+        problems.append(f"steps {bad} did not launch {per_step} (forward "
+                        f"+ remat recompute)")
     if not launches["paxos_apply"] or not launches["paxos_propose"]:
         problems.append("the Paxos kernels did not launch")
     if epochs != [2]:
         problems.append(f"membership epochs seen {epochs} != [2]")
     if problems:
-        raise AssertionError("[train] gate 3: " + "; ".join(problems))
+        raise AssertionError(f"[{tag}] gate 3: " + "; ".join(problems))
 
     # the step's time, memory, the forward/recompute split, busy share
     step_ms = statistics.median(r["wall_s"] * 1e3 for r in records[1:])
@@ -3459,6 +3738,7 @@ def phase_train(torch, mods, dev):
     tokens = torch.from_numpy(mods.synth_batch(data_cfg, 99, 0)).to(dev)
     params, opt_state = out2["params"], out2["opt_state"]
     del out2
+    t0 = time.perf_counter()
     rows, prof_ms = profile_device(
         torch, lambda: step_fn(params, opt_state, {"tokens": tokens}),
         cpu=False)
@@ -3469,24 +3749,25 @@ def phase_train(torch, mods, dev):
         g = _kernel_group(r.key)
         t_ms, cnt = groups.get(g, (0.0, 0))
         groups[g] = (t_ms + _device_us(r) / 1e3, cnt + r.count)
-    log(f"[train] one profiled step: wall {prof_ms:.1f} ms, device busy "
-        f"{dev_ms:.1f} ms (busy share {dev_ms / prof_ms:.4f})")
+    log(f"[{tag}] one profiled step: wall {prof_ms:.1f} ms, device busy "
+        f"{dev_ms:.1f} ms (busy share {dev_ms / prof_ms:.4f}); the profile "
+        f"took {time.perf_counter() - t0:.1f} s with its trace's processing")
     for g, (t_ms, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        log(f"[train]   {t_ms:10.3f} ms  x{cnt:<7d} {g} "
+        log(f"[{tag}]   {t_ms:10.3f} ms  x{cnt:<7d} {g} "
             f"({t_ms / dev_ms:.3f} of device time)")
-    per_step_launches = {"flash_attention": 2, "mamba2_ssd": 2 * TRAIN_LAYERS}
-    for name, sp in split.items():
-        if name not in per_step_launches:
+    for name, sp in (split or {}).items():
+        n_fwd = per_step[name]
+        if not n_fwd:
             continue
-        n_fwd = per_step_launches[name]
-        log(f"[train] {name} a step: forward launches x ms = {n_fwd} x "
+        log(f"[{tag}] {name} a step: forward launches x ms = {n_fwd} x "
             f"{sp['forward_ms']:.3f} = {n_fwd * sp['forward_ms']:.2f} ms "
-            f"(cuda events); backward recomputes x ms = {n_fwd // 2} x "
-            f"{sp['recompute_ms']:.3f} = "
+            f"(cuda events, at {sp['shape']}); backward recomputes x ms = "
+            f"{n_fwd // 2} x {sp['recompute_ms']:.3f} = "
             f"{n_fwd // 2 * sp['recompute_ms']:.2f} ms of device time "
-            f"({n_fwd // 2 * sp['recompute_wall_ms']:.0f} ms of wall, "
+            f"({n_fwd // 2} x {sp['recompute_wall_ms']:.0f} = "
+            f"{n_fwd // 2 * sp['recompute_wall_ms']:.0f} ms of wall, "
             f"traced)")
-    log(f"[train] ms a step (median of steps 2-8, checkpoints excluded): "
+    log(f"[{tag}] ms a step (median of steps 2-8, checkpoints excluded): "
         f"{step_ms:.1f}; peak memory {peak_gb:.2f} GB; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     del params, opt_state, registry
@@ -3494,6 +3775,212 @@ def phase_train(torch, mods, dev):
     torch.cuda.empty_cache()
     return dict(launches=launches, step_ms=step_ms, peak_gb=peak_gb,
                 busy_share=dev_ms / prof_ms, split=split)
+
+
+MIXTRAL_TRAIN_LAYERS = 2  # of 32: 3,164,688,384 float32 parameters
+ZOO_TRAIN_TOKENS = 1024   # mixtral: 2 x 1024 tokens a step
+ZOO_TRAIN_STEPS = 3
+
+
+def train_steps(torch, mods, tag, model, params, batch):
+    """ZOO_TRAIN_STEPS ``make_train_step`` steps with AdamW on one fixed
+    batch (counts from 0 before each step): every loss finite, the last
+    below the first, each step's launches the forward's and the remat
+    recompute's -> (launches of the steps, ms a step, peak GB)."""
+    opt_cfg = mods.AdamWConfig(**TRAIN_OPT)
+    opt_state = mods.adamw.init(opt_cfg, params)
+    step_fn = mods.make_train_step(model, opt_cfg)
+    per_step = {k: 2 * v for k, v in expected_launches(model).items()}
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, total = [], [], collections.Counter()
+    for i in range(ZOO_TRAIN_STEPS):
+        _zero_kernel_counts(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        got = _kernel_counts(mods)
+        total.update(got)
+        log(f"[{tag}] step {i + 1}: loss {losses[-1]:.6f}, grad norm "
+            f"{float(m['grad_norm']):.6f}, {walls[-1]:.1f} ms, launches "
+            f"{json.dumps({k: v for k, v in got.items() if v})}")
+        if got != per_step:
+            raise AssertionError(f"[{tag}] step {i + 1} launched {got}, "
+                                 f"expected {per_step}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{tag}] {ZOO_TRAIN_STEPS} steps: losses {losses}, ms a step "
+        f"{walls}, peak memory {peak_gb:.2f} GB")
+    if not all(mods.np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] the loss did not fall: {losses}")
+    del opt_state
+    return dict(total), statistics.median(walls[1:]), peak_gb
+
+
+def phase_train_zoo(torch, mods, dev):
+    """[train_zoo]: mixtral-8x7b at MIXTRAL_TRAIN_LAYERS layers (2 x 1024
+    tokens) and whisper-large-v3 whole (2 x 1500 frames, 2 x 64 tokens),
+    float32: gradients through the kernels against the plain path, then
+    ZOO_TRAIN_STEPS AdamW steps; one model resident at a time."""
+    out = {}
+    for tag, cfg in (("train_mixtral", _cut(mods, MIXTRAL,
+                                            MIXTRAL_TRAIN_LAYERS)),
+                     ("train_whisper", mods.ARCHS[WHISPER])):
+        t0 = time.perf_counter()
+        require_free(torch, tag)
+        model = mods.build_model(cfg)
+        params = _model_params(torch, model, torch.float32, dev, 0, tag)
+        n = sum(t.numel() for t in _leaves(params))
+        log(f"[{tag}] parameters {n * 4 / 1e9:.2f} GB, with two gradient "
+            f"sets {n * 12 / 1e9:.2f} GB, with gradients and moments "
+            f"{n * 16 / 1e9:.2f} GB")
+        gen = torch.Generator(device=dev).manual_seed(21)
+        if cfg.family == "encdec":
+            frames, tokens = whisper_inputs(torch, mods, cfg, torch.float32,
+                                            gen, dev)
+            batch = {"frames": frames, "tokens": tokens}
+        else:
+            batch = {"tokens": torch.randint(
+                1, cfg.vocab, (2, ZOO_TRAIN_TOKENS), generator=gen,
+                device=dev, dtype=torch.int32)}
+        grad_launches = grads_vs_plain(torch, mods, tag, model, params,
+                                       batch)
+        steps, step_ms, peak_gb = train_steps(torch, mods, tag, model,
+                                              params, batch)
+        out[tag.split("_")[1]] = dict(grad_launches=grad_launches,
+                                      step_launches=steps, step_ms=step_ms,
+                                      peak_gb=peak_gb)
+        del params, batch
+        torch.cuda.empty_cache()
+        log(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [kimi]: kimi-k2-1t-a32b whole at its one-card cut
+# ---------------------------------------------------------------------------
+
+KIMI_F32_LAYERS = 1       # of 61: 19,378,623,488 float32 parameters, 77.51 GB
+KIMI_BF16_LAYERS = 2      # of 61: 36,408,429,568 bf16 parameters, 72.82 GB
+KIMI_GATE1_TOKENS = 1024
+KIMI_GATE2_TOKENS = 256
+KIMI_ROOMY = 8.0          # 41 slots an expert over 256 tokens: none drops
+ENGINE_LAUNCHES = {"paxos_apply": 31, "paxos_propose": 65}
+
+
+def release_memory(torch, tag):
+    """Collects garbage and returns the caching allocator's free blocks to
+    the card; prints what is still allocated and what the card has free,
+    and the largest tensors still alive on it."""
+    import gc
+    import warnings
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    with warnings.catch_warnings():     # isinstance on deprecated objects
+        warnings.simplefilter("ignore")
+        alive = sorted(
+            (o.numel() * o.element_size(), tuple(o.shape), o.dtype)
+            for o in gc.get_objects()
+            if isinstance(o, torch.Tensor) and o.is_cuda)[::-1]
+    log(f"[{tag}] torch.cuda.mem_get_info(): {free / 1e9:.2f} GB free of "
+        f"{total / 1e9:.2f} GB; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB, reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB; {len(alive)} "
+        f"tensors alive on the card, the largest "
+        f"{[(f'{n / 1e6:.1f} MB', sh, str(dt)) for n, sh, dt in alive[:4]]}")
+    return free
+
+
+# the peak memory allocated of each large phase, measured on an H100 80GB
+# HBM3 at 700 W (PERF.md section 5) and rounded up: a card with less free
+# than that fails the phase up front and says so
+PEAK_GB = {"train": 32.8, "train_rwkv6": 51.2, "train_mixtral": 77.1,
+           "train_whisper": 31.3, "kimi": 79.3}
+
+
+def require_free(torch, tag):
+    """release_memory, then an error unless the card has PEAK_GB[tag]
+    free."""
+    free = release_memory(torch, tag) / 1e9
+    log(f"[{tag}] needs {PEAK_GB[tag]} GB at its peak: margin "
+        f"{free - PEAK_GB[tag]:.2f} GB")
+    if free < PEAK_GB[tag]:
+        raise RuntimeError(f"[{tag}] the card has {free:.2f} GB free, the "
+                           f"phase peaks at {PEAK_GB[tag]} GB")
+
+
+def phase_kimi(torch, mods, dev):
+    """kimi-k2-1t-a32b at full width: in float32 cut to KIMI_F32_LAYERS
+    (drawn a slice at a time) the zoo's gates and the engine; then its
+    bf16 prefill cut to KIMI_BF16_LAYERS at the published capacity
+    factor.  Returns the launches of each path."""
+    tag = "kimi"
+    t_phase = time.perf_counter()
+    require_free(torch, tag)
+    cfg = _cut(mods, KIMI, KIMI_F32_LAYERS)
+    model = mods.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = _model_params(torch, model, torch.float32, dev, 0, tag, mods)
+    log(f"[{tag}] after the draw: {torch.cuda.mem_get_info()[0] / 1e9:.2f} "
+        f"GB free, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    tokens = torch.randint(1, cfg.vocab, (1, KIMI_GATE1_TOKENS),
+                           generator=gen, device=dev, dtype=torch.int32)
+    # gate 1: through the kernels vs plain, at the published capacity
+    with recorded_routes(mods) as kr:
+        logits, launches = kernel_vs_plain_prefill(
+            torch, mods, tag, model, params, (tokens,),
+            f"1 x {KIMI_GATE1_TOKENS} tokens, capacity factor "
+            f"{cfg.capacity_factor}")
+    half = len(kr.idx) // 2
+    if half != cfg.n_layers or len(kr.idx) != 2 * half:
+        raise AssertionError(f"{tag}: {len(kr.idx)} routed MoE calls, "
+                             f"expected 2 x {cfg.n_layers}")
+    differ = sum(int((a != b).sum())
+                 for a, b in zip(kr.idx[:half], kr.idx[half:]))
+    log(f"[{tag}] top-{cfg.top_k} expert choices that differ between the "
+        f"kernel and the plain prefill: {differ} of "
+        f"{sum(a.numel() for a in kr.idx[:half])}; dropped assignments "
+        f"{kr.dropped[:half]} / {kr.dropped[half:]}")
+    if differ or kr.dropped[:half] != kr.dropped[half:]:
+        raise AssertionError(f"{tag}: the routes differ")
+    del logits
+    # gate 2: at a capacity where nothing drops, prefill == decode
+    roomy = mods.build_model(dataclasses.replace(
+        cfg, capacity_factor=KIMI_ROOMY))
+    short = tokens[:, :KIMI_GATE2_TOKENS]
+    with recorded_routes(mods) as r8:
+        want, _ = _prefill_counted(torch, mods, roomy, params, (short,))
+    with recorded_routes(mods) as r_pub:
+        model.prefill(params, short)
+    log(f"[{tag}] 1 x {KIMI_GATE2_TOKENS} tokens at capacity factor "
+        f"{KIMI_ROOMY} ({int(KIMI_GATE2_TOKENS * cfg.top_k // cfg.n_experts * KIMI_ROOMY) + 1} "
+        f"slots an expert): {sum(r8.dropped)} assignments dropped (must be "
+        f"0); the published {cfg.capacity_factor} drops "
+        f"{sum(r_pub.dropped)}")
+    if sum(r8.dropped):
+        raise AssertionError(f"{tag}: capacity factor {KIMI_ROOMY} dropped "
+                             f"{r8.dropped}")
+    prefill_vs_decode(torch, tag, roomy, params, short, want, dev)
+    del want
+    paxos = phase_engine(torch, mods, dev, tag, model, params, ZOO_GEN_STEPS)
+    if paxos != ENGINE_LAUNCHES:
+        raise AssertionError(f"{tag}: the engine's routes launched {paxos}, "
+                             f"expected {ENGINE_LAUNCHES}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    release_memory(torch, tag)
+    log(f"[{tag}] float32 gates {time.perf_counter() - t_phase:.1f} s, "
+        f"peak {peak_gb:.2f} GB")
+    bf16 = phase_prefill_bf16(torch, mods, dev, KIMI,
+                              cfg=_cut(mods, KIMI, KIMI_BF16_LAYERS),
+                              ranges=MOE_RANGES, sliced=True)
+    log(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(prefill=launches["flash_attention"], engine=paxos,
+                f32_peak_gb=peak_gb, bf16=bf16)
 
 
 # ---------------------------------------------------------------------------
@@ -3818,6 +4305,7 @@ def load_modules():
     from repro_torch.models.common import Init
     from repro_torch.models.registry import build_model, input_specs
     from repro_torch.obs import FlightRecorder, flight_guard
+    from repro_torch.optim import adamw
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.sharding import use_mesh
     from repro_torch.reconfig import catchup
@@ -3845,7 +4333,8 @@ def load_modules():
         loadgen=loadgen, FlightRecorder=FlightRecorder,
         flight_guard=flight_guard, catchup=catchup, store=store,
         leaves=leaves, DataConfig=DataConfig, synth_batch=synth_batch,
-        AdamWConfig=AdamWConfig, make_train_step=make_train_step,
+        AdamWConfig=AdamWConfig, adamw=adamw,
+        make_train_step=make_train_step,
         TrainConfig=TrainConfig, train=train, build=_build,
         dryrun=dryrun, roofline=roofline, use_mesh=use_mesh,
         drivers=load_drivers())
@@ -3890,6 +4379,9 @@ def main(argv=None) -> int:
     runs, rec_r, rec_i, launches, waves_all = phase_serve(
         torch, mods, dev, args.n_ops)
     phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
+    # the serve clusters' stacks and the recorded calls' planes (about 8.6
+    # GB on the card) are not needed past this point
+    del runs, rec_r, rec_i
     phase_schedule_replay(torch, mods, dev, args.n_ops)
     times = phase_timings(torch, mods, mods.pv, dev, waves_all)
     phase_idle(torch, mods, dev, args.n_ops)
@@ -3911,7 +4403,12 @@ def main(argv=None) -> int:
     times.update(phase_model_timings(
         torch, mods, dev,
         {**prefill["per_launch_ms"], **rwkv_prefill["per_launch_ms"]}))
-    trained = phase_train(torch, mods, dev)
+    zoo_times = fa_times(torch, mods, dev, ZOO_FA_SHAPES, "time", 90)
+    trained = phase_train(torch, mods, dev, TRAIN)
+    trained_rwkv6 = phase_train(torch, mods, dev, TRAIN_RWKV6,
+                                split=trained["split"])
+    trained_zoo = phase_train_zoo(torch, mods, dev)
+    kimi = phase_kimi(torch, mods, dev)
     examples = phase_examples(torch, mods, dev, apply_ok, propose_ok,
                               float_ok)
     torch.cuda.synchronize()
@@ -3934,6 +4431,8 @@ def main(argv=None) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "train_launches": trained["launches"][name],
+            "train_rwkv6_launches": trained_rwkv6["launches"][name],
+            "kimi_engine_launches": kimi["engine"][name],
             "smoke_launches": smokes["launches"][name],
             "examples_launches": examples["launches"][name],
             "dense_engine_launches": {
@@ -3962,8 +4461,11 @@ def main(argv=None) -> int:
             "max_rel_err": agree.max_rel_err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-        if name in trained["launches"]:
+        if trained["launches"][name]:
             kernels[-1]["train_launches"] = trained["launches"][name]
+        if trained_rwkv6["launches"][name]:
+            kernels[-1]["train_rwkv6_launches"] = \
+                trained_rwkv6["launches"][name]
     # the zoo's paths: each f32 prefill (and whisper's decode step) run
     # from 0, and the kernel's device time a call in each bf16 prefill
     fa = next(k for k in kernels if k["name"] == "flash_attention")
@@ -3988,6 +4490,18 @@ def main(argv=None) -> int:
     fa["dense_bf16_ms"] = {
         m: r["per_launch_ms"].get("flash_attention")
         for m, r in dense["bf16"].items()}
+    # the zoo's train steps (the gradient gate's run, forward + remat
+    # recompute, and the AdamW steps), kimi-k2's f32 and bf16 prefills, and
+    # each shape's bf16 time beside its bound and SDPA
+    fa["train_zoo_launches"] = {
+        m: {"gradient_gate": r["grad_launches"]["flash_attention"],
+            "steps": r["step_launches"]["flash_attention"]}
+        for m, r in trained_zoo.items()}
+    fa["kimi_launches"] = {
+        "f32_prefill": kimi["prefill"],
+        "bf16_prefill": kimi["bf16"]["launches"]["flash_attention"]}
+    fa["kimi_bf16_ms"] = kimi["bf16"]["per_launch_ms"].get("flash_attention")
+    fa["bf16_shape_ms"] = {**dense["times"], **zoo_times}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
