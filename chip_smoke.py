@@ -30,7 +30,22 @@ Phases (any failure exits nonzero and prints no result):
    have launched (``paxos_propose`` through its staged entry, once an
    issuer wave), and a sample of the fused calls is replayed through the
    plain versions on the card (a staged call against the whole-stack
-   plain version).
+   plain version).  Then ``[serve_mesh]``: the same two seeds on 4
+   spawned ranks on the one card, joined in a gloo group through a
+   ``FileStore`` in a temporary directory, with
+   ``BatchedMachine(shards=4)``: each rank holds its lane block of the KV
+   stack, (18, 5, 2^18), and of the table, (65, 5, 200), launches both
+   kernels on them (every ``paxos_apply`` launch on the whole block) and
+   all-gathers each wave's compact outputs.  Each rank's completions,
+   the SHA-256 of its host mirrors and of its device blocks must equal
+   ``[serve]``'s run of the same seed and block, the checkers green, both
+   kernels launched on every rank (as many times as its engine called
+   them), and an early and a late call of each kernel replayed through
+   the plain versions bit for bit; a failing rank stops the others, and
+   a rank still running after 300 s is killed.  Prints each rank's
+   waves, launches, lanes a launch, host ms from a launch to its end,
+   gathers with their bytes and seconds, and its wall against
+   ``[serve]``'s.
 4. **Schedule replay** (``repro_torch.core.replay``): the port's scalar
    cluster with both trace taps at the serve phase's width and seeds (5 x
    800 sessions x 2^20 keys, 4000 ops; seed 0 plain, seed 1 all-aboard
@@ -279,8 +294,9 @@ The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, one JSON object describing the five kernels (with their
 launches in zamba2's two training runs, ``train_launches``, for the four
 on that path, and in rwkv6's, ``train_rwkv6_launches``, for the three on
-its; for the select networks also ``smoke_launches``, their launches in
-each smoke of phase 8, ``examples_launches``, in each example of phase
+its; for the select networks also ``serve_mesh_launches``, their
+launches on each rank of phase 3's ``[serve_mesh]``, ``smoke_launches``,
+their launches in each smoke of phase 8, ``examples_launches``, in each example of phase
 24, and ``kimi_engine_launches``, in phase 23's engine; for
 ``flash_attention`` also ``zoo_launches``, its launches in the f32
 prefills of phases 14-16, in whisper's decode step and in phase 18's
@@ -302,6 +318,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
 import pathlib
 import re
@@ -327,6 +344,8 @@ PROPOSE_TAB_READ = 62
 
 M, SESSIONS, KEYS = 5, 800, 2 ** 20
 N_OPS = 4000
+# [serve]'s seeds: (seed, all-aboard, machine 4 crashed and restarted)
+SERVE_SEEDS = ((0, False, False), (1, True, True))
 
 
 def log(msg: str) -> None:
@@ -656,7 +675,7 @@ def phase_serve(torch, mods, dev, n_ops):
     mods.propose_ops.paxos_propose.launches = 0
     ce._fused_receiver_step, ce.paxos_propose_staged = rec_r, rec_i
     try:
-        for seed, aboard, crash in ((0, False, False), (1, True, True)):
+        for seed, aboard, crash in SERVE_SEEDS:
             torch.cuda.synchronize()
             batched, t_b = _serve_cluster(mods, batched_cls, seed, aboard,
                                           crash, n_ops)
@@ -758,6 +777,269 @@ def phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok):
             f"version")
     if not rec_r.samples or not rec_i.samples:
         raise AssertionError("no fused call was recorded")
+
+
+# ---------------------------------------------------------------------------
+# the serve path's lane blocks over ranks
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_RANK_LIMIT = 300.0   # seconds; a rank still running then is killed
+MESH_KEEP = (0, 1000)     # the early and the late call a rank replays
+
+
+def _digest(*arrays) -> str:
+    """SHA-256 of numpy arrays' bytes, in order."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def serve_fingerprints(mods, runs):
+    """What ``[serve_mesh]`` holds its ranks to, kept on the host: each
+    seed's completion digest and wall, the SHA-256 of the engine's host
+    mirrors, and of each of the ``MESH_RANKS`` lane blocks of its final
+    device stacks."""
+    out = {}
+    for seed, _aboard, _crash, batched, t_b in runs:
+        eng = batched.engine
+        blocks = {}
+        for tag in ("kv", "tab"):
+            st = getattr(eng, tag)
+            lps = st.n_lanes // MESH_RANKS
+            blocks[tag] = [
+                _digest(st.dev[:, :, r * lps:(r + 1) * lps].cpu().numpy())
+                for r in range(MESH_RANKS)]
+        got = mods.completion_tuples(batched)
+        out[seed] = {"completions": mods.completion_digest(got),
+                     "n": len(got), "wall": t_b, "blocks": blocks,
+                     "mirror": _digest(eng.kv.host, eng.tab.host)}
+    return out
+
+
+def serve_mesh_rank(rank, world, workdir, n_ops):
+    """One rank of ``[serve_mesh]``, a spawned process: joins the gloo
+    group through the ``FileStore`` in ``workdir``, runs the serve seeds
+    with ``BatchedMachine(shards=world)`` on ``cuda:0`` (every rank on the
+    one card) and saves what the parent gates to ``rank<r>.pt``; its log
+    goes to ``rank<r>.log``."""
+    import torch
+    import torch.distributed as dist
+
+    work = pathlib.Path(workdir)
+    with open(work / f"rank{rank}.log", "w") as f, \
+            contextlib.redirect_stdout(f):
+        torch.set_num_threads(1)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                                rank=rank, world_size=world)
+        try:
+            res = _serve_mesh_rank_body(torch, world, dev, n_ops)
+        finally:
+            dist.destroy_process_group()
+        torch.save(res, work / f"rank{rank}.pt")
+
+
+def _serve_mesh_rank_body(torch, world, dev, n_ops):
+    mods = load_modules()
+    ce = mods.cluster_engine
+    shapes = collections.Counter()
+    # host seconds from each launch to the end of its work on the device
+    # (the engine waits for it right after anyway, to bring the columns
+    # down): with four ranks' contexts on one card, the waits show what
+    # sharing it costs
+    waits = collections.Counter()
+    rec_r = Recorder(torch, ce._fused_receiver_step, MESH_KEEP)
+    rec_i = Recorder(torch, ce.paxos_propose_staged, MESH_KEEP, after=(0,))
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        _sync(torch, dev)
+        waits[name] += time.perf_counter() - t0
+        return out
+
+    def receiver(kv, msgreg, out=None):
+        shapes[f"paxos_apply {tuple(kv.shape)}"] += 1
+        return timed("paxos_apply", rec_r, kv, msgreg, out=out)
+
+    def issuer(tab, staged, params, n_lanes, **kw):
+        shapes[f"paxos_propose {(tab.shape[0], params.shape[1], n_lanes)}"] \
+            += 1
+        return timed("paxos_propose", rec_i, tab, staged, params, n_lanes,
+                     **kw)
+
+    machine_cls = functools.partial(mods.BatchedMachine, device=dev,
+                                    shards=world)
+    runs = {}
+    # the main path: counts start at 0 here and are read right after
+    _zero_select_counts(mods)
+    ce._fused_receiver_step, ce.paxos_propose_staged = receiver, issuer
+    try:
+        for seed, aboard, crash in SERVE_SEEDS:
+            _sync(torch, dev)
+            cl, wall = _serve_cluster(mods, machine_cls, seed, aboard, crash,
+                                      n_ops)
+            _sync(torch, dev)
+            mods.checkers.check_all(cl)
+            eng = cl.engine
+            want = {"kv": (18, M, KEYS // world),
+                    "tab": (65, M, SESSIONS // world)}
+            for tag, shape in want.items():
+                st = getattr(eng, tag)
+                if (eng.mesh is None or not st.lane_sharded
+                        or tuple(st.dev.shape) != shape
+                        or st.dev.device.type != dev.type):
+                    raise AssertionError(
+                        f"seed {seed}: {tag} stack {tuple(st.dev.shape)} on "
+                        f"{st.dev.device}, mesh {eng.mesh}; want the lane "
+                        f"block {shape} on {dev}")
+            got = mods.completion_tuples(cl)
+            runs[seed] = {
+                "completions": mods.completion_digest(got), "n": len(got),
+                "wall": wall, "ticks": cl.rounds,
+                "mirror": _digest(eng.kv.host, eng.tab.host),
+                "blocks": {tag: _digest(getattr(eng, tag).dev.cpu().numpy())
+                           for tag in want},
+                "telemetry": eng.telemetry()}
+    finally:
+        ce._fused_receiver_step = rec_r.fn
+        ce.paxos_propose_staged = rec_i.fn
+    launches = mods.select_launches()
+    mods.require_launches(launches, dev)
+    apply_ok, propose_ok = Agreement(), Agreement()
+    phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
+    return {"runs": runs, "launches": dict(launches), "shapes": dict(shapes),
+            "waits": dict(waits),
+            "replayed": [len(rec_r.samples), len(rec_i.samples)],
+            "compared": [apply_ok.compared, propose_ok.compared]}
+
+
+def _join_ranks(procs, work, limit):
+    """Wait for every rank; a rank that fails stops the others at once,
+    and a rank still running at ``limit`` seconds is killed.  Raises with
+    the tail of each rank's log."""
+    deadline = time.monotonic() + limit
+    try:
+        while True:
+            codes = {r: p.exitcode for r, p in enumerate(procs)}
+            bad = {r: c for r, c in codes.items() if c not in (None, 0)}
+            if bad:
+                raise AssertionError(f"[serve_mesh] ranks exited with codes "
+                                     f"{bad}")
+            if all(c == 0 for c in codes.values()):
+                return
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"[serve_mesh] ranks {[r for r, c in codes.items() if c is None]} "
+                    f"still running after {limit:.0f} s; killed")
+            time.sleep(0.2)
+    except AssertionError:
+        for r in range(len(procs)):
+            path = work / f"rank{r}.log"
+            tail = path.read_text()[-2000:] if path.is_file() else ""
+            log(f"[serve_mesh] rank {r} log tail:\n{tail}")
+        raise
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+
+
+def phase_serve_mesh(torch, mods, n_ops, want):
+    """``[serve]``'s seeds on ``MESH_RANKS`` spawned ranks on the one card,
+    a gloo group, ``BatchedMachine(shards=MESH_RANKS)``: each rank holds
+    its lane block of the KV and proposer stacks and launches both kernels
+    on it.  Each rank's completions, host mirrors and device blocks must
+    equal ``[serve]``'s run of the same seed (``want``, from
+    :func:`serve_fingerprints`)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="serve_mesh_") as tmp:
+        work = pathlib.Path(tmp)
+        procs = [ctx.Process(target=serve_mesh_rank,
+                             args=(r, MESH_RANKS, tmp, n_ops))
+                 for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        _join_ranks(procs, work, MESH_RANK_LIMIT)
+        ranks = [torch.load(work / f"rank{r}.pt")
+                 for r in range(MESH_RANKS)]
+    block = {"kv": (18, M, KEYS // MESH_RANKS),
+             "tab": (65, M, SESSIONS // MESH_RANKS)}
+    log(f"[serve_mesh] {MESH_RANKS} ranks on {torch.cuda.get_device_name(0)}"
+        f", gloo group; blocks a rank: KV {block['kv']} "
+        f"({18 * M * KEYS // MESH_RANKS * 4 / 1e6:.1f} MB), tab "
+        f"{block['tab']}")
+    launches = {k: [] for k in mods.cluster_engine.SELECT_NETWORKS}
+    for r, res in enumerate(ranks):
+        for k in launches:
+            launches[k].append(res["launches"][k])
+        apply_shape = f"paxos_apply {block['kv']}"
+        if set(k for k in res["shapes"] if k.startswith("paxos_apply")) \
+                != {apply_shape}:
+            raise AssertionError(f"[serve_mesh] rank {r}: paxos_apply ran "
+                                 f"at {res['shapes']}, not {apply_shape}")
+        calls = {"paxos_apply": 0, "paxos_propose": 0}
+        for seed, run in res["runs"].items():
+            w = want[seed]
+            what = f"[serve_mesh] rank {r} seed {seed}"
+            if (run["completions"], run["n"]) != (w["completions"], w["n"]):
+                raise AssertionError(f"{what}: {run['n']} completions differ "
+                                     f"from [serve]'s {w['n']}")
+            if run["mirror"] != w["mirror"]:
+                raise AssertionError(f"{what}: host mirror differs from "
+                                     f"[serve]'s")
+            for tag in ("kv", "tab"):
+                if run["blocks"][tag] != w["blocks"][tag][r]:
+                    raise AssertionError(f"{what}: {tag} block differs from "
+                                         f"block {r} of [serve]'s stack")
+            t = run["telemetry"]
+            for k in calls:
+                calls[k] += t[f"rank_{k}_calls"]
+            log(f"{what}: {run['n']} completions, mirror and blocks equal to "
+                f"[serve]'s; waves {t['waves']}, paxos_apply "
+                f"{t['rank_paxos_apply_calls']} launches "
+                f"({t['rank_receiver_lanes'] / max(1, t['rank_paxos_apply_calls']):.2f} lanes a launch), "
+                f"paxos_propose {t['rank_paxos_propose_calls']} "
+                f"({t['rank_issuer_lanes'] / max(1, t['rank_paxos_propose_calls']):.2f}), "
+                f"gathers {t['mesh_gathers']} ({t['mesh_gather_bytes']} B, "
+                f"{t['mesh_gather_s']:.2f} s); wall {run['wall']:.2f} s "
+                f"against [serve]'s {w['wall']:.2f} s")
+        if calls != {k: res["launches"][k] for k in calls}:
+            raise AssertionError(f"[serve_mesh] rank {r}: launches "
+                                 f"{res['launches']} against engine calls "
+                                 f"{calls}")
+        wait_ms = {k: round(res["waits"][k] * 1e3 / max(1, n), 3)
+                   for k, n in res["launches"].items()}
+        log(f"[serve_mesh] rank {r}: launches {json.dumps(res['launches'])}"
+            f", launch to end {json.dumps(wait_ms)} ms a call (host clock, "
+            f"the recorded calls' clones included); {res['replayed'][0]} "
+            f"receiver and {res['replayed'][1]} issuer calls replayed "
+            f"bit-equal through the plain versions")
+    for seed in want:
+        tels = [res["runs"][seed]["telemetry"] for res in ranks]
+        walls = [res["runs"][seed]["wall"] for res in ranks]
+        log(f"[serve_mesh] seed {seed}, all ranks: paxos_apply "
+            f"{sum(t['rank_paxos_apply_calls'] for t in tels)} launches, "
+            f"paxos_propose {sum(t['rank_paxos_propose_calls'] for t in tels)}"
+            f", receiver lanes {sum(t['rank_receiver_lanes'] for t in tels)} "
+            f"(of {tels[0]['fused_receiver_lanes']}), gathers "
+            f"{sum(t['mesh_gathers'] for t in tels)} "
+            f"({sum(t['mesh_gather_bytes'] for t in tels)} B, "
+            f"{sum(t['mesh_gather_s'] for t in tels):.2f} s); wall "
+            f"{max(walls):.2f} s (slowest rank) against [serve]'s "
+            f"{want[seed]['wall']:.2f} s")
+    seconds = time.perf_counter() - t_phase
+    log(f"[serve_mesh] phase {seconds:.1f} s")
+    return {"launches": launches, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -1719,7 +2001,9 @@ def phase_issuer_waves(torch, mods, rep, dev, n_staged=19, waves=200):
         n_machines=M, sessions_per_machine=SESSIONS), M, device=dev)
     params = eng._params()
     # the whole-stack wave as the engine ran it before the staged entry,
-    # then the later pull
+    # then its later pull of the staged lanes into the host mirror
+    all_rows, mi_np, lane_np = np.arange(65), np.asarray(s_mi), \
+        np.asarray(s_lane)
     stack = ce.PlaneStack(pv.ProposerTable._fields, pv.TABLE_DEFAULTS, M,
                           SESSIONS, device=dev)
     stage = torch.zeros((13, M, SESSIONS), dtype=torch.int32, device=dev)
@@ -1734,9 +2018,10 @@ def phase_issuer_waves(torch, mods, rep, dev, n_staged=19, waves=200):
         out_tab, out_act = ce._fused_issuer_step(
             tab_dev, stage, params, out=stack.out_buffer())
         stage[:, mi_t, lane_t] = idle_col
-        stack.absorb(out_tab, mi_t, lane_t)
         act_host[:, s_mi, s_lane] = out_act[:, mi_t, lane_t].cpu().numpy()
-        stack.pull()
+        stack.absorb(out_tab)
+        stack.absorb_in_place(all_rows, mi_np, lane_np,
+                              out_tab[:, mi_t, lane_t].cpu().numpy())
 
     def new_wave():
         eng.issuer_wave(s_mi, s_lane, replies)
@@ -4379,9 +4664,11 @@ def main(argv=None) -> int:
     runs, rec_r, rec_i, launches, waves_all = phase_serve(
         torch, mods, dev, args.n_ops)
     phase_replay(torch, mods, rec_r, rec_i, apply_ok, propose_ok)
+    serve_want = serve_fingerprints(mods, runs)
     # the serve clusters' stacks and the recorded calls' planes (about 8.6
     # GB on the card) are not needed past this point
     del runs, rec_r, rec_i
+    serve_mesh = phase_serve_mesh(torch, mods, args.n_ops, serve_want)
     phase_schedule_replay(torch, mods, dev, args.n_ops)
     times = phase_timings(torch, mods, mods.pv, dev, waves_all)
     phase_idle(torch, mods, dev, args.n_ops)
@@ -4434,6 +4721,7 @@ def main(argv=None) -> int:
             "train_rwkv6_launches": trained_rwkv6["launches"][name],
             "kimi_engine_launches": kimi["engine"][name],
             "smoke_launches": smokes["launches"][name],
+            "serve_mesh_launches": serve_mesh["launches"][name],
             "examples_launches": examples["launches"][name],
             "dense_engine_launches": {
                 m: dense["engines"][m][name] for m in dense["engines"]}})

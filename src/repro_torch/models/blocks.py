@@ -451,9 +451,17 @@ def apply_moe_shardmap(cfg: ModelConfig, p, x: torch.Tensor, mesh):
 
     Either way one all-reduce sums the partial outputs over the "model"
     group (counted in ``apply_moe_shardmap.all_reduces``) and a second one
-    averages aux over it.  Gradients flow through a one-rank mesh; the
-    backward across ranks waits for the multi-card work (ROADMAP Queue 1
-    item 5).
+    averages aux over it.
+
+    Gradients are those of the reference's ``jax.grad`` over the same
+    mesh: every rank of a "model" group holds the gradient of its batch
+    block's loss, which each rank computes whole.  So the all-reduce passes
+    its cotangent through, and the tensors replicated over "model" that
+    feed the rank's own experts (the normed block and the router) sum
+    their cotangents over the group on the way back.  A rank's expert
+    slices get their own gradient; x gets it on its block's rows; the
+    router's and the norm's are its block's share, summed over the data
+    axes as a data-parallel step sums them.
     """
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"apply_moe_shardmap runs over a DeviceMesh, not "
@@ -486,11 +494,12 @@ def apply_moe_shardmap(cfg: ModelConfig, p, x: torch.Tensor, mesh):
     else:
         cut = slice(m * e_local, (m + 1) * e_local)
         w = (p["w_gate"][cut], p["w_up"][cut], p["w_down"][cut])
-    p_local = dict(zip(("router", "w_gate", "w_up", "w_down"),
-                       (p["router"],) + w))
-    h = rms_norm(x_blk, p["norm"]["scale"]).reshape(bl * s, d)
-    out, aux = _moe_local_compute(cfg, p_local, h, 0 if tp else m, e_local)
     group = mesh.get_group("model")
+    p_local = dict(zip(("router", "w_gate", "w_up", "w_down"),
+                       (_SumGradOver.apply(p["router"], group),) + w))
+    h = _SumGradOver.apply(rms_norm(x_blk, p["norm"]["scale"]), group)
+    out, aux = _moe_local_compute(cfg, p_local, h.reshape(bl * s, d),
+                                  0 if tp else m, e_local)
     out = _AllReduceSum.apply(out, group)
     apply_moe_shardmap.all_reduces += 1
     aux = _AllReduceSum.apply(aux, group) / msize
@@ -501,15 +510,30 @@ apply_moe_shardmap.all_reduces = 0
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """``dist.all_reduce(SUM)`` out of place, with the reference's psum
-    transpose (a sum of the cotangents over the group) as its backward."""
+    """``dist.all_reduce(SUM)`` out of place.  Every rank of the group
+    goes on with the same sum to the same loss, so the cotangent each rank
+    holds is already the sum's: the backward passes it through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGradOver(torch.autograd.Function):
+    """The identity on a tensor replicated over ``group`` that feeds
+    rank-local work; the backward sums the cotangents over the group, so
+    each rank gets the gradient of every rank's use of it."""
 
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=group)
-        return y
+        return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):

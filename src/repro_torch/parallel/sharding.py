@@ -218,6 +218,12 @@ class NamedSharding:
         return shard_shape(shape, self.spec, self.mesh)
 
 
+def named_sharding(mesh: Mesh, *logical: Optional[str]) -> NamedSharding:
+    """The layout of a tensor whose dims carry the ``logical`` axis names
+    (resolved without a shape: no divisibility fallback)."""
+    return NamedSharding(mesh, resolve(tuple(logical), mesh))
+
+
 _MESH: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
     "repro_torch_mesh", default=None)
 

@@ -37,17 +37,29 @@ What differs from the reference, and why it changes no result:
   staged lanes' reply columns into a persistent host buffer that
   ``reply_from_lanes`` reads (it reads staged lanes only); an issuer wave
   moves its staged lanes alone, as above.  Host KV writes upload only the
-  lanes a bridge flushed, and a host checkout after a receiver step pulls
-  only the lanes that step staged.  This is exact because a NOOP message lane (kind 0) and an idle
+  lanes a bridge flushed, and a receiver wave brings its staged lanes'
+  new KV planes down with their replies, in the same download.  This is exact because a NOOP message lane (kind 0) and an idle
   reply lane (kind -1) leave their KV/proposer lane bit-identical — the
   same property the reference's fused waves rest on, pinned by
   ``tests/test_torch_cluster_engine.py`` (host mirror == device stack
-  after every tick).
+  after every tick).  So a wave leaves nothing on the device for the host
+  to fetch later.
 * **Kernels read the stacks in place.**  ``(F, M, K)`` views flatten to
   ``(F, M·K)`` without a copy; the kernels mask the ragged end by lane
   index, so there is no segment padding and ``shard_lanes`` plays no role
-  in the kernels.  The shard layout stays a host-side truth (aligned lane
-  blocks, steering, per-shard accounting), with no device mesh.
+  in the kernels.
+* **Lane blocks over ranks, not devices of one controller.**  The
+  reference places its stacks on a ``"shard"`` device mesh of one process
+  (:func:`_shard_mesh`).  Here the mesh is a ``torch.distributed`` group
+  of ``shards`` ranks, every rank running the same host program (the
+  seeded cluster, machines, scheduler and bridges).  Each rank's device
+  holds only its lane block of each stack whose lane axis the group
+  divides (:meth:`PlaneStack.set_mesh`), and launches the kernels on it;
+  the compact columns a wave brings down are exchanged in one all-gather
+  over a gloo group, so every rank's host mirror stays whole and equal.
+  Without a group (one process) the engine is rank 0 of a group of one:
+  its block is every lane, one launch a wave streams all of them, and
+  there is nothing to gather.
 
 Crash/restart evict or (re)load **one row**: :meth:`ClusterEngine.adopt`
 copies the machine's planes into its slice (volatile issuer lanes reset on
@@ -56,11 +68,14 @@ restart, durable KV carried by the shared bridge).
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from collections import Counter
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import proposer_vector, vector
 from repro_torch.core.lanes import (
@@ -72,6 +87,7 @@ from repro_torch.kernels.paxos_apply.ops import paxos_apply
 from repro_torch.kernels.paxos_propose.ops import (
     CHANGED_ROWS, N_OUT, N_PAR, N_STAGED, paxos_propose, paxos_propose_staged,
 )
+from repro_torch.parallel.sharding import MeshShape, NamedSharding, resolve
 
 I32 = np.int32
 
@@ -86,6 +102,7 @@ N_MSGREG = N_MSG + 1                    # 11 message planes + is_registered
 KV_DEFAULTS = kv_to_lanes(KVPair(key=0))
 
 _MSG_IDX = {f: i for i, f in enumerate(vector.MsgBatch._fields)}
+_KV_ROWS = np.arange(N_KV)
 
 # an unstaged message lane is a NOOP (kind=0, has_value=1, not registered)
 _NOOP_COL = np.zeros((N_MSGREG,), I32)
@@ -119,6 +136,52 @@ def _coords(mi: List[int], lanes: List[int], cols: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# the shard group: lane blocks over the ranks of a process group
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardGroup:
+    """This rank's place in a ``"shard"`` group of ``world`` ranks, and the
+    gloo group the engine's collectives run on (host tensors, so they work
+    the same under a gloo or an NCCL default group, and with every rank on
+    one card)."""
+    rank: int
+    world: int
+    group: object
+
+    @property
+    def mesh(self) -> MeshShape:
+        """The 1-D ``"shard"`` mesh the sharding rules resolve over."""
+        return MeshShape(("shard",), (self.world,))
+
+
+# (default group, its gloo twin): ``dist.new_group`` is a collective call,
+# and every machine first builds a private engine before the cluster's
+# shared one, so the twin is made once a process and reused
+_GLOO: Optional[Tuple[object, object]] = None
+
+
+def _shard_mesh(shards: int) -> Optional[ShardGroup]:
+    """The shard group of this rank, or ``None`` when sharding is off or
+    no process group is initialised (the one-process layout: one device
+    tensor holds every lane block).
+
+    Every rank runs the same host program, so the group's world size must
+    be ``shards``: a rank with no lane block has no counterpart in a
+    replicated program, and a mismatch raises ``ValueError``."""
+    if shards <= 1 or not (dist.is_available() and dist.is_initialized()):
+        return None
+    world = dist.get_world_size()
+    if world != shards:
+        raise ValueError(f"shards={shards}, but the process group has "
+                         f"{world} ranks: each rank holds one lane block")
+    global _GLOO
+    if _GLOO is None or _GLOO[0] is not dist.group.WORLD:
+        _GLOO = (dist.group.WORLD, dist.new_group(backend="gloo"))
+    return ShardGroup(dist.get_rank(), world, _GLOO[1])
+
+
+# ---------------------------------------------------------------------------
 # PlaneStack: a device-resident (fields, machines, lanes) int32 block
 # ---------------------------------------------------------------------------
 
@@ -137,16 +200,27 @@ class PlaneStack:
     * dirty lanes — single lanes written through :meth:`write_lanes` (the
       bridge's flush) or :meth:`write_lane_views` (issuer round loads): the
       next :meth:`push` uploads only those columns.
-    * ``dev_fresh`` — a fused step's output holds lanes the host has not
-      pulled: any host access :meth:`pull`\\ s first, copying back only the
-      lanes the steps since the last pull staged (every other lane is
-      bit-identical, see the module docstring).  A step that updates the
-      stack in place and returns its changed planes
-      (:meth:`absorb_in_place`) leaves nothing to pull.
+    * fused steps — a step brings its staged lanes' new planes down
+      itself and :meth:`absorb_in_place` writes them into the mirror
+      (every other lane is bit-identical, see the module docstring), so
+      host and device agree after every step and nothing is left to pull.
 
     ``syncs`` counts uploads, ``reloads`` row evict/reloads, and
-    ``h2d_bytes``/``d2h_bytes`` the bytes each direction moved.
+    ``h2d_bytes``/``d2h_bytes`` the bytes of the stack's planes each
+    direction moved.
+
+    **Shard group.**  :meth:`set_mesh` places the device stack on a
+    :class:`ShardGroup`: the device then holds only this rank's
+    :attr:`block` of lanes, ``(F, M, L/S)``, while the host mirror stays
+    whole (every rank's equal).  Host writes and dirtiness stay in global
+    lane coordinates; :meth:`push` uploads the block, or the dirty lanes
+    that fall in it at block-local coordinates, and a fused step's
+    coordinates are block-local.  Without a group the block is every lane.
     """
+
+    # a fused step brings its staged lanes down itself (see above): the
+    # device never holds lanes the host mirror lacks
+    dev_fresh = False
 
     def __init__(self, fields: Tuple[str, ...], defaults: Dict[str, int],
                  n_machines: int, n_lanes: int, n_shards: int = 1,
@@ -163,8 +237,9 @@ class PlaneStack:
         self.spare: Optional[torch.Tensor] = None
         self.shard_dirty = np.zeros(self.n_shards, dtype=bool)
         self._dirty_lanes: List[Tuple[int, np.ndarray]] = []
-        self.dev_fresh = False
-        self._fresh: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.mesh: Optional[ShardGroup] = None
+        self._sharding: Optional[NamedSharding] = None
+        self._sharding_shape: Optional[Tuple[int, ...]] = None
         self.syncs = 0
         self.reloads = 0
         self.h2d_bytes = 0
@@ -201,6 +276,55 @@ class PlaneStack:
         """Record host writes confined to one shard's lane block."""
         self.shard_dirty[shard] = True
 
+    # -- device placement ----------------------------------------------------
+
+    def set_mesh(self, mesh: Optional[ShardGroup]) -> None:
+        """Place the device stack on ``mesh``: plane fields and machine
+        rows replicate, the lane axis block-partitions over the group's
+        ``"shard"`` axis (rule ``"lanes"``), so this rank's device holds
+        :attr:`block`.  Resolution is divisibility-aware: a lane axis the
+        group does not divide replicates, whole on every rank.  The block
+        is uploaded from the host mirror at the next :meth:`push`."""
+        self.mesh = mesh
+        self._sharding = self._sharding_shape = None
+        self._place()
+
+    def device_sharding(self) -> Optional[NamedSharding]:
+        """The stack's layout over the shard group (None without one)."""
+        if self.mesh is None:
+            return None
+        if self._sharding_shape != self.host.shape:
+            spec = resolve(("plane_fields", "machines", "lanes"),
+                           self.mesh.mesh, shape=self.host.shape)
+            self._sharding = NamedSharding(self.mesh.mesh, spec)
+            self._sharding_shape = self.host.shape
+        return self._sharding
+
+    @property
+    def lane_sharded(self) -> bool:
+        """Whether this rank's device holds one lane block, not all."""
+        sharding = self.device_sharding()
+        return sharding is not None and sharding.spec[2] is not None
+
+    @property
+    def block(self) -> slice:
+        """The lanes this rank's device stack holds: its shard's block of
+        the current lane axis under a shard group that divides it, else
+        every lane."""
+        if not self.lane_sharded:
+            return slice(0, self.n_lanes)
+        return ShardMap(self.mesh.world, self.n_lanes).slice_of(
+            self.mesh.rank)
+
+    def _place(self) -> None:
+        """A fresh device stack for the current shape and block, filled
+        from the host mirror at the next push."""
+        blk = self.block
+        self.dev = self._default_stack(
+            (len(self.fields), self.n_machines, blk.stop - blk.start))
+        self.spare = None
+        self.host_dirty = True
+
     def _default_stack(self, shape) -> torch.Tensor:
         """A device stack of ``shape`` holding the field defaults."""
         col = torch.from_numpy(self._defaults).to(self.device)
@@ -213,11 +337,12 @@ class PlaneStack:
 
     def grow(self, n_machines: Optional[int] = None,
              n_lanes: Optional[int] = None) -> None:
-        """Grow either axis; new rows/lanes start at field defaults on the
-        host and on the device (pending host writes are uploaded at the old
-        size first, and the old block is copied device-side)."""
-        self.pull()
-        self.push()
+        """Grow either axis; new rows/lanes start at field defaults.  The
+        host mirror grows and the device block is uploaded from it at the
+        next :meth:`push`: under a shard group the block boundaries move
+        with the lane count (a key can change owner), as the reference
+        re-resolves its sharding on a new shape.  Lanes grow by doubling,
+        so the uploads add up to at most twice the final stack."""
         new_m = max(self.n_machines, n_machines or 0)
         new_l = ShardMap(self.n_shards, self.n_shards).aligned(
             max(self.n_lanes, n_lanes or 0))
@@ -226,42 +351,29 @@ class PlaneStack:
         grown = _host_array((len(self.fields), new_m, new_l), self.device)
         grown[:] = self._defaults[:, None, None]
         grown[:, :self.n_machines, :self.n_lanes] = self.host
-        grown_dev = self._default_stack(grown.shape)
-        grown_dev[:, :self.n_machines, :self.n_lanes] = self.dev
-        self.host, self.dev, self.spare = grown, grown_dev, None
+        self.host = grown
         self._rebuild_views()
+        self._place()
 
     # -- host <-> device coherence -------------------------------------------
 
     def pull(self) -> None:
-        """Sync the host mirror from the latest engine output: only the
-        lanes the fused steps since the last pull staged."""
-        if not self.dev_fresh:
-            return
-        mi = torch.cat([c[0] for c in self._fresh])
-        lanes = torch.cat([c[1] for c in self._fresh])
-        cols = self.dev[:, mi, lanes].cpu().numpy()
-        self.host[:, mi.cpu().numpy(), lanes.cpu().numpy()] = cols
-        self.d2h_bytes += cols.nbytes
-        self._fresh.clear()
-        self.dev_fresh = False
+        """Sync the host mirror from the device: a no-op, since every fused
+        step has already brought its lanes down (see :attr:`dev_fresh`)."""
 
     def read_views(self, mi: int) -> Dict[str, np.ndarray]:
         """Field -> row-``mi`` lane views, for host reads."""
-        self.pull()
         return self._views[mi]
 
     def write_views(self, mi: int) -> Dict[str, np.ndarray]:
         """Like :meth:`read_views`, but marks the stack for a whole
         re-upload (the caller may write any lane)."""
-        self.pull()
         self.host_dirty = True
         return self._views[mi]
 
     def write_lane_views(self, mi: int, lane: int) -> Dict[str, np.ndarray]:
         """Row ``mi``'s views for a host write confined to ``lane``: only
         that lane is marked for upload."""
-        self.pull()
         if not self.host_dirty:
             self._dirty_lanes.append((mi, np.array([lane])))
         return self._views[mi]
@@ -270,7 +382,6 @@ class PlaneStack:
                     cols: np.ndarray) -> None:
         """Write ``cols`` ``(F, len(lanes))`` into row ``mi`` at ``lanes``;
         the next push uploads only these columns."""
-        self.pull()
         self.host[:, mi, lanes] = cols
         if not self.host_dirty:
             self._dirty_lanes.append((mi, lanes))
@@ -283,8 +394,6 @@ class PlaneStack:
             raise ValueError("load_row: plane stacks of different layouts")
         if src.n_lanes > self.n_lanes:
             self.grow(n_lanes=src.n_lanes)
-        self.pull()
-        src.pull()
         self.host_dirty = True
         self.reloads += 1
         length = src.n_lanes
@@ -301,10 +410,12 @@ class PlaneStack:
         """Upload what the host changed and hand the device stack to a
         fused step, which must write into :meth:`out_buffer` and
         :meth:`absorb`, or update the stack in place and
-        :meth:`absorb_in_place`, before any further host access."""
+        :meth:`absorb_in_place`, before any further host access.  Under a
+        shard group only this rank's block moves."""
+        blk = self.block
         if self.host_dirty:
-            self.dev.copy_(torch.from_numpy(self.host))
-            self.h2d_bytes += self.host.nbytes
+            self.dev.copy_(torch.from_numpy(self.host[:, :, blk]))
+            self.h2d_bytes += self.dev.numel() * self.dev.element_size()
             self.host_dirty = False
             self._dirty_lanes.clear()
             self.syncs += 1
@@ -312,11 +423,17 @@ class PlaneStack:
             mi = np.concatenate([np.full(len(lanes), m, I32)
                                  for m, lanes in self._dirty_lanes])
             lanes = np.concatenate([lanes for _, lanes in self._dirty_lanes])
+            self._dirty_lanes.clear()
+            if self.lane_sharded:
+                mine = (lanes >= blk.start) & (lanes < blk.stop)
+                mi, lanes = mi[mine], lanes[mine]
+                if not len(mi):
+                    return self.dev
             cols = self.host[:, mi, lanes]
-            mi_t, lane_t, cols_t = _coords(mi, lanes, cols, self.device)
+            mi_t, lane_t, cols_t = _coords(mi, lanes - blk.start, cols,
+                                           self.device)
             self.dev[:, mi_t, lane_t] = cols_t
             self.h2d_bytes += cols.nbytes + 2 * mi.nbytes
-            self._dirty_lanes.clear()
             self.syncs += 1
         return self.dev
 
@@ -326,26 +443,24 @@ class PlaneStack:
             self.spare = torch.empty_like(self.dev)
         return self.spare
 
-    def absorb(self, dev_out: torch.Tensor, mi: torch.Tensor,
-               lanes: torch.Tensor) -> None:
+    def absorb(self, dev_out: torch.Tensor) -> None:
         """Adopt a fused step's output (written into :meth:`out_buffer`) as
-        the new resident state; ``(mi, lanes)`` are the coordinates it
-        staged — the only lanes that can differ from the host mirror."""
+        the new resident state.  The step brings its staged lanes down
+        itself, and :meth:`absorb_in_place` writes them into the mirror."""
         if self.host_dirty or self._dirty_lanes:
             raise RuntimeError("host writes raced a fused step; push() "
                                "must precede absorb()")
         self.spare, self.dev = self.dev, dev_out
-        self._fresh.append((mi, lanes))
-        self.dev_fresh = True
 
     def absorb_in_place(self, rows: np.ndarray, mi: np.ndarray,
                         lanes: np.ndarray, cols: np.ndarray) -> None:
         """Adopt a fused step that updated the device stack in place (the
-        stack :meth:`push` returned) at ``(mi, lanes)``, where it changed
-        only the planes ``rows``; ``cols (len(rows), len(mi))`` are their
-        new values, brought down by the step.  They go into the host
-        mirror, so host and device agree on every lane and nothing is left
-        to pull."""
+        stack :meth:`push` returned), or whose output :meth:`absorb` took,
+        at ``(mi, lanes)`` (host coordinates), where
+        it changed only the planes ``rows``; ``cols (len(rows), len(mi))``
+        are their new values, brought down by the step (from every rank,
+        under a shard group).  They go into the host mirror, so host and
+        device agree on every lane and nothing is left to pull."""
         if self.host_dirty or self._dirty_lanes:
             raise RuntimeError("host writes raced a fused step; push() "
                                "must precede absorb_in_place()")
@@ -442,8 +557,12 @@ class ClusterEngine:
     into one fused call per kind per wave.
 
     With ``shards > 1`` the lane axes are kept shard-aligned and the
-    staging/occupancy and registry scatter are accounted per shard; one
-    fused call per wave still spans every shard.
+    staging/occupancy and registry scatter are accounted per shard.  In
+    one process one fused call per wave spans every shard.  Inside a
+    process group of ``shards`` ranks (:func:`_shard_mesh`) each rank
+    holds its lane block of each divisible stack and launches the kernels
+    on it; a wave's compact outputs are all-gathered, so the host
+    program, replicated on every rank, sees every lane.
     """
 
     def __init__(self, cfg, n_machines: int = 1, *, n_keys: int = 8,
@@ -462,6 +581,10 @@ class ClusterEngine:
                               proposer_vector.TABLE_DEFAULTS,
                               max(1, n_machines), sess,
                               n_shards=self.tab_shards, device=self.device)
+        self.mesh = _shard_mesh(self.shards)
+        if self.mesh is not None:
+            self.kv.set_mesh(self.mesh)
+            self.tab.set_mesh(self.mesh)
         self._machines: Dict[int, object] = {}    # mi -> BatchedMachine
         self._bridges: Dict[int, object] = {}     # mi -> its KVBridge
         # the device-resident message staging stack (NOOP between waves)
@@ -476,6 +599,8 @@ class ClusterEngine:
         self._act_host: Optional[np.ndarray] = None
         self._params_key = None
         self._params_dev: Optional[torch.Tensor] = None
+        # rank_*: this rank's share (all of it without a group); a
+        # kernel call on a CUDA device is one launch
         self.stats = {"ticks": 0, "waves": 0, "shards": self.shards,
                       "fused_receiver_calls": 0, "fused_receiver_lanes": 0,
                       "fused_issuer_calls": 0, "fused_issuer_lanes": 0,
@@ -483,7 +608,14 @@ class ClusterEngine:
                       "issuer_shard_lanes": [0] * self.tab_shards,
                       "shard_registrations": [0] * self.shards,
                       "stage_h2d_bytes": 0, "gather_d2h_bytes": 0,
-                      "issuer_wave_syncs": 0}
+                      "issuer_wave_syncs": 0,
+                      "mesh_world": self.mesh.world if self.mesh else 1,
+                      "mesh_rank": self.mesh.rank if self.mesh else 0,
+                      "rank_receiver_lanes": 0, "rank_issuer_lanes": 0,
+                      "rank_paxos_apply_calls": 0,
+                      "rank_paxos_propose_calls": 0,
+                      "mesh_gathers": 0, "mesh_gather_bytes": 0,
+                      "mesh_gather_s": 0.0}
 
     # -- telemetry -----------------------------------------------------------
 
@@ -560,27 +692,61 @@ class ClusterEngine:
     # -- staging buffers (persistent, reset lane-by-lane) --------------------
 
     def _msg_buffers(self) -> Tuple[torch.Tensor, np.ndarray]:
+        """(the device message stack, shaped as this rank's KV block; the
+        host reply planes, over every lane)."""
         shape = (self.kv.n_machines, self.kv.n_lanes)
-        if self._msg_stage is None or self._msg_stage.shape[1:] != shape:
+        if self._rep_host is None or self._rep_host.shape[1:] != shape:
             self._msg_stage = self._noop_col[:, :, None].expand(
-                N_MSGREG, *shape).contiguous()
+                N_MSGREG, *self.kv.dev.shape[1:]).contiguous()
             self._rep_host = np.empty((N_REP,) + shape, I32)
         return self._msg_stage, self._rep_host
 
     def _issuer_buffers(self) -> Tuple[torch.Tensor, ...]:
         """(staged host, staged device, out host, out device): flat int32
-        buffers sized for every lane of the table staged at once (a wave
-        stages each ``(machine, lane)`` at most once)."""
-        shape = (self.tab.n_machines, self.tab.n_lanes)
-        if self._act_host is None or self._act_host.shape[1:] != shape:
-            cap = shape[0] * shape[1]
+        buffers sized for every lane of this rank's table staged at once (a
+        wave stages each ``(machine, lane)`` at most once)."""
+        cap = self.tab.dev.shape[1] * self.tab.dev.shape[2]
+        if self._iss_bufs is None or self._iss_bufs[0].numel() != \
+                N_STAGED * cap:
             self._iss_bufs = tuple(
                 buf for rows in (N_STAGED, N_OUT) for buf in (
                     _host_tensor((rows * cap,), self.device),
                     torch.empty((rows * cap,), dtype=torch.int32,
                                 device=self.device)))
-            self._act_host = np.empty((N_ACT,) + shape, I32)
         return self._iss_bufs
+
+    def _owners(self, stack: PlaneStack, lanes: np.ndarray
+                ) -> Tuple[Optional[np.ndarray], np.ndarray]:
+        """(the rank whose block holds each staged lane, or ``None`` when
+        this rank holds every lane of ``stack``; the mask of this rank's
+        lanes).  Without a group the engine is rank 0 of a group of one."""
+        if not stack.lane_sharded:
+            return None, np.ones(len(lanes), dtype=bool)
+        blk = stack.block
+        owner = lanes // (blk.stop - blk.start)
+        return owner, owner == self.mesh.rank
+
+    def _all_gather(self, cols: np.ndarray, owner: np.ndarray) -> np.ndarray:
+        """Every rank's compact columns, ``cols (rows, n_r)`` from this
+        one, exchanged in one all-gather over the shard group -> ``(rows,
+        len(owner))`` in staging order: column ``j`` came from rank
+        ``owner[j]``.  Each rank knows every rank's count from the
+        replicated staging list, so the buffers pad to the largest."""
+        world = self.mesh.world
+        counts = np.bincount(owner, minlength=world)
+        send = torch.zeros((cols.shape[0], int(counts.max())),
+                           dtype=torch.int32)
+        send[:, :cols.shape[1]] = torch.from_numpy(cols)
+        bufs = [torch.empty_like(send) for _ in range(world)]
+        t0 = time.perf_counter()
+        dist.all_gather(bufs, send, group=self.mesh.group)
+        self.stats["mesh_gather_s"] += time.perf_counter() - t0
+        self.stats["mesh_gathers"] += 1
+        self.stats["mesh_gather_bytes"] += world * send.numel() * 4
+        out = np.empty((cols.shape[0], len(owner)), I32)
+        for q, buf in enumerate(bufs):
+            out[:, owner == q] = buf[:, :counts[q]].numpy()
+        return out
 
     # -- fused wave execution ------------------------------------------------
 
@@ -615,19 +781,34 @@ class ClusterEngine:
         kv_dev = self.kv.push()
         stage, rep_host = self._msg_buffers()
         staged = np.array(cols, I32).T
-        mi_t, key_t, vals_t = _coords(s_mi, s_key, staged, self.device)
-        self.stats["stage_h2d_bytes"] += staged.nbytes + 8 * len(s_mi)
-        stage[:, mi_t, key_t] = vals_t
-        out_kv, out_rep, out_mask = _fused_receiver_step(
-            kv_dev, stage, out=self.kv.out_buffer())
-        # reset to NOOP for the next wave
-        stage[:, mi_t, key_t] = self._noop_col
-        self.kv.absorb(out_kv, mi_t, key_t)
+        all_mi, all_key = np.array(s_mi, I32), np.array(s_key, I32)
+        # this rank stages the lanes of its block, at block offsets, and
+        # brings their replies, mask and new KV planes down in one copy
+        owner, mine = self._owners(self.kv, all_key)
+        mi_a, key_a = all_mi[mine], all_key[mine] - self.kv.block.start
+        staged = staged[:, mine]
+        self.stats["rank_receiver_lanes"] += len(mi_a)
+        got = np.empty((N_REP + 1 + N_KV, 0), I32)
+        if len(mi_a):
+            mi_t, key_t, vals_t = _coords(mi_a, key_a, staged, self.device)
+            self.stats["stage_h2d_bytes"] += staged.nbytes + 8 * len(mi_a)
+            stage[:, mi_t, key_t] = vals_t
+            out_kv, out_rep, out_mask = _fused_receiver_step(
+                kv_dev, stage, out=self.kv.out_buffer())
+            self.stats["rank_paxos_apply_calls"] += 1
+            # reset to NOOP for the next wave
+            stage[:, mi_t, key_t] = self._noop_col
+            got = torch.cat([out_rep[:, mi_t, key_t],
+                             out_mask[mi_t, key_t][None],
+                             out_kv[:, mi_t, key_t]]).cpu().numpy()
+            self.kv.absorb(out_kv)
+            self.stats["gather_d2h_bytes"] += got[:N_REP + 1].nbytes
+            self.kv.d2h_bytes += got[N_REP + 1:].nbytes
+        if owner is not None:
+            got = self._all_gather(got, owner)
+        self.kv.absorb_in_place(_KV_ROWS, all_mi, all_key, got[N_REP + 1:])
         for br in self._bridges.values():
             br.drop_views()              # stale against the new stack
-        got = torch.cat([out_rep[:, mi_t, key_t],
-                         out_mask[mi_t, key_t][None]]).cpu().numpy()
-        self.stats["gather_d2h_bytes"] += got.nbytes
         rep_host[:, s_mi, s_key] = got[:N_REP]
         mask_col = got[N_REP]
         results: Dict[int, Dict[str, np.ndarray]] = {}
@@ -673,6 +854,9 @@ class ClusterEngine:
                 s_lane.append(lane)
                 shard_lanes_stat[lane // lps] += 1
         got = self.issuer_wave(s_mi, s_lane, np.array(cols, I32).T)
+        shape = (N_ACT, self.tab.n_machines, self.tab.n_lanes)
+        if self._act_host is None or self._act_host.shape != shape:
+            self._act_host = np.empty(shape, I32)
         act_host = self._act_host
         act_host[:, s_mi, s_lane] = got[:N_ACT]
         results: Dict[int, Dict[str, np.ndarray]] = {}
@@ -692,10 +876,29 @@ class ClusterEngine:
         place on the resident table, one download of the compact ``(14 +
         44, L)`` output and one wait for it.  The changed planes go into
         the table's host mirror; returns the output (a view of a buffer the
-        next wave overwrites)."""
-        n = len(s_mi)
-        st_host, st_dev, out_host, out_dev = self._issuer_buffers()
+        next wave overwrites).  Under a shard group that splits the table
+        each rank does this for the lanes of its block, at block offsets,
+        and the outputs are all-gathered."""
         tab_dev = self.tab.push()
+        mi_a, lane_a = np.asarray(s_mi, I32), np.asarray(s_lane, I32)
+        owner, mine = self._owners(self.tab, lane_a)
+        got = np.empty((N_OUT, 0), I32)
+        if mine.any():
+            got = self._issuer_launch(tab_dev, mi_a[mine],
+                                      lane_a[mine] - self.tab.block.start,
+                                      replies[:, mine])
+        if owner is not None:
+            got = self._all_gather(got, owner)
+        self.tab.absorb_in_place(CHANGED_ROWS, mi_a, lane_a, got[N_ACT:])
+        return got
+
+    def _issuer_launch(self, tab_dev: torch.Tensor, s_mi: np.ndarray,
+                       s_lane: np.ndarray, replies: np.ndarray) -> np.ndarray:
+        """The staged issuer step on this rank's device table at its
+        coordinates -> the compact output on the host."""
+        n = len(s_mi)
+        self.stats["rank_issuer_lanes"] += n
+        st_host, st_dev, out_host, out_dev = self._issuer_buffers()
         packed = st_host[:N_STAGED * n].view(N_STAGED, n)
         packed_np = packed.numpy()
         packed_np[0] = s_mi
@@ -706,7 +909,8 @@ class ClusterEngine:
         self.stats["stage_h2d_bytes"] += packed_np.nbytes
         out = out_dev[:N_OUT * n].view(N_OUT, n)
         paxos_propose_staged(tab_dev.view(N_TAB, -1), staged, self._params(),
-                             self.tab.n_lanes, out=out, coords=packed_np[:2])
+                             tab_dev.shape[2], out=out, coords=packed_np[:2])
+        self.stats["rank_paxos_propose_calls"] += 1
         got = out_host[:N_OUT * n].view(N_OUT, n)
         got.copy_(out, non_blocking=True)
         if self.device.type == "cuda":
@@ -714,8 +918,6 @@ class ClusterEngine:
         self.stats["issuer_wave_syncs"] += 1
         got_np = got.numpy()
         self.stats["gather_d2h_bytes"] += got_np.nbytes
-        self.tab.absorb_in_place(CHANGED_ROWS, packed_np[0], packed_np[1],
-                                 got_np[N_ACT:])
         return got_np
 
     def drive(self, pairs: Iterable[Tuple[object, object]]) -> None:
