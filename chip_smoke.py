@@ -45,7 +45,25 @@ Phases (any failure exits nonzero and prints no result):
    a rank still running after 300 s is killed.  Prints each rank's
    waves, launches, lanes a launch, host ms from a launch to its end,
    gathers with their bytes and seconds, and its wall against
-   ``[serve]``'s.
+   ``[serve]``'s.  Then ``[train_mesh]``, the sharded train step:
+   qwen1.5-4b at full width (d_model 2560, 20/20 heads, d_ff 6912, vocab
+   151936) cut to 4 of 40 layers, 2 x 1024 tokens a step, on 4 spawned
+   ranks on the one card as a (2, 2) (data, model) mesh over gloo,
+   placed as DTensors by ``launch/steps.place_cell`` (FSDP over "data";
+   heads, mlp and vocab over "model"; ZeRO-1 moments; the batch over
+   "data"), DTensor's collectives staged through host memory
+   (``parallel/host_staged.py``).  Step 1's gradient and three AdamW
+   steps on each rank, then the same model and batch in one process on
+   the card: each step's loss and grad norm within 1e-5 relative, every
+   gradient leaf of step 1 within 1e-4 of its max |g|, every parameter
+   after three steps within 3 x lr (the share beyond 1e-6 printed),
+   each rank's first ``flash_attention`` call within 1e-4 of
+   ``attention_plain`` on its block, its moments on the card in the
+   blocks ``opt_state_specs`` gives, and ``flash_attention`` launched 24
+   times a rank (counts set to 0 just before the steps); a rank still
+   running after 240 s is killed.  Prints the collectives of one step
+   (``launch/collectives.py``), what each rank staged, ms a step and
+   peak GB a rank.
 4. **Schedule replay** (``repro_torch.core.replay``): the port's scalar
    cluster with both trace taps at the serve phase's width and seeds (5 x
    800 sessions x 2^20 keys, 4000 ops; seed 0 plain, seed 1 all-aboard
@@ -298,7 +316,8 @@ its; for the select networks also ``serve_mesh_launches``, their
 launches on each rank of phase 3's ``[serve_mesh]``, ``smoke_launches``,
 their launches in each smoke of phase 8, ``examples_launches``, in each example of phase
 24, and ``kimi_engine_launches``, in phase 23's engine; for
-``flash_attention`` also ``zoo_launches``, its launches in the f32
+``flash_attention`` also ``train_mesh_launches``, its launches on each
+rank of phase 3's ``[train_mesh]``, ``zoo_launches``, its launches in the f32
 prefills of phases 14-16, in whisper's decode step and in phase 18's
 shard_map prefill, ``zoo_bf16_ms``, its device time a call in their bf16
 prefills, ``dense_launches`` and ``dense_bf16_ms``, the same for phase
@@ -320,6 +339,7 @@ import dataclasses
 import functools
 import hashlib
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -917,7 +937,7 @@ def _serve_mesh_rank_body(torch, world, dev, n_ops):
             "compared": [apply_ok.compared, propose_ok.compared]}
 
 
-def _join_ranks(procs, work, limit):
+def _join_ranks(procs, work, limit, tag="serve_mesh"):
     """Wait for every rank; a rank that fails stops the others at once,
     and a rank still running at ``limit`` seconds is killed.  Raises with
     the tail of each rank's log."""
@@ -927,20 +947,20 @@ def _join_ranks(procs, work, limit):
             codes = {r: p.exitcode for r, p in enumerate(procs)}
             bad = {r: c for r, c in codes.items() if c not in (None, 0)}
             if bad:
-                raise AssertionError(f"[serve_mesh] ranks exited with codes "
+                raise AssertionError(f"[{tag}] ranks exited with codes "
                                      f"{bad}")
             if all(c == 0 for c in codes.values()):
                 return
             if time.monotonic() > deadline:
                 raise AssertionError(
-                    f"[serve_mesh] ranks {[r for r, c in codes.items() if c is None]} "
+                    f"[{tag}] ranks {[r for r, c in codes.items() if c is None]} "
                     f"still running after {limit:.0f} s; killed")
             time.sleep(0.2)
     except AssertionError:
         for r in range(len(procs)):
             path = work / f"rank{r}.log"
             tail = path.read_text()[-2000:] if path.is_file() else ""
-            log(f"[serve_mesh] rank {r} log tail:\n{tail}")
+            log(f"[{tag}] rank {r} log tail:\n{tail}")
         raise
     finally:
         for p in procs:
@@ -1040,6 +1060,343 @@ def phase_serve_mesh(torch, mods, n_ops, want):
     seconds = time.perf_counter() - t_phase
     log(f"[serve_mesh] phase {seconds:.1f} s")
     return {"launches": launches, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# [train_mesh]: the sharded train step, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH = "qwen1.5-4b"
+TRAIN_MESH_LAYERS = 4     # of 40: 1,095,160,320 float32 parameters
+TRAIN_MESH_SHAPE = (2, 2)  # (data, model)
+TRAIN_MESH_TOKENS = 1024  # 2 x 1024 tokens a step, as the other train phases
+TRAIN_MESH_STEPS = 3
+TRAIN_MESH_LIMIT = 240.0  # seconds; a rank still running then is killed
+# every parameter after the steps against one process's: a few times the
+# worst of sound runs (5.57e-05 on an H100 80GB HBM3 at 700 W), below what
+# one wrong-sign gradient block moves (the phase's planted reading)
+TRAIN_MESH_PARAM_TOL = 2e-4
+# the planted fault: this leaf's gradient negated on one "model" block of
+# its first layer, in this step (1-based; step 1's gradients are held
+# leaf by leaf, the later steps' only through the parameters)
+TRAIN_MESH_PLANT = ("units/0/mlp/w_up", 2)
+
+
+def _block_bounds(t):
+    """(start, stop) a dim of this rank's block of DTensor ``t`` in the
+    whole tensor (Shard and Replicate placements, mesh dims in order)."""
+    coord = t.device_mesh.get_coordinate()
+    start, size = [0] * t.dim(), list(t.shape)
+    for mdim, pl in enumerate(t.placements):
+        if pl.is_shard():
+            n = t.device_mesh.size(mdim)
+            size[pl.dim] //= n
+            start[pl.dim] += coord[mdim] * size[pl.dim]
+    return tuple((a, a + n) for a, n in zip(start, size))
+
+
+def train_mesh_batch(torch, cfg, dev):
+    """The step's 2 x TRAIN_MESH_TOKENS tokens, drawn on the card from a
+    seed (the same on every rank and in the one-process run)."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    return {"tokens": torch.randint(1, cfg.vocab, (2, TRAIN_MESH_TOKENS),
+                                    generator=g, device=dev,
+                                    dtype=torch.int32)}
+
+
+def train_mesh_rank(rank, world, workdir):
+    """One rank of ``[train_mesh]``, a spawned process: joins the gloo
+    group through the ``FileStore`` in ``workdir`` on ``cuda:0`` (every
+    rank on the one card), runs the sharded step and saves what the parent
+    gates to ``rank<r>.pt``; its log goes to ``rank<r>.log``."""
+    import torch
+    import torch.distributed as dist
+
+    work = pathlib.Path(workdir)
+    with open(work / f"rank{rank}.log", "w") as f, \
+            contextlib.redirect_stdout(f):
+        torch.set_num_threads(2)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                                rank=rank, world_size=world)
+        try:
+            res = _train_mesh_rank_body(torch, dev)
+        finally:
+            dist.destroy_process_group()
+        torch.save(res, work / f"rank{rank}.pt")
+
+
+def _train_mesh_rank_body(torch, dev):
+    mods = load_modules()
+    cfg = _cut(mods, TRAIN_MESH, TRAIN_MESH_LAYERS)
+    mesh = mods.make_device_mesh(TRAIN_MESH_SHAPE, dev)
+    batch = train_mesh_batch(torch, cfg, dev)
+    opt_cfg = mods.AdamWConfig(**TRAIN_OPT)
+    cell = mods.Shape("train_mesh", TRAIN_MESH_TOKENS, 2, "train")
+    first = {}
+    wrapper = mods.blocks.flash_attention
+
+    def record_first(q, k, v, **kw):
+        out = wrapper(q, k, v, **kw)
+        if not first:
+            first.update(q=q.detach().clone(), k=k.detach().clone(),
+                         v=v.detach().clone(), out=out.detach().clone(),
+                         kw=kw)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    with mods.HostStaged() as staged:
+        t0 = time.perf_counter()
+        fn, (params, opt_state, placed) = mods.place_cell(
+            cfg, cell, mesh, batch, opt_cfg=opt_cfg)
+        del batch
+        torch.cuda.synchronize()
+        t_place = time.perf_counter() - t0
+        value_and_grad = mods.steps._value_and_grad
+        grads = []
+
+        def record_grads(*a, **kw):
+            # the first step's own gradients, kept before its update
+            loss, g = value_and_grad(*a, **kw)
+            grads.extend(x.detach().clone() for x in g)
+            return loss, g
+
+        # the main path: counts at 0 just before the steps, read just after
+        losses, norms, walls = [], [], []
+        _zero_kernel_counts(mods)
+        for i in range(TRAIN_MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                mods.blocks.flash_attention = record_first
+                mods.steps._value_and_grad = record_grads
+                try:
+                    with mods.CollectiveCounter() as counter:
+                        params, opt_state, m = fn(params, opt_state, placed)
+                finally:
+                    mods.blocks.flash_attention = wrapper
+                    mods.steps._value_and_grad = value_and_grad
+            else:
+                params, opt_state, m = fn(params, opt_state, placed)
+            losses.append(float(m["loss"].full_tensor()))
+            norms.append(float(m["grad_norm"].full_tensor()))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            log(f"[train_mesh] step {i + 1}: loss {losses[-1]:.7f}, grad "
+                f"norm {norms[-1]:.7f}, {walls[-1]:.1f} ms")
+        launches = _kernel_counts(mods)
+        # a gradient may hold partial sums: lay it out as its parameter
+        grad_blocks = []
+        for g, p in zip(grads, mods.leaves(params)):
+            g = g.redistribute(mesh, p.placements)
+            grad_blocks.append((_block_bounds(g), g.to_local().cpu()))
+        del grads, g
+    leaves = mods.leaves(params)
+    param_blocks = [(_block_bounds(p), p.to_local().cpu()) for p in leaves]
+    moments = [(tuple(t.to_local().shape), str(t.placements),
+                str(t.to_local().device), str(t.dtype))
+               for t in mods.leaves(opt_state.m) + mods.leaves(opt_state.v)]
+    step = int(opt_state.step.to_local())
+    # the first attention call, against the plain version on its block
+    want = mods.fa_ops.attention_plain(first["q"], first["k"], first["v"],
+                                       **first["kw"])
+    fa_err = float((first["out"] - want).abs().max())
+    fa_scale = float(want.abs().max())
+    return {"coord": tuple(mesh.get_coordinate()), "losses": losses,
+            "grad_norms": norms, "walls_ms": walls, "place_s": t_place,
+            "launches": launches, "collectives": counter.result(),
+            "staged": {k: (staged.ops[k], staged.bytes[k],
+                           staged.seconds[k]) for k in staged.ops},
+            "grads": grad_blocks, "params": param_blocks,
+            "moments": moments, "step": step,
+            "fa_block": tuple(first["q"].shape), "fa_err": fa_err,
+            "fa_scale": fa_scale,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_train_mesh(torch, mods, dev):
+    """qwen1.5-4b at full width cut to TRAIN_MESH_LAYERS, trained on a
+    TRAIN_MESH_SHAPE (data, model) mesh of spawned ranks on the one card
+    (gloo, DTensor collectives staged through host memory): FSDP over
+    "data", heads, mlp and vocab over "model", ZeRO-1 moments, the batch
+    over "data".  Held to the same model and batch in one process on the
+    card: each step's loss and grad norm within LOSS_TOL relative, step
+    1's gradient leaves (the first timed step's own) within LEAF_TOL of
+    each leaf's max |g|, every parameter after the steps within
+    TRAIN_MESH_PARAM_TOL, which one planted wrong-sign gradient block must
+    exceed; each rank's first attention
+    call within FLOAT_TOL of ``attention_plain`` on its block, its moments
+    the blocks ``opt_state_specs`` gives, on the card; ``flash_attention``
+    launched on every rank, twice a layer a step."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tag = "train_mesh"
+    t_phase = time.perf_counter()
+    require_free(torch, tag)
+    cfg = _cut(mods, TRAIN_MESH, TRAIN_MESH_LAYERS)
+    model = mods.build_model(cfg)
+    n = sum(math.prod(t.shape) for t in _leaves(model.param_shapes()))
+    world = math.prod(TRAIN_MESH_SHAPE)
+    log(f"[{tag}] {TRAIN_MESH} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}) cut to {TRAIN_MESH_LAYERS} of "
+        f"{mods.ARCHS[TRAIN_MESH].n_layers} layers: {n:,} float32 "
+        f"parameters, {n * 16 / 1e9:.2f} GB with gradients and moments; "
+        f"{world} ranks on {torch.cuda.get_device_name(0)} as a "
+        f"{TRAIN_MESH_SHAPE} (data, model) mesh, gloo; 2 x "
+        f"{TRAIN_MESH_TOKENS} tokens a step, {TRAIN_MESH_STEPS} steps")
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_mesh_") as tmp:
+        work = pathlib.Path(tmp)
+        procs = [ctx.Process(target=train_mesh_rank, args=(r, world, tmp))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        _join_ranks(procs, work, TRAIN_MESH_LIMIT, tag)
+        ranks = [torch.load(work / f"rank{r}.pt") for r in range(world)]
+    t_ranks = time.perf_counter() - t0
+    # the same model and batch in one process
+    torch.cuda.reset_peak_memory_stats()
+    batch = train_mesh_batch(torch, cfg, dev)
+    opt_cfg = mods.AdamWConfig(**TRAIN_OPT)
+    names = [nm for nm, _ in _named_leaves(model.param_shapes())]
+
+    def one_process(plant=None):
+        """The steps in this process: losses, grad norms, step 1's
+        gradients (none when ``plant``, which negates its leaf's block in
+        its step) and the parameters after the steps."""
+        params = mods.lm.LM(cfg).init(0, device=dev)
+        state = mods.adamw.init(opt_cfg, params)
+        fn = mods.make_train_step(model, opt_cfg)
+        value_and_grad = mods.steps._value_and_grad
+        first, losses, norms = [], [], []
+
+        def hook(*a, **kw):
+            loss, g = value_and_grad(*a, **kw)
+            if plant is None and not losses:
+                first.extend(x.detach().clone() for x in g)
+            elif plant is not None and len(losses) + 1 == plant[1]:
+                x = g[names.index(plant[0])][0]
+                x[..., :x.shape[-1] // 2].neg_()
+            return loss, g
+
+        mods.steps._value_and_grad = hook
+        try:
+            for _ in range(TRAIN_MESH_STEPS):
+                params, state, m = fn(params, state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+        finally:
+            mods.steps._value_and_grad = value_and_grad
+        return losses, norms, first, mods.leaves(params)
+
+    losses, norms, grads, final = one_process()
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{tag}] one process: losses {losses}, grad norms {norms}; peak "
+        f"{one_peak:.2f} GB")
+    specs = mods.steps.opt_state_specs(model.param_specs(), opt_cfg)
+    mesh_shape = mods.MeshShape(("data", "model"), TRAIN_MESH_SHAPE)
+    want_moments = mods.leaves(mods.steps.param_shardings(
+        specs.m, model.param_shapes(), mesh_shape))
+    grad_worst, param_worst, beyond, total = [], 0.0, 0, 0
+    for r, res in enumerate(ranks):
+        what = f"[{tag}] rank {r} {res['coord']}"
+        for got, want, kind in ((res["losses"], losses, "loss"),
+                                (res["grad_norms"], norms, "grad norm")):
+            rel = max(abs(a / b - 1) for a, b in zip(got, want))
+            if not rel <= LOSS_TOL:
+                raise AssertionError(f"{what}: {kind} {got} against one "
+                                     f"process {want}: {rel:.3e}")
+        for (bounds, block), g, nm in zip(res["grads"], grads, names):
+            ref = g[tuple(slice(*b) for b in bounds)]
+            grad_worst.append((float((block.to(dev) - ref).abs().max())
+                               / max(float(g.abs().max()), 1e-30), nm))
+        for (bounds, block), p in zip(res["params"], final):
+            diff = (block.to(dev) - p[tuple(slice(*b) for b in bounds)]).abs()
+            param_worst = max(param_worst, float(diff.max()))
+            beyond += int((diff > 1e-6).sum())
+            total += diff.numel()
+        if res["step"] != TRAIN_MESH_STEPS:
+            raise AssertionError(f"{what}: step counter {res['step']}")
+        for (local, placement, device, dtype), sh, p in zip(
+                res["moments"], want_moments * 2, final * 2):
+            if (local != sh.shard_shape(tuple(p.shape))
+                    or placement != str(sh.placements)
+                    or not device.startswith(dev.type)):
+                raise AssertionError(f"{what}: a moment's block {local} "
+                                     f"{placement} on {device}, want "
+                                     f"{sh.shard_shape(tuple(p.shape))} "
+                                     f"{sh.placements} on the card")
+        fa_rel = res["fa_err"] / max(res["fa_scale"], 1e-30)
+        log(f"{what}: first flash_attention call on its block "
+            f"{res['fa_block']}: max |out - attention_plain| "
+            f"{res['fa_err']:.3e} of max {res['fa_scale']:.3e} "
+            f"({fa_rel:.3e}, tolerance {FLOAT_TOL['float32']:g}); launches "
+            f"{json.dumps(res['launches'])}; ms a step {res['walls_ms']}; "
+            f"placed in {res['place_s']:.1f} s; peak "
+            f"{res['peak_gb']:.2f} GB")
+        if not fa_rel <= FLOAT_TOL["float32"]:
+            raise AssertionError(f"{what}: the kernel's block disagrees "
+                                 f"with attention_plain")
+        want_launches = 2 * TRAIN_MESH_LAYERS * TRAIN_MESH_STEPS
+        if res["launches"]["flash_attention"] != want_launches:
+            raise AssertionError(f"{what}: flash_attention launched "
+                                 f"{res['launches']['flash_attention']} "
+                                 f"times, want {want_launches}")
+    grad_worst.sort(reverse=True)
+    log(f"[{tag}] step 1's gradient leaves over all ranks' blocks, max "
+        f"|g - g_one| over max |g_one|, worst three: "
+        f"{', '.join(f'{nm} {e:.3e}' for e, nm in grad_worst[:3])} "
+        f"(tolerance {LEAF_TOL:g})")
+    # the parameter gate's reach: one block of a later step's gradient
+    # with the wrong sign, in the same one-process run
+    del grads
+    *_, planted = one_process(TRAIN_MESH_PLANT)
+    plant_worst = max(float((a - b).abs().max())
+                      for a, b in zip(planted, final))
+    del planted
+    log(f"[{tag}] parameters after {TRAIN_MESH_STEPS} steps: max |p - "
+        f"p_one| {param_worst:.3e} (bound {TRAIN_MESH_PARAM_TOL:g}); "
+        f"{beyond} of {total} elements beyond 1e-6 "
+        f"({beyond / total:.3e}); with {TRAIN_MESH_PLANT[0]}'s step "
+        f"{TRAIN_MESH_PLANT[1]} gradient negated on one block of its first "
+        f"layer {plant_worst:.3e}; this process's peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if (not grad_worst[0][0] <= LEAF_TOL
+            or not param_worst <= TRAIN_MESH_PARAM_TOL):
+        raise AssertionError(f"[{tag}] the sharded step's gradients or "
+                             f"parameters differ from one process's")
+    if not plant_worst > TRAIN_MESH_PARAM_TOL:
+        raise AssertionError(f"[{tag}] the parameter gate cannot see a "
+                             f"wrong-sign gradient block")
+    counts = [res["collectives"] for res in ranks]
+    if any(c != counts[0] for c in counts) or not counts[0]["count"]:
+        raise AssertionError(f"[{tag}] the ranks' collectives differ or "
+                             f"are none: {counts}")
+    log(f"[{tag}] collectives a step a rank (launch/collectives.py, bytes "
+        f"a device): {json.dumps(counts[0])}")
+    for r, res in enumerate(ranks):
+        log(f"[{tag}] rank {r} collectives staged through host memory "
+            f"(calls, device bytes, host s): {json.dumps(res['staged'])}")
+    step_ms = [statistics.median(res["walls_ms"][1:]) for res in ranks]
+    peak = [res["peak_gb"] for res in ranks]
+    del final
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] ms a step a rank (median of steps 2-"
+        f"{TRAIN_MESH_STEPS}): {step_ms}; peak GB a rank: {peak} "
+        f"({sum(peak):.2f} together); ranks {t_ranks:.1f} s; phase "
+        f"{seconds:.1f} s")
+    return {"launches": [res["launches"]["flash_attention"]
+                         for res in ranks],
+            "collectives": counts[0], "step_ms": step_ms, "peak_gb": peak,
+            "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -4181,9 +4538,10 @@ def release_memory(torch, tag):
 
 # the peak memory allocated of each large phase, measured on an H100 80GB
 # HBM3 at 700 W (PERF.md section 5) and rounded up: a card with less free
-# than that fails the phase up front and says so
+# than that fails the phase up front and says so ("train_mesh": its four
+# ranks' peaks together)
 PEAK_GB = {"train": 32.8, "train_rwkv6": 51.2, "train_mixtral": 77.1,
-           "train_whisper": 31.3, "kimi": 79.3}
+           "train_whisper": 31.3, "kimi": 79.3, "train_mesh": 37.0}
 
 
 def require_free(torch, tag):
@@ -4584,7 +4942,10 @@ def load_modules():
     from repro_torch.kernels.paxos_propose import ops as propose_ops
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.launch import dryrun, roofline
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch import steps
+    from repro_torch.launch.collectives import CollectiveCounter
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.steps import make_train_step, place_cell
     from repro_torch.models import blocks
     from repro_torch.models import lm
     from repro_torch.models.common import Init
@@ -4592,7 +4953,8 @@ def load_modules():
     from repro_torch.obs import FlightRecorder, flight_guard
     from repro_torch.optim import adamw
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.parallel.host_staged import HostStaged
+    from repro_torch.parallel.sharding import MeshShape, use_mesh
     from repro_torch.reconfig import catchup
     from repro_torch.serve import loadgen
     from repro_torch.serve.engine import DecodeEngine, ServeConfig
@@ -4622,7 +4984,9 @@ def load_modules():
         make_train_step=make_train_step,
         TrainConfig=TrainConfig, train=train, build=_build,
         dryrun=dryrun, roofline=roofline, use_mesh=use_mesh,
-        drivers=load_drivers())
+        steps=steps, place_cell=place_cell, make_device_mesh=make_device_mesh,
+        HostStaged=HostStaged, CollectiveCounter=CollectiveCounter,
+        MeshShape=MeshShape, drivers=load_drivers())
 
 
 def main(argv=None) -> int:
@@ -4669,6 +5033,7 @@ def main(argv=None) -> int:
     # GB on the card) are not needed past this point
     del runs, rec_r, rec_i
     serve_mesh = phase_serve_mesh(torch, mods, args.n_ops, serve_want)
+    train_mesh = phase_train_mesh(torch, mods, dev)
     phase_schedule_replay(torch, mods, dev, args.n_ops)
     times = phase_timings(torch, mods, mods.pv, dev, waves_all)
     phase_idle(torch, mods, dev, args.n_ops)
@@ -4763,6 +5128,8 @@ def main(argv=None) -> int:
         "whisper_prefill": zoo["whisper"]["flash_attention"],
         "whisper_decode_step": zoo["whisper_decode"],
         "mixtral_shardmap_prefill": parallel["flash_attention"]}
+    # [train_mesh]'s steps, on each rank's block
+    fa["train_mesh_launches"] = train_mesh["launches"]
     fa["examples_launches"] = {
         "serve_kvstore_prefill":
             examples["launches"]["flash_attention"]["serve_kvstore"],

@@ -19,9 +19,12 @@ arithmetic (``==`` in ``tests/test_torch_roofline.py``):
             decode roofline: bandwidth-bound)
 
 The reference takes its collective bytes from the compiled HLO.  The
-port's dry run compiles nothing, so its records say ``"collectives":
-None``; :func:`terms` then reports ``t_collective`` as None and takes the
-dominant term over compute and memory only (ROADMAP Queue 1 item 5).
+port's dry run counts them by running the cell's step on DTensors over a
+fake process group (``dryrun.py --collectives``, ``launch/collectives.py``):
+bytes a device, summed over the kinds, over NVLink 4's one-direction rate.
+Those are DTensor's eager choices of collectives, not XLA's partitioner's,
+so the table heads the term ``dt-coll``.  A record without them (``"collectives": None``) has ``t_collective`` None,
+and its dominant term is taken over compute and memory only.
 """
 
 from __future__ import annotations
@@ -197,7 +200,7 @@ def _cell(x, width: int, fmt: str) -> str:
 
 def fmt_table(rows) -> str:
     hdr = (f"{'arch':18s} {'shape':12s} {'mesh':8s} "
-           f"{'compute(s)':>11s} {'memory(s)':>10s} {'coll(s)':>10s} "
+           f"{'compute(s)':>11s} {'memory(s)':>10s} {'dt-coll(s)':>10s} "
            f"{'dominant':>10s} {'frac':>6s} {'mem/dev':>8s}")
     lines = [hdr, "-" * len(hdr)]
     for r in rows:
@@ -206,6 +209,8 @@ def fmt_table(rows) -> str:
             f"{r['t_compute']:11.4f} {r['t_memory']:10.4f} "
             f"{_cell(r['t_collective'], 10, '.4f')} {r['dominant']:>10s} "
             f"{r['roofline_frac']:6.2f} {r['mem_per_dev_gb']:7.2f}G")
+    lines.append("dt-coll: the collectives DTensor issues in the step "
+                 "(launch/collectives.py), not XLA's; n/a where not counted")
     return "\n".join(lines)
 
 

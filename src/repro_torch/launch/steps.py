@@ -7,8 +7,12 @@ every argument as a :class:`~repro_torch.parallel.sharding.NamedSharding`
 (the resolved spec, with ``.placements`` for DTensor and
 ``.shard_shape``), over a ``DeviceMesh`` or a ``MeshShape``.
 :func:`build_cell` assembles them with ``meta`` tensors for the dry run
-(``launch/dryrun.py``); placing real tensors on several cards by them
-waits for ROADMAP Queue 1 item 5.
+(``launch/dryrun.py``).  The same shardings place a cell for real, as the
+reference's module says they are "used identically by the real
+trainer/server and the dry-run": :func:`place_cell` puts a train or
+prefill cell's parameters, optimizer state and batch on a ``DeviceMesh``
+as DTensors, and the step it returns (``make_train_step`` or
+``make_prefill``, unchanged) runs on them, each rank on its blocks.
 """
 
 from __future__ import annotations
@@ -16,13 +20,15 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.shapes import Shape
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import build_model, input_specs
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import (
-    Mesh, NamedSharding, mesh_axis_sizes, resolve, spec_map,
+    Mesh, NamedSharding, distribute, mesh_axis_sizes, replicate_like,
+    resolve, spec_map,
 )
 from repro_torch.tree import leaves, unflatten
 
@@ -140,9 +146,9 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,
                                   x.shape[0] // microbatches) + x.shape[1:])
             parts = {k: split(v) for k, v in batch.items()}
             ps = leaves(params)
-            loss = torch.zeros((), dtype=torch.float32, device=ps[0].device)
-            g = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in ps]
+            loss = replicate_like(torch.zeros((), dtype=torch.float32,
+                                              device=ps[0].device), ps[0])
+            g = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
             for i in range(microbatches):
                 l_i, g_i = _value_and_grad(
                     model, params, {k: v[i] for k, v in parts.items()}, remat)
@@ -248,3 +254,33 @@ def build_cell(cfg: ModelConfig, shape: Shape, mesh: Mesh,
         donate = (1,)
         out_sh = (None, c_shard)
     return fn, args, in_sh, out_sh, donate
+
+
+def place_cell(cfg: ModelConfig, shape: Shape, mesh: DeviceMesh,
+               batch: Dict[str, torch.Tensor], *, params=None,
+               opt_cfg: Optional[adamw.AdamWConfig] = None):
+    """(fn, args) of a train or prefill cell placed on ``mesh`` by
+    :func:`build_cell`'s shardings: ``fn(*args)`` runs the step.
+
+    ``batch`` holds the cell's inputs whole (``registry.input_specs(cfg,
+    shape)``'s shapes); ``params`` is a whole parameter tree on the mesh's
+    device (such as ``models/convert.params_from_reference``'s), or
+    ``None`` to draw a float32 one from seed 0.  Every rank must pass the
+    same values: each keeps its own block of every leaf, and a replicated
+    leaf's block is the given tensor itself, which a train step updates in
+    place.  A train cell's optimizer state is ``adamw.init`` of the placed
+    parameters, so its moments follow them (ZeRO-1,
+    :func:`opt_state_specs`)."""
+    if shape.kind not in ("train", "prefill"):
+        raise ValueError(f"place_cell places train and prefill cells, not "
+                         f"{shape.kind!r} (ROADMAP Queue 1 item 5)")
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    fn, _, in_sh, _, _ = build_cell(cfg, shape, mesh, opt_cfg)
+    if params is None:
+        params = build_model(cfg).init(0, torch.float32,
+                                       device=mesh.device_type)
+    placed = distribute(params, in_sh[0], mesh)
+    inputs = distribute(batch, in_sh[-1], mesh)
+    if shape.kind == "prefill":
+        return fn, (placed, inputs)
+    return fn, (placed, adamw.init(opt_cfg, placed), inputs)

@@ -19,11 +19,17 @@ PyTorch, as the reference computes them outside Pallas.
 Each block's ``<block>_specs(cfg)`` gives the reference's logical axes of
 its parameters (``repro_torch.parallel.sharding``), which the reference's
 ``init_<block>`` returns beside the arrays; the port's ``init_<block>``
-returns the tensors only.  Activations carry no sharding annotations:
-under a :func:`~repro_torch.parallel.sharding.use_mesh` block whose mesh
-has a "model" axis, :func:`apply_moe` of a ``moe_impl="shardmap"`` config
-runs :func:`apply_moe_shardmap` over the mesh's process groups, and every
-other path computes on the whole tensors it is given.
+returns the tensors only.  Under a
+:func:`~repro_torch.parallel.sharding.use_mesh` block whose mesh has a
+"model" axis, :func:`apply_moe` of a ``moe_impl="shardmap"`` config runs
+:func:`apply_moe_shardmap` over the mesh's process groups.
+
+Parameters placed on a ``DeviceMesh`` as DTensors (``launch/steps.py``
+``place_cell``) run the same code: the attention and MLP blocks constrain
+their activations where the reference does
+(:func:`~repro_torch.parallel.sharding.shard`, a redistribute; a no-op on
+plain tensors), and the attention kernel runs on each rank's block of
+batch and heads (:func:`_attention`).
 
 Decode caches are updated in place where that saves a copy of the whole
 cache: :func:`apply_attention_decode` writes the new key and value into the
@@ -41,6 +47,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 from torch.profiler import record_function
 
 from repro_torch.kernels.flash_attention.ops import (
@@ -48,8 +56,9 @@ from repro_torch.kernels.flash_attention.ops import (
 )
 from repro_torch.kernels.mamba2_ssd.ops import ssd, ssd_decode
 from repro_torch.kernels.rwkv6_wkv.ops import wkv6, wkv6_decode
-from repro_torch.parallel.sharding import current_mesh, mesh_axes, \
-    mesh_axis_sizes
+from repro_torch.parallel.sharding import (
+    current_mesh, mesh_axes, mesh_axis_sizes, placements, resolve, shard,
+)
 from .common import Init, apply_mrope, apply_rope, rms_norm
 from .config import ModelConfig
 
@@ -137,14 +146,50 @@ def attention_specs(cfg: ModelConfig) -> Specs:
     return s
 
 
+# On DTensors a weight is laid out for its product where it is used: its
+# "embed_fsdp" dim gathered over "data" (FSDP; the gradient's way back is a
+# reduce-scatter), its tensor-parallel dim kept.  Every product then has a
+# layout that needs no further collective, and DTensor takes it rather
+# than one of its own choosing.
+#
+# The head projections are the reference's einsums written as the one
+# product einsum runs over the flattened heads x head dim (equal bits on the
+# CPU).  Each flattened operand takes its heads' layout judged on the head
+# count, and so does its gradient (``shard``'s backward): a count the model
+# axis does not divide (20 heads on 16) replicates, where DTensor alone may
+# cut the flat dim inside a head and then fail to split it.
+
+def _heads(x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
+    """``einsum("bsd,dhk->bhsk", x, w)``; ``axis`` names the heads."""
+    b, s, d = x.shape
+    h, hd = w.shape[1], w.shape[2]
+    wf = shard(w.reshape(d, h * hd).to(x.dtype), (None, axis), sizes=(d, h))
+    y = shard(x @ wf, ("batch", None, axis), sizes=(b, s, h))
+    return y.reshape(b, s, h, hd).transpose(1, 2)
+
+
+def _heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhsk,hkd->bsd", o, w)``."""
+    b, h, s, hd = o.shape
+    d = w.shape[-1]
+    of = shard(o.transpose(1, 2).reshape(b, s, h * hd),
+               ("batch", None, "heads"), sizes=(b, s, h))
+    wf = shard(w.reshape(h * hd, d).to(o.dtype), ("heads", None),
+               sizes=(h, d))
+    return of @ wf
+
+
 def _qkv(cfg: ModelConfig, p, x: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(x.dtype))
+    q = _heads(x, p["wq"], "heads")
+    k = _heads(x, p["wk"], "kv_heads")
+    v = _heads(x, p["wv"], "kv_heads")
     if cfg.qkv_bias:
         q = q + p["bq"][None, :, None, :]
         k = k + p["bk"][None, :, None, :]
         v = v + p["bv"][None, :, None, :]
+    q = shard(q, ("batch", "heads", None, None))
+    k = shard(k, ("batch", "kv_heads", None, None))
+    v = shard(v, ("batch", "kv_heads", None, None))
     return q, k, v
 
 
@@ -174,9 +219,32 @@ def apply_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
         k, v = kv
     elif positions is not None:
         q, k = _rope_qk(cfg, q, k, positions, mrope_positions)
-    o = flash_attention(q, k, v, causal=causal, window=window)
-    out = torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(o.dtype))
-    return x + out
+    o = _attention(q, k, v, causal=causal, window=window)
+    return shard(x + _heads_out(o, p["wo"]), ("batch", None, None))
+
+
+def _attention(q, k, v, *, causal: bool, window: Optional[int]):
+    """:func:`flash_attention` on each rank's block of DTensor q, k, v
+    (``local_map``: batch over "batch", heads over "heads" / "kv_heads",
+    resolved against the shapes; where the model axis divides one head
+    count and not the other, both replicate, so each block keeps whole
+    GQA groups), its backward on the blocks too; on plain tensors as they
+    are."""
+    def kernel(q, k, v):
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    if not isinstance(q, DTensor):
+        return kernel(q, k, v)
+    mesh = q.device_mesh
+    sq = resolve(("batch", "heads", None, None), mesh, tuple(q.shape))
+    sk = resolve(("batch", "kv_heads", None, None), mesh, tuple(k.shape))
+    if sq[1] != sk[1]:
+        sq, sk = sq[:1] + (None,) + sq[2:], sk[:1] + (None,) + sk[2:]
+    pq, pk = placements(sq, mesh), placements(sk, mesh)
+    # out_placements a list: local_map reads a tuple as one an output
+    return local_map(kernel, out_placements=list(pq),
+                     in_placements=(pq, pk, pk), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def apply_attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
@@ -244,14 +312,16 @@ def mlp_specs(cfg: ModelConfig) -> Specs:
 
 def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     h = norm_apply(cfg, p["norm"], x)
-    up = _mm(h, p["w_up"])
+    up = _mm(h, shard(p["w_up"], (None, "mlp")))
     if cfg.act == "silu":          # SwiGLU
-        up = F.silu(_mm(h, p["w_gate"])) * up
+        up = F.silu(_mm(h, shard(p["w_gate"], (None, "mlp")))) * up
     elif cfg.act == "geglu":       # gemma GeGLU
-        up = _gelu(_mm(h, p["w_gate"])) * up
+        up = _gelu(_mm(h, shard(p["w_gate"], (None, "mlp")))) * up
     else:                          # plain GELU (whisper)
         up = _gelu(up)
-    return x + _mm(up, p["w_down"])
+    up = shard(up, ("batch", None, "mlp"))
+    down = _mm(up, shard(p["w_down"], ("mlp", None)))
+    return shard(x + down, ("batch", None, None))
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,12 @@ tensors with the reference's keys and layouts; their sharding specs come
 from each block's ``<block>_specs`` (``LM.param_specs``), not from here.
 The init helpers draw from an explicit ``torch.Generator`` (normal with
 std 0.02, zeros, ones).
+
+On DTensors (a model placed on a ``DeviceMesh``) the rotations build their
+cos and sin whole on every rank, as replicated DTensors on x's mesh;
+positions stay plain tensors that every rank holds whole
+(:func:`default_positions`), and M-RoPE's streams, a batch input, are
+gathered whole first.
 """
 
 from __future__ import annotations
@@ -13,6 +19,9 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel.sharding import replicate_like
 
 Params = Dict[str, Any]
 
@@ -61,6 +70,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
     return x * inv * scale
 
 
+def log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_softmax`` over the last dim: x less its max (held
+    constant), less the log of the sum of the exps.  Written out, it runs
+    on a DTensor over "vocab" as reductions over the sharded dim, which
+    DTensor all-reduces at [..., 1]; ``torch.log_softmax`` gathers the
+    logits first."""
+    shifted = x - x.amax(-1, keepdim=True).detach()
+    return shifted - torch.log(torch.exp(shifted).sum(-1, keepdim=True))
+
+
 # ---------------------------------------------------------------------------
 # Rotary embeddings
 # ---------------------------------------------------------------------------
@@ -79,8 +98,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                      # [D/2]
     ang = positions[:, None, :, None].float() * freqs           # [B,1,S,D/2]
-    cos = torch.cos(ang).to(x.dtype)
-    sin = torch.sin(ang).to(x.dtype)
+    cos = replicate_like(torch.cos(ang).to(x.dtype), x)
+    sin = replicate_like(torch.sin(ang).to(x.dtype), x)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
 
@@ -97,13 +116,16 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
     half = d // 2
     assert sum(sections) == half, (sections, d)
     freqs = rope_freqs(d, theta, x.device)                      # [half]
+    if isinstance(positions3, DTensor):
+        positions3 = positions3.full_tensor()
     sec_id = torch.cat([torch.full((s,), i, dtype=torch.long,
                                    device=x.device)
                         for i, s in enumerate(sections)])
     pos = positions3[sec_id]                                    # [half,B,S]
     ang = pos.permute(1, 2, 0).float() * freqs                  # [B,S,half]
-    cos = torch.cos(ang)[:, None].to(x.dtype)                   # [B,1,S,half]
-    sin = torch.sin(ang)[:, None].to(x.dtype)
+    # [B, 1, S, half]
+    cos = replicate_like(torch.cos(ang)[:, None].to(x.dtype), x)
+    sin = replicate_like(torch.sin(ang)[:, None].to(x.dtype), x)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
 

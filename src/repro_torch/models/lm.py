@@ -35,9 +35,11 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.sharding import replicate_like, shard
 from .blocks import (
     apply_attention, apply_attention_decode, apply_mamba2,
     apply_mamba2_decode, apply_mlp, apply_moe, apply_rwkv6,
@@ -46,7 +48,7 @@ from .blocks import (
     mamba_cache_spec, mlp_specs, moe_specs, norm_apply, norm_specs,
     rwkv6_specs, rwkv_cache_spec,
 )
-from .common import Init, default_positions
+from .common import Init, default_positions, log_softmax
 from .config import ModelConfig
 
 ATTN_KINDS = ("attn", "swa", "local", "global")
@@ -113,7 +115,7 @@ def _kind_window(cfg: ModelConfig, kind: str) -> Optional[int]:
 
 def _apply_layer(cfg, kind, p, x, *, positions, mrope_positions=None):
     """One layer of the full-sequence forward -> (x, aux)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero_aux(x)
     if kind in ATTN_KINDS or kind in MOE_KINDS:
         x = apply_attention(cfg, p["attn"], x, positions=positions,
                             window=_kind_window(cfg, kind),
@@ -175,6 +177,13 @@ def _restack(old, trees):
            for r, t in enumerate(trees)):
         return old
     return torch.stack(trees)
+
+
+def _zero_aux(x):
+    """A float32 zero beside x: replicated over x's mesh if x is a
+    DTensor."""
+    return replicate_like(torch.zeros((), dtype=torch.float32,
+                                      device=x.device), x)
 
 
 def _zeros(spec, lead, device):
@@ -257,7 +266,7 @@ class LM:
         """Repeat ``r`` of the unit, then zamba2's shared block ->
         (x, the repeat's aux)."""
         cfg = self.cfg
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = _zero_aux(x)
         for i, kind in enumerate(self.unit):
             x, a = _apply_layer(cfg, kind, _index(params["units"][i], r), x,
                                 positions=positions,
@@ -276,7 +285,7 @@ class LM:
         again (``jax.checkpoint(unit_body)``).  The tail takes plain RoPE,
         as in the reference."""
         cfg = self.cfg
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = _zero_aux(x)
         for r in range(self.repeats):
             if remat:
                 x, a = checkpoint(self._unit, params, r, x, positions,
@@ -291,16 +300,23 @@ class LM:
         return x, aux
 
     def _embed(self, params, tokens, vision_embeds=None):
-        x = params["embed"][tokens.long()] * 1.0
+        # the rows by token id (the reference's ``embed[tokens]``); on a
+        # DTensor each rank looks up its vocab block's ids, and the
+        # constraint below adds the blocks
+        x = F.embedding(tokens.long(), shard(params["embed"],
+                                             ("vocab", None))) * 1.0
         if vision_embeds is not None:
             x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
-        return x
+        return shard(x, ("batch", None, None))
 
     def logits(self, params, x):
+        """Logits in float32, over "vocab" on a placed model (as the
+        reference's partitioner leaves them)."""
         cfg = self.cfg
         h = norm_apply(cfg, params["final_norm"], x)
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-        return (h @ w.to(h.dtype)).float()
+        w = shard(w, (None, "vocab"))
+        return shard(h @ w.to(h.dtype), ("batch", None, "vocab")).float()
 
     def train_loss(self, params, batch: Dict[str, torch.Tensor], *,
                    remat: bool = True) -> torch.Tensor:
@@ -318,9 +334,18 @@ class LM:
         logits = self.logits(params, x)
         if vis is not None:
             logits = logits[:, vis.shape[1]:]
-        lp = torch.log_softmax(logits[:, :-1], dim=-1)
-        nll = -lp.gather(-1, tokens[:, 1:, None].long())[..., 0]
-        return nll.mean() + 0.01 * aux
+        lp = log_softmax(logits[:, :-1])
+        # each label's log-probability (take_along_axis in the reference)
+        # as a sum over the vocab of lp where the vocab id is the label:
+        # exact, and on a DTensor each rank sums its vocab block and one
+        # all-reduce of [B, S-1] adds them; the gradient lands in the
+        # label's block without a scatter over the whole vocab
+        vocab = shard(replicate_like(torch.arange(lp.shape[-1],
+                                                  device=lp.device), lp),
+                      ("vocab",))
+        hit = vocab == tokens[:, 1:, None].long()
+        nll = -shard((lp * hit).sum(-1), ("batch", None))
+        return shard(nll.mean() + 0.01 * aux, ())
 
     def prefill(self, params, tokens: torch.Tensor, vision_embeds=None,
                 mrope_positions=None) -> torch.Tensor:

@@ -10,11 +10,12 @@ checkpoint of ``(params, opt_state)`` has the same keys in both packages
 
 :func:`apply` updates the parameters and moments **in place** under
 ``torch.no_grad()`` and returns the same trees: at zamba2-7b's width a
-functional copy would double the state at every step.  The moments'
-layout (ZeRO-1: each moment takes its parameter's spec) is given by
-``repro_torch.launch.steps.opt_state_specs``, and the dry run counts their
-bytes a device by it; placing them on several cards waits for ROADMAP
-Queue 1 item 5.
+functional copy would double the state at every step.  On parameters
+placed as DTensors (``launch/steps.py`` ``place_cell``) the moments are
+ZeRO-1: each takes its parameter's placements, so a rank holds the block
+``repro_torch.launch.steps.opt_state_specs`` gives it, and the step
+counter, the schedule and the global norm are replicated; the update runs
+the same operations in the same order.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.parallel.sharding import replicate_like
 from repro_torch.tree import leaves, tree_map
 
 
@@ -64,14 +66,17 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def init(cfg: AdamWConfig, params) -> OptState:
     """Zero moments (and residuals) in ``cfg.state_dtype`` beside each
-    parameter; the step counter on the first parameter's device."""
+    parameter, with its layout; the step counter on the first parameter's
+    device (replicated over its mesh)."""
     first = leaves(params)
     dev = first[0].device if first else torch.device("cpu")
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.state_dtype,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.state_dtype)
     err = tree_map(zeros, params) if cfg.compress_grads else None
-    return OptState(torch.zeros((), dtype=torch.int32, device=dev),
-                    tree_map(zeros, params), tree_map(zeros, params), err)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if first:
+        step = replicate_like(step, first[0])
+    return OptState(step, tree_map(zeros, params), tree_map(zeros, params),
+                    err)
 
 
 def _global_norm(tree) -> torch.Tensor:

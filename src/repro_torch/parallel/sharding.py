@@ -24,12 +24,15 @@ an axis name, or a tuple of names, entry for entry the reference's
 ``PartitionSpec``.  :func:`placements` turns it into DTensor placements
 (one a mesh dim).
 
-The reference's ``shard`` has no counterpart.  It is
-``with_sharding_constraint``: a hint to XLA's SPMD partitioner about an
-intermediate's layout inside a compiled program.  An eager PyTorch program
-has no partitioner to constrain; each rank computes on the tensors it
-holds, and the one collective the port runs is the MoE layer's explicit
-all-reduce.
+Real tensors go onto a ``DeviceMesh`` as DTensors: :func:`distribute`
+places a tree by a tree of :class:`NamedSharding` (``launch/steps.py``
+``place_cell``), and :func:`shard`, the reference's constraint, lays an
+activation out by logical axes.  In XLA it is a hint to the SPMD
+partitioner; under DTensor it is a redistribute, and it is needed: without
+it DTensor's own propagation can leave a layout an operator cannot take
+(the MLP's ``[B*S, d]`` input sharded with a stride).  A plain tensor is
+the mesh-of-one case: :func:`shard` returns it as it is, and the model
+code runs the same operations on either.
 """
 
 from __future__ import annotations
@@ -40,8 +43,11 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
+import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import (
+    DTensor, Replicate, Shard, distribute_tensor,
+)
 
 # logical axis -> preferred mesh axes, first available wins
 RULES = {
@@ -112,11 +118,11 @@ def is_logical_spec(x) -> bool:
 
 def spec_map(fn: Callable[..., Any], specs, *trees):
     """``fn(spec, *leaves)`` over a spec tree (dicts, tuples and
-    NamedTuples down to :func:`is_logical_spec` leaves) and trees of the
-    same structure; ``None`` stays ``None``."""
+    NamedTuples down to :func:`is_logical_spec` or :class:`NamedSharding`
+    leaves) and trees of the same structure; ``None`` stays ``None``."""
     if specs is None:
         return None
-    if is_logical_spec(specs):
+    if is_logical_spec(specs) or isinstance(specs, NamedSharding):
         return fn(specs, *trees)
     if isinstance(specs, dict):
         return {k: spec_map(fn, v, *(t[k] for t in trees))
@@ -242,3 +248,56 @@ def use_mesh(mesh: Mesh):
         yield mesh
     finally:
         _MESH.reset(token)
+
+
+# ---------------------------------------------------------------------------
+# DTensor: placing trees, constraining activations
+# ---------------------------------------------------------------------------
+
+def distribute(tree, shardings, mesh: DeviceMesh):
+    """A tree of whole tensors placed on ``mesh`` by a tree of
+    :class:`NamedSharding` of the same structure: each leaf becomes a
+    DTensor whose local block this rank cuts from the whole tensor it
+    holds (``distribute_tensor`` with no source rank, so no collective:
+    every rank must hold the same values, as a seed or a converted tree
+    gives them).  A sharding's mesh may be a :class:`MeshShape`; its axes
+    must be ``mesh``'s, in order."""
+    def place(sh: NamedSharding, t: torch.Tensor) -> DTensor:
+        if mesh_axes(sh.mesh) != mesh_axes(mesh):
+            raise ValueError(f"a sharding over {mesh_axes(sh.mesh)} placed "
+                             f"on a mesh over {mesh_axes(mesh)}")
+        return distribute_tensor(t, mesh, sh.placements, src_data_rank=None)
+
+    return spec_map(place, shardings, tree)
+
+
+def shard(x: torch.Tensor, logical: Tuple[Optional[str], ...], *,
+          sizes: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """The reference's ``shard`` (``with_sharding_constraint`` by logical
+    axes): a DTensor is redistributed to the placements of ``logical``
+    resolved divisibility-aware against its own mesh (the reference's
+    ``mesh`` argument names the mesh it constrains over; a DTensor lives
+    on one), so a dim its axes do not divide replicates.  ``sizes`` judges
+    divisibility on other sizes than x's (the head count of a flattened
+    heads x head-dim dim).  A plain tensor comes back unchanged.
+
+    The redistribute runs even where x already has the layout: its
+    backward lays the gradient out as x was, which keeps DTensor's choice
+    for the gradient from splitting a dim a later view cannot take."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    sizes = tuple(x.shape) if sizes is None else tuple(sizes)
+    return x.redistribute(mesh, placements(resolve(logical, mesh,
+                                                   shape=sizes), mesh))
+
+
+def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, a constant every rank computes whole, as a DTensor replicated
+    over ``like``'s mesh when ``like`` is a DTensor; ``t`` itself when it
+    is not."""
+    if not isinstance(like, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)

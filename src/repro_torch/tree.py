@@ -45,6 +45,8 @@ def unflatten(like: Any, values: Iterator[Any]) -> Any:
         if isinstance(node, dict):
             built = {k: build(node[k]) for k in sorted(node)}
             return {k: built[k] for k in node}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(build(t) for t in node))     # NamedTuple
         if isinstance(node, (tuple, list)):
             return type(node)(build(t) for t in node)
         return next(values)

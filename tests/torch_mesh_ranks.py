@@ -1,5 +1,6 @@
-"""Rank bodies of the port's sharded serve path and multi-rank MoE
-gradients, for ``tests/torch_ranks.py``'s ``run_ranks`` (imports no JAX).
+"""Rank bodies of the port's sharded serve path, multi-rank MoE
+gradients, sharded train step and collective counter, for
+``tests/torch_ranks.py``'s ``run_ranks`` (imports no JAX).
 
 :data:`WORKLOADS` and :func:`run_workload` are shared with the reference's
 side, ``tests/torch_serve_mesh_ref.py``, which drives the same clusters
@@ -171,3 +172,196 @@ def moe_grad_rank(rank, world, case_path):
                 "grads": {"y": dict(zip(leaves, gy)),
                           "aux": dict(zip(leaves, ga))}}
     return out
+
+
+def _full(t):
+    """A DTensor's whole value (a plain tensor as it is), detached."""
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+
+
+def train_mesh_rank(rank, world, case_path):
+    """For each (data, model) mesh of ``case["meshes"]``: a train cell of
+    ``case["cfg"]`` placed by ``launch/steps.place_cell`` on the whole
+    parameters ``case["params"]``; ``train_loss`` and its gradient at
+    those parameters, then one step on each batch of ``case["tokens"]``
+    with AdamW at ``case["opt"]`` (the step's collectives counted on the
+    first), every parameter's and moment's layout, the q, k, v blocks the
+    attention kernel was handed, and the prefill of the first batch placed
+    the same way; on the first mesh also the steps at ``case["ref_opt"]``
+    and one step at ``case["opt"]`` over two microbatches of the first
+    batch.  Rank 0 keeps the whole gradients and parameters."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import steps
+    from repro_torch.launch.collectives import CollectiveCounter
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import blocks
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.registry import build_model, input_specs
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import distribute
+    from repro_torch.tree import leaves, tree_map
+
+    torch.set_num_threads(1)
+    case = torch.load(case_path)
+    cfg = ModelConfig(**case["cfg"])
+    model = build_model(cfg)
+    tokens = case["tokens"]                       # [steps, B, S] int32
+    b, s = tokens.shape[1:]
+    cell = Shape("train", s, b, "train")
+
+    def fresh():
+        # the placed leaves may be the whole tensors themselves (a
+        # replicated leaf), which the steps update in place
+        return tree_map(torch.clone, case["params"])
+
+    def run_steps(mesh, opt, res, count=False):
+        fn, (p, o, _) = steps.place_cell(
+            cfg, cell, mesh, {"tokens": tokens[0]}, params=fresh(),
+            opt_cfg=adamw.AdamWConfig(**opt))
+        b_shard = steps.batch_shardings(input_specs(cfg, cell), mesh)
+        res["losses"], res["grad_norms"] = [], []
+        for i in range(tokens.shape[0]):
+            batch = distribute({"tokens": tokens[i]}, b_shard, mesh)
+            if count and i == 0:
+                with CollectiveCounter() as counter:
+                    p, o, m = fn(p, o, batch)
+                res["collectives"] = counter.result()
+            else:
+                p, o, m = fn(p, o, batch)
+            res["losses"].append(_full(m["loss"]))
+            res["grad_norms"].append(_full(m["grad_norm"]))
+        # every rank gathers (a collective), rank 0 keeps
+        whole = [_full(t) for t in leaves(p)]
+        if rank == 0:
+            res["params"] = whole
+        return p, o
+
+    out = {}
+    for n, shape in enumerate(case["meshes"]):
+        mesh = make_device_mesh(shape, "cpu")
+        res = {"coord": tuple(mesh.get_coordinate())}
+        blocks_seen = []
+        kernel = blocks.flash_attention
+
+        def recording(q, k, v, **kw):
+            blocks_seen.append((tuple(q.shape), tuple(k.shape),
+                                type(q).__name__))
+            return kernel(q, k, v, **kw)
+
+        _, (p, _, batch) = steps.place_cell(cfg, cell, mesh,
+                                            {"tokens": tokens[0]},
+                                            params=fresh())
+        blocks.flash_attention = recording
+        try:
+            loss0, grads0 = steps._value_and_grad(model, p, batch, True)
+        finally:
+            blocks.flash_attention = kernel
+        grads0 = [_full(g) for g in grads0]
+        res.update(loss0=_full(loss0), blocks=list(blocks_seen))
+        if rank == 0:
+            res["grads0"] = grads0
+        p, o = run_steps(mesh, case["opt"], res, count=True)
+        res["step"] = _full(o.step)
+        res["param_layout"] = [(tuple(t.to_local().shape), str(t.placements))
+                               for t in leaves(p)]
+        res["moments"] = [(tuple(t.to_local().shape), str(t.placements),
+                           t.to_local().device.type, str(t.dtype))
+                          for t in leaves(o.m) + leaves(o.v)]
+        if n == 0:
+            res["ref_run"] = {}
+            run_steps(mesh, case["ref_opt"], res["ref_run"])
+            fn, args = steps.place_cell(
+                cfg, cell, mesh, {"tokens": tokens[0]}, params=fresh(),
+                opt_cfg=adamw.AdamWConfig(**case["opt"]))
+            p, _, m = steps.make_train_step(
+                model, adamw.AdamWConfig(**case["opt"]),
+                microbatches=2)(*args)
+            whole = [_full(t) for t in leaves(p)]
+            res["microbatched"] = {"loss": _full(m["loss"]),
+                                   "grad_norm": _full(m["grad_norm"]),
+                                   "params": whole if rank == 0 else None}
+        pfn, pargs = steps.place_cell(
+            cfg, Shape("prefill", s, b, "prefill"), mesh,
+            {"tokens": tokens[0]}, params=fresh())
+        with torch.no_grad():
+            res["prefill"] = _full(pfn(*pargs))
+        out[f"{shape[0]}x{shape[1]}"] = res
+    return out
+
+
+def redistribute_rank(rank, world):
+    """The collective counter over three redistributes of a float32
+    [8, 16] DTensor on a 1-D mesh of ``world`` ranks (Shard(0) ->
+    Replicate, Partial -> Replicate, Partial -> Shard(0)) and over one
+    ``torch.distributed.all_reduce`` of it: each case's dict and whether
+    the values came out right; then the three again under ``HostStaged``
+    for this device type, with what it staged."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (
+        DTensor, Partial, Replicate, Shard, distribute_tensor,
+    )
+
+    from repro_torch.launch.collectives import CollectiveCounter
+    from repro_torch.parallel.host_staged import HostStaged
+
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    whole = torch.arange(128, dtype=torch.float32).reshape(8, 16)
+
+    def cases():
+        return {
+            "shard_to_replicate": (
+                distribute_tensor(whole, mesh, [Shard(0)],
+                                  src_data_rank=None),
+                [Replicate()], whole),
+            "partial_to_replicate": (
+                DTensor.from_local(whole.clone(), mesh, [Partial()],
+                                   run_check=False),
+                [Replicate()], world * whole),
+            "partial_to_shard": (
+                DTensor.from_local(whole.clone(), mesh, [Partial()],
+                                   run_check=False),
+                [Shard(0)], world * whole)}
+
+    out = {}
+    for name, (x, target, want) in cases().items():
+        with CollectiveCounter() as counter:
+            y = x.redistribute(mesh, target)
+            local = y.to_local() + 0      # waits for the collective
+        out[name] = {"counts": counter.result(),
+                     "right": bool(torch.equal(y.full_tensor(), want)),
+                     "local": tuple(local.shape)}
+    t = whole.clone()
+    with CollectiveCounter() as counter:
+        dist.all_reduce(t)
+    out["c10d_all_reduce"] = {"counts": counter.result(),
+                              "right": bool(torch.equal(t, world * whole))}
+    for name, (x, target, want) in cases().items():
+        with HostStaged("cpu") as staged:
+            y = x.redistribute(mesh, target)
+            got = y.full_tensor()
+        out[f"staged/{name}"] = {"staged": dict(staged.ops),
+                                 "right": bool(torch.equal(got, want))}
+    return out
+
+
+def one_rank_step(rank, world, case_path):
+    """The train step of ``case`` on a 1 x 1 (data, model) mesh: the
+    counter's dict for one step."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import steps
+    from repro_torch.launch.collectives import CollectiveCounter
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.optim import adamw
+
+    case = torch.load(case_path)
+    cfg = ModelConfig(**case["cfg"])
+    tokens = case["tokens"]
+    mesh = make_device_mesh((1, 1), "cpu")
+    fn, args = steps.place_cell(
+        cfg, Shape("train", tokens.shape[1], tokens.shape[0], "train"), mesh,
+        {"tokens": tokens}, params=case["params"],
+        opt_cfg=adamw.AdamWConfig())
+    with CollectiveCounter() as counter:
+        _, _, m = fn(*args)
+    return {"counts": counter.result(), "loss": _full(m["loss"])}
