@@ -63,7 +63,27 @@ Phases (any failure exits nonzero and prints no result):
    times a rank (counts set to 0 just before the steps); a rank still
    running after 240 s is killed.  Prints the collectives of one step
    (``launch/collectives.py``), what each rank staged, ms a step and
-   peak GB a rank.
+   peak GB a rank.  Then ``[decode_mesh]``, the decode cell over the same
+   kind of group: ``place_cell`` of a decode cell (the parameters drawn
+   a leaf at a time into ``build_cell``'s serve layout, no weight over
+   "data"; the caches' blocks by ``cache_shardings``) served through
+   ``DecodeEngine.generate`` on the placed parameters, in two cases:
+   qwen1.5-4b whole (40 layers) at ``decode_32k``'s layout cut to batch
+   4 and 2048 cache slots, a 16-token prompt and 4 generated; and
+   gemma3-12b cut to one unit (6 of 48 layers) at ``long_500k``'s, batch
+   1 and 64 slots with the KV sequence over "data" (32 a rank), a
+   40-token prompt and 32 generated, so the global layer's writes cross
+   into data rank 1's block and clamp at the last slot, and the local
+   rings wrap.  Against the same model, weights and prompts served in one
+   process on the card: generated tokens equal (the smallest top-1/top-2
+   gap at a pick printed), every step's logits and every rank's cache
+   blocks within 1e-5 of their max, the prefill cell of the same prompts
+   on the same mesh (``flash_attention`` on each rank's blocks, once a
+   layer, counts set to 0 just before) within 1e-3 of the last prompt
+   step's logits, and no parameter gathered (a step's staged all-gathers
+   smaller than any parameter block).  Prints a step's collectives, what
+   rank 0 staged a step, ms a step a rank beside one process's, peak GB a
+   rank and the phase's seconds.
 4. **Schedule replay** (``repro_torch.core.replay``): the port's scalar
    cluster with both trace taps at the serve phase's width and seeds (5 x
    800 sessions x 2^20 keys, 4000 ops; seed 0 plain, seed 1 all-aboard
@@ -317,7 +337,9 @@ launches on each rank of phase 3's ``[serve_mesh]``, ``smoke_launches``,
 their launches in each smoke of phase 8, ``examples_launches``, in each example of phase
 24, and ``kimi_engine_launches``, in phase 23's engine; for
 ``flash_attention`` also ``train_mesh_launches``, its launches on each
-rank of phase 3's ``[train_mesh]``, ``zoo_launches``, its launches in the f32
+rank of phase 3's ``[train_mesh]``, ``decode_mesh_launches``, on each
+rank in the prefill cells of phase 3's ``[decode_mesh]``, ``zoo_launches``,
+its launches in the f32
 prefills of phases 14-16, in whisper's decode step and in phase 18's
 shard_map prefill, ``zoo_bf16_ms``, its device time a call in their bf16
 prefills, ``dense_launches`` and ``dense_bf16_ms``, the same for phase
@@ -1104,14 +1126,17 @@ def train_mesh_batch(torch, cfg, dev):
                                     dtype=torch.int32)}
 
 
-def train_mesh_rank(rank, world, workdir):
-    """One rank of ``[train_mesh]``, a spawned process: joins the gloo
-    group through the ``FileStore`` in ``workdir`` on ``cuda:0`` (every
-    rank on the one card), runs the sharded step and saves what the parent
-    gates to ``rank<r>.pt``; its log goes to ``rank<r>.log``."""
+def mesh_rank(rank, world, workdir, phase):
+    """One rank of ``[train_mesh]`` or ``[decode_mesh]`` (``phase``), a
+    spawned process: joins the gloo group through the ``FileStore`` in
+    ``workdir`` on ``cuda:0`` (every rank on the one card), runs the
+    phase's rank body and saves what the parent gates to ``rank<r>.pt``;
+    its log goes to ``rank<r>.log``."""
     import torch
     import torch.distributed as dist
 
+    body = {"train_mesh": _train_mesh_rank_body,
+            "decode_mesh": _decode_mesh_rank_body}[phase]
     work = pathlib.Path(workdir)
     with open(work / f"rank{rank}.log", "w") as f, \
             contextlib.redirect_stdout(f):
@@ -1123,7 +1148,7 @@ def train_mesh_rank(rank, world, workdir):
         dist.init_process_group("gloo", init_method=f"file://{work}/store",
                                 rank=rank, world_size=world)
         try:
-            res = _train_mesh_rank_body(torch, dev)
+            res = body(torch, dev)
         finally:
             dist.destroy_process_group()
         torch.save(res, work / f"rank{rank}.pt")
@@ -1254,7 +1279,8 @@ def phase_train_mesh(torch, mods, dev):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="train_mesh_") as tmp:
         work = pathlib.Path(tmp)
-        procs = [ctx.Process(target=train_mesh_rank, args=(r, world, tmp))
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, world, tmp, "train_mesh"))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -1397,6 +1423,366 @@ def phase_train_mesh(torch, mods, dev):
                          for res in ranks],
             "collectives": counts[0], "step_ms": step_ms, "peak_gb": peak,
             "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# [decode_mesh]: the decode cell over ranks, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+DECODE_MESH_SHAPE = (2, 2)  # (data, model)
+# name -> (arch, layers, batch, cache slots, prompt tokens, generated):
+# "serve" is decode_32k's layout (batch 4 of 128, a cache of 2048 slots of
+# 32,768), qwen1.5-4b whole; "seq" long_500k's (batch 1, a cache of 64
+# slots of 524,288, 32 a data rank), gemma3-12b cut to one unit (5 local
+# layers and a global one): its 72 tokens cross from data rank 0's block
+# into rank 1's, wrap the local rings and clamp the global layer's write
+# at its last slot.  "serve" generates 4 tokens (16 picks over its batch),
+# not 16, to keep the phase near 100 s: its step a rank takes 1.2 s on an
+# H100 (PERF.md section 5); the 16-token prompt is the prefill's (gate 4)
+DECODE_MESH_CASES = {"serve": ("qwen1.5-4b", 40, 4, 2048, 16, 4),
+                     "seq": ("gemma3-12b", 6, 1, 64, 40, 32)}
+DECODE_MESH_LIMIT = 300.0  # seconds; a rank still running then is killed
+# every step's logits and every cache block against one process's, of
+# the max |value|: [train_mesh]'s bound for its blocks' products
+DECODE_MESH_TOL = 1e-5
+DECODE_MESH_COUNT_AT = 2   # the step whose collectives are counted
+ALL_GATHER = "_c10d_functional::all_gather_into_tensor"
+
+
+def decode_mesh_prompts(torch, cfg, b, n):
+    """The case's prompts, drawn on the host from a seed (the same on
+    every rank and in the one-process run)."""
+    g = torch.Generator().manual_seed(28)
+    return torch.randint(1, cfg.vocab, (b, n), generator=g).tolist()
+
+
+def _decode_mesh_rank_body(torch, dev):
+    mods = load_modules()
+    mesh = mods.make_device_mesh(DECODE_MESH_SHAPE, dev)
+    with mods.HostStaged() as staged:
+        return {name: _decode_mesh_case(torch, mods, mesh, staged, name, dev)
+                for name in DECODE_MESH_CASES}
+
+
+class DecodeRecorder:
+    """Wraps a model's ``decode_step`` as ``DecodeEngine.generate`` calls
+    it: each step's ms (synchronised), its logits whole (gathered after
+    the timed step), the last caches, and on a mesh what ``staged`` took
+    a step and the counter's collectives of step ``count_at``."""
+
+    def __init__(self, torch, mods, model, staged=None, count_at=None):
+        self.torch, self.mods, self.step = torch, mods, model.decode_step
+        self.staged, self.count_at = staged, count_at
+        self.ms, self.logits, self.staged_steps = [], [], []
+        self.caches, self.collectives = None, None
+        model.decode_step = self
+
+    def __call__(self, params, caches, tokens):
+        torch = self.torch
+        before = (None if self.staged is None else
+                  (dict(self.staged.ops), dict(self.staged.bytes),
+                   dict(self.staged.seconds)))
+        counter = (self.mods.CollectiveCounter()
+                   if len(self.ms) == self.count_at
+                   else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counter:
+            logits, caches = self.step(params, caches, tokens)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        if len(self.ms) - 1 == self.count_at:
+            self.collectives = counter.result()
+        if before is not None:
+            self.staged_steps.append({
+                k: (self.staged.ops[k] - before[0].get(k, 0),
+                    self.staged.bytes[k] - before[1].get(k, 0),
+                    self.staged.seconds[k] - before[2].get(k, 0.0))
+                for k in self.staged.ops})
+        whole = logits.full_tensor() if hasattr(logits, "full_tensor") \
+            else logits
+        self.logits.append(whole.detach().clone())
+        self.caches = caches
+        return logits, caches
+
+
+def _written(torch, t, bounds, n):
+    """A cache leaf's block cut to the slots a run of ``n`` tokens wrote
+    ([..., B, H, S, hd] leaves; others whole) and the largest |value| of
+    the slots it cut off (zero, as ``init_cache`` made them)."""
+    if t.dim() < 4:
+        return t.cpu(), 0.0
+    start, stop = bounds[-2]
+    keep = max(0, min(stop, n) - start)
+    tail = t[..., keep:, :]
+    return (t[..., :keep, :].cpu(),
+            float(tail.abs().max()) if tail.numel() else 0.0)
+
+
+def _decode_mesh_case(torch, mods, mesh, staged, name, dev):
+    """One case of ``[decode_mesh]`` on this rank: the decode cell placed
+    by ``place_cell`` (the parameters a leaf at a time), served through
+    ``DecodeEngine.generate`` on the placed parameters; then the prefill
+    cell of the same model and prompts on the same mesh, through
+    ``flash_attention`` on the rank's blocks (counts at 0 just before)."""
+    arch, layers, b, slots, plen, gen = DECODE_MESH_CASES[name]
+    cfg = _cut(mods, arch, layers)
+    prompts = decode_mesh_prompts(torch, cfg, b, plen)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, (params, caches, _) = mods.place_cell(
+        cfg, mods.Shape("decode_mesh", slots, b, "decode"), mesh,
+        {"tokens": torch.zeros((b, 1), dtype=torch.int32, device=dev)})
+    del caches                     # the engine makes its own
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0
+    layout = [(tuple(p.to_local().shape), str(p.placements),
+               p.to_local().numel() * p.element_size())
+              for p in mods.leaves(params)]
+    model = mods.build_model(cfg)
+    rec = DecodeRecorder(torch, mods, model, staged, DECODE_MESH_COUNT_AT)
+    engine = mods.DecodeEngine(model, params, mods.ServeConfig(
+        max_seq=slots, batch=b), device=dev)
+    _zero_kernel_counts(mods)
+    t0 = time.perf_counter()
+    generated = engine.generate(prompts, gen)
+    t_decode = time.perf_counter() - t0
+    decode_launches = _kernel_counts(mods)
+    caches = []
+    for t in mods.leaves(rec.caches):
+        bounds = _block_bounds(t)
+        block, tail = _written(torch, t.to_local(), bounds, plen + gen)
+        caches.append((bounds, block, tail, str(t.placements)))
+    logits = torch.stack(rec.logits).cpu()
+    del rec.caches, rec.logits, params, engine
+    # gate 4: the prefill cell of the same model and prompts on this mesh
+    pfn, pargs = mods.place_cell(
+        cfg, mods.Shape("decode_mesh", plen, b, "prefill"), mesh,
+        {"tokens": torch.tensor(prompts, dtype=torch.int32, device=dev)})
+    first = {}
+    wrapper = mods.blocks.flash_attention
+
+    def record_first(q, k, v, **kw):
+        out = wrapper(q, k, v, **kw)
+        if not first:
+            first.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                         out=out.clone(), kw=kw)
+        return out
+
+    mods.blocks.flash_attention = record_first
+    _zero_kernel_counts(mods)
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            prefill = pfn(*pargs).full_tensor().cpu()
+    finally:
+        mods.blocks.flash_attention = wrapper
+    t_prefill = time.perf_counter() - t0
+    prefill_launches = _kernel_counts(mods)
+    want = mods.fa_ops.attention_plain(first["q"], first["k"], first["v"],
+                                       **first["kw"])
+    del pargs
+    return {"coord": tuple(mesh.get_coordinate()),
+            "generated": torch.from_numpy(generated),
+            "logits": logits if mesh.get_rank() == 0 else None,
+            "logits_sha": hashlib.sha256(logits.numpy().tobytes())
+            .hexdigest(), "ms": rec.ms, "staged": rec.staged_steps,
+            "collectives": rec.collectives, "caches": caches,
+            "layout": layout, "place_s": t_place, "decode_s": t_decode,
+            "prefill_s": t_prefill,
+            "decode_launches": decode_launches,
+            "prefill": prefill if mesh.get_rank() == 0 else None,
+            "prefill_launches": prefill_launches,
+            "fa_block": tuple(first["q"].shape),
+            "fa_err": float((first["out"] - want).abs().max()),
+            "fa_scale": float(want.abs().max()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _one_process_decode(torch, mods, name, dev):
+    """The case's model, weights and prompts served in this process:
+    generated tokens, each step's logits and ms, the caches, the
+    top-1/top-2 gap at each greedy pick."""
+    arch, layers, b, slots, plen, gen = DECODE_MESH_CASES[name]
+    cfg = _cut(mods, arch, layers)
+    prompts = decode_mesh_prompts(torch, cfg, b, plen)
+    model = mods.build_model(cfg)
+    params = model.init(0, device=dev)
+    rec = DecodeRecorder(torch, mods, model)
+    generated = mods.DecodeEngine(model, params, mods.ServeConfig(
+        max_seq=slots, batch=b), device=dev).generate(prompts, gen)
+    picks = torch.stack(rec.logits[plen - 1:plen - 1 + gen])
+    top = torch.topk(picks, 2, dim=-1).values
+    gaps = (top[..., 0] - top[..., 1]).flatten().tolist()
+    del params
+    return {"generated": torch.from_numpy(generated),
+            "logits": torch.stack(rec.logits),
+            "ms": rec.ms, "caches": mods.leaves(rec.caches), "gaps": gaps,
+            "scale": float(picks.abs().max())}
+
+
+def phase_decode_mesh(torch, mods, dev):
+    """The decode cell over ranks: DECODE_MESH_CASES on a
+    DECODE_MESH_SHAPE (data, model) mesh of spawned ranks on the one card
+    (gloo, DTensor's collectives staged through host memory), each served
+    by ``DecodeEngine.generate`` on parameters placed by ``place_cell``
+    in ``build_cell``'s serve layout (no weight over "data"), its caches
+    by ``cache_shardings``.  Held to the same model, weights and prompts
+    served in one process on the card: (1) generated tokens equal, (2)
+    every step's logits and (3) every rank's cache blocks within
+    DECODE_MESH_TOL of the max |value|, (4) the prefill cell of the same
+    prompts on the same mesh (``flash_attention`` on each rank's blocks,
+    once a layer) gives the last prompt step's logits within MODEL_TOL,
+    its first kernel call within FLOAT_TOL of ``attention_plain`` on its
+    block, (5) weight-stationary: a step's staged all-gathers carry fewer
+    bytes than any parameter leaf's block on the rank."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tag = "decode_mesh"
+    t_phase = time.perf_counter()
+    require_free(torch, tag)
+    world = math.prod(DECODE_MESH_SHAPE)
+    mesh_shape = mods.MeshShape(("data", "model"), DECODE_MESH_SHAPE)
+    for name, (arch, layers, b, slots, plen, gen) in \
+            DECODE_MESH_CASES.items():
+        cfg = _cut(mods, arch, layers)
+        _, _, in_sh, _, _ = mods.steps.build_cell(
+            cfg, mods.Shape(tag, slots, b, "decode"), mesh_shape)
+        serve = all("data" not in str(sh.spec)
+                    for sh in mods.leaves(in_sh[0]))
+        k = mods.leaves(in_sh[1])[0]
+        log(f"[{tag}] {name}: {arch} at full width (d_model "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.hd}, vocab {cfg.vocab}), {layers} of "
+            f"{mods.ARCHS[arch].n_layers} layers, {cfg.n_params():,} "
+            f"float32 parameters; batch {b}, {slots} cache slots, a "
+            f"{plen}-token prompt and {gen} generated; build_cell's layout: "
+            f"{'serve (no weight over data)' if serve else 'FSDP'} "
+            f"({cfg.n_params() * 2 / DECODE_MESH_SHAPE[1] / 1e9:.2f} GB a "
+            f"model rank in bf16 < 10); first KV cache leaf {k.spec}")
+        if not serve:
+            raise AssertionError(f"[{tag}] {name}: build_cell kept FSDP")
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="decode_mesh_") as tmp:
+        work = pathlib.Path(tmp)
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, world, tmp, "decode_mesh"))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        _join_ranks(procs, work, DECODE_MESH_LIMIT, tag)
+        ranks = [torch.load(work / f"rank{r}.pt") for r in range(world)]
+    t_ranks = time.perf_counter() - t0
+    out = {"launches": {}, "step_ms": {}, "peak_gb": {}}
+    for name, (arch, layers, b, slots, plen, gen) in \
+            DECODE_MESH_CASES.items():
+        torch.cuda.reset_peak_memory_stats()
+        one = _one_process_decode(torch, mods, name, dev)
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
+        got = [res[name] for res in ranks]
+        r0 = got[0]
+        what = f"[{tag}] {name}"
+        # gate 1: the tokens, with the room the picks had
+        for r, res in enumerate(got):
+            if not torch.equal(res["generated"], one["generated"]):
+                raise AssertionError(f"{what}: rank {r} generated "
+                                     f"{res['generated'].tolist()}, one "
+                                     f"process {one['generated'].tolist()}")
+            if res["logits_sha"] != r0["logits_sha"]:
+                raise AssertionError(f"{what}: rank {r}'s logits differ "
+                                     f"from rank 0's")
+        bound = DECODE_MESH_TOL * one["scale"]
+        log(f"{what}: generated tokens equal on every rank to one "
+            f"process's; smallest top-1/top-2 gap at a pick "
+            f"{min(one['gaps']):.4e}, {sum(g <= bound for g in one['gaps'])}"
+            f" of {len(one['gaps'])} picks within the logit bound "
+            f"{DECODE_MESH_TOL:g} x {one['scale']:.3f} = {bound:.3e} (there "
+            f"the token gate says less than gate 2)")
+        # gate 2: every step's logits
+        want = one["logits"]
+        errs = [float((g.to(dev) - w).abs().max() / w.abs().max())
+                for g, w in zip(r0["logits"], want)]
+        log(f"{what}: {len(errs)} steps' logits, max |l - l_one| over max "
+            f"|l_one|: worst {max(errs):.3e} at step {errs.index(max(errs))}"
+            f" (bound {DECODE_MESH_TOL:g})")
+        if len(errs) != plen + gen or not max(errs) <= DECODE_MESH_TOL:
+            raise AssertionError(f"{what}: the logits differ from one "
+                                 f"process's")
+        # gate 3: every rank's cache blocks
+        worst = 0.0
+        for r, res in enumerate(got):
+            for (bounds, block, tail, _), w in zip(res["caches"],
+                                                   one["caches"]):
+                ref = w[tuple(slice(a, a + n) for (a, _), n in
+                              zip(bounds, block.shape))]
+                scale = max(float(w.abs().max()), 1e-30)
+                worst = max(worst, float((block.to(dev) - ref).abs().max())
+                            / scale)
+                if tail:
+                    raise AssertionError(f"{what}: rank {r} holds keys "
+                                         f"past the written slots")
+        log(f"{what}: every rank's cache blocks, max |c - c_one| over the "
+            f"leaf's max |c_one|: {worst:.3e} (bound {DECODE_MESH_TOL:g})")
+        if not worst <= DECODE_MESH_TOL:
+            raise AssertionError(f"{what}: cache blocks differ")
+        # gate 4: the prefill cell on the mesh against the decode
+        hold_logits(tag, f"{name}: the prefill cell on the mesh vs the "
+                    f"teacher-forced decode's step {plen}",
+                    r0["prefill"].to(dev), want[plen - 1])
+        for r, res in enumerate(got):
+            rel = res["fa_err"] / max(res["fa_scale"], 1e-30)
+            n_fa = res["prefill_launches"]["flash_attention"]
+            log(f"{what} rank {r} {res['coord']}: the prefill launched "
+                f"flash_attention {n_fa} times, its first call on the block "
+                f"{res['fa_block']} within {rel:.3e} of attention_plain "
+                f"(tolerance {FLOAT_TOL['float32']:g}); the decode "
+                f"launched {json.dumps(res['decode_launches'])}")
+            if n_fa != layers or not rel <= FLOAT_TOL["float32"]:
+                raise AssertionError(f"{what}: rank {r}'s prefill kernel")
+        # gate 5: weight-stationary
+        least = min(n for res in got for _, _, n in res["layout"])
+        gathered = max(s.get(ALL_GATHER, (0, 0, 0))[1]
+                       for res in got for s in res["staged"])
+        if any(not pl.startswith("(Replicate()")
+               for res in got for _, pl, _ in res["layout"]):
+            raise AssertionError(f"{what}: a rank holds a weight split "
+                                 f"over data")
+        if not gathered < least:
+            raise AssertionError(f"{what}: a step all-gathered {gathered} "
+                                 f"B, a parameter block is {least} B")
+        log(f"{what}: weight-stationary: the most a rank's step staged in "
+            f"all-gathers {gathered} B, the least parameter block {least} B; "
+            f"collectives of step {DECODE_MESH_COUNT_AT + 1} a rank (bytes a "
+            f"device): {json.dumps(r0['collectives'])}")
+        kinds = sorted({k for s in r0["staged"] for k in s})
+        per = {k: [statistics.median(s.get(k, (0, 0, 0))[i]
+                                     for s in r0["staged"])
+                   for i in range(3)] for k in kinds}
+        log(f"{what}: staged through host memory a step on rank 0 (median "
+            f"calls, device bytes, host s): {json.dumps(per)}")
+        step_ms = [statistics.median(res["ms"]) for res in got]
+        stages = [tuple(round(res[k], 2) for k in ("place_s", "decode_s",
+                                                    "prefill_s"))
+                  for res in got]
+        out["step_ms"][name] = step_ms
+        out["peak_gb"][name] = [res["peak_gb"] for res in got]
+        out["launches"][name] = [res["prefill_launches"]["flash_attention"]
+                                 for res in got]
+        log(f"{what}: ms a decode step a rank (median of {plen + gen}): "
+            f"{[round(x, 3) for x in step_ms]}, one process "
+            f"{statistics.median(one['ms']):.3f}; seconds a rank to place, "
+            f"generate and prefill {stages}; peak GB a rank "
+            f"{[round(res['peak_gb'], 2) for res in got]}, one process "
+            f"{one_peak:.2f}")
+        del one
+        release_memory(torch, tag)
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] ranks {t_ranks:.1f} s; phase {seconds:.1f} s")
+    out["seconds"] = seconds
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4538,10 +4924,11 @@ def release_memory(torch, tag):
 
 # the peak memory allocated of each large phase, measured on an H100 80GB
 # HBM3 at 700 W (PERF.md section 5) and rounded up: a card with less free
-# than that fails the phase up front and says so ("train_mesh": its four
-# ranks' peaks together)
+# than that fails the phase up front and says so ("train_mesh" and
+# "decode_mesh": their four ranks' peaks together)
 PEAK_GB = {"train": 32.8, "train_rwkv6": 51.2, "train_mixtral": 77.1,
-           "train_whisper": 31.3, "kimi": 79.3, "train_mesh": 37.0}
+           "train_whisper": 31.3, "kimi": 79.3, "train_mesh": 37.0,
+           "decode_mesh": 43.0}
 
 
 def require_free(torch, tag):
@@ -5034,6 +5421,7 @@ def main(argv=None) -> int:
     del runs, rec_r, rec_i
     serve_mesh = phase_serve_mesh(torch, mods, args.n_ops, serve_want)
     train_mesh = phase_train_mesh(torch, mods, dev)
+    decode_mesh = phase_decode_mesh(torch, mods, dev)
     phase_schedule_replay(torch, mods, dev, args.n_ops)
     times = phase_timings(torch, mods, mods.pv, dev, waves_all)
     phase_idle(torch, mods, dev, args.n_ops)
@@ -5130,6 +5518,8 @@ def main(argv=None) -> int:
         "mixtral_shardmap_prefill": parallel["flash_attention"]}
     # [train_mesh]'s steps, on each rank's block
     fa["train_mesh_launches"] = train_mesh["launches"]
+    # [decode_mesh]'s prefill cells on the mesh, on each rank's block
+    fa["decode_mesh_launches"] = decode_mesh["launches"]
     fa["examples_launches"] = {
         "serve_kvstore_prefill":
             examples["launches"]["flash_attention"]["serve_kvstore"],

@@ -20,12 +20,12 @@ backward recomputes :func:`attention_plain` from the saved inputs
 
 :func:`decode_attention` (one query token against a padded cache) stays
 plain PyTorch on every device, as the reference computes it outside any
-Pallas kernel.
+Pallas kernel, also over a cache whose slots are split across ranks.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -76,10 +76,23 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     all_reduce: Optional[Callable[[torch.Tensor, str],
+                                                   torch.Tensor]] = None
+                     ) -> torch.Tensor:
     """Single-token decode against a padded KV cache, in float32.
 
     q: [B, Hq, D]; k, v: [B, Hkv, S, D]; lengths: [B] valid cache lengths.
+
+    A cache whose slots are split in blocks across ranks (sequence
+    parallelism) gives each rank its block, ``lengths`` less the block's
+    first slot, and ``all_reduce(t, op)``, which combines ``t`` with the
+    other blocks' ranks by ``op`` ("max" or "sum"): the logits take the
+    max over all blocks (an all-reduce of [B, Hq, 1]), then the weighted
+    values and their weights add over the blocks (one all-reduce of
+    [B, Hq, D + 1]), the flash-decoding combine.  A block with no valid
+    slot adds zeros.  The weights are those of the whole cache; only the
+    sums' order differs.
     """
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -92,11 +105,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bhd,bhkd->bhk", qf, kf)
     mask = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
     logits = logits.masked_fill(~mask[:, None, :], float("-inf"))
-    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
+    reduce = all_reduce or (lambda t, op: t)
+    top = reduce(logits.amax(-1, keepdim=True), "max")
+    probs = torch.exp(logits - top)
     probs = probs.masked_fill(~mask[:, None, :], 0.0)
-    out = torch.einsum("bhk,bhkd->bhd", probs, vf) / probs.sum(-1,
-                                                               keepdim=True)
-    return out.to(q.dtype)
+    part = reduce(torch.cat([torch.einsum("bhk,bhkd->bhd", probs, vf),
+                             probs.sum(-1, keepdim=True)], -1), "sum")
+    return (part[..., :d] / part[..., d:]).to(q.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -94,19 +94,30 @@ def device_bytes(args, shardings) -> int:
     return total
 
 
+# why a family's cells are not counted on DTensors, by cell kind: the
+# step that does not run so
+SKIPPED = {
+    "moe": ("the MoE dispatch runs on whole tensors or over use_mesh "
+            "process groups, not on DTensors",
+            "the MoE dispatch's expert counts (moe_route's bincount) have "
+            "no DTensor sharding rule"),
+    "ssm": ("the WKV kernel has no block layout on DTensors",
+            "apply_rwkv6_decode runs on DTensors, but no test holds its "
+            "sharded state to one process or the reference yet"),
+    "hybrid": ("the SSD kernel has no block layout on DTensors",
+               "apply_mamba2_decode runs on DTensors, but no test holds its "
+               "sharded state to one process or the reference yet"),
+    "encdec": ("the encoder-decoder carries no sharding constraints",
+               "EncDec.decode_step reads pos_dec at the cache length, a "
+               "data-dependent index that fake tensors cannot give"),
+}
+
+
 def collectives_skipped(cfg, shape) -> Optional[str]:
     """Why a cell's step cannot be counted on DTensors, or None."""
-    if shape.kind == "decode":
-        return ("the decode step writes its caches in place, which DTensor "
-                "shards do not take yet (ROADMAP Queue 1 item 5)")
-    if cfg.family not in ("dense", "vlm"):
-        return {"moe": "the MoE dispatch runs on whole tensors or over "
-                       "use_mesh process groups, not on DTensors",
-                "ssm": "the WKV kernel has no block layout on DTensors",
-                "hybrid": "the SSD kernel has no block layout on DTensors",
-                "encdec": "the encoder-decoder carries no sharding "
-                          "constraints"}[cfg.family]
-    return None
+    if cfg.family in ("dense", "vlm"):
+        return None
+    return SKIPPED[cfg.family][shape.kind == "decode"]
 
 
 @contextlib.contextmanager

@@ -9,10 +9,12 @@ every argument as a :class:`~repro_torch.parallel.sharding.NamedSharding`
 :func:`build_cell` assembles them with ``meta`` tensors for the dry run
 (``launch/dryrun.py``).  The same shardings place a cell for real, as the
 reference's module says they are "used identically by the real
-trainer/server and the dry-run": :func:`place_cell` puts a train or
-prefill cell's parameters, optimizer state and batch on a ``DeviceMesh``
-as DTensors, and the step it returns (``make_train_step`` or
-``make_prefill``, unchanged) runs on them, each rank on its blocks.
+trainer/server and the dry-run": :func:`place_cell` puts a cell's
+parameters, optimizer state (train), caches (decode) and batch on a
+``DeviceMesh`` as DTensors, and the step it returns (``make_train_step``,
+``make_prefill`` or ``make_decode_step``, unchanged) runs on them, each
+rank on its blocks.  :func:`decode_inputs` lays out a decode run's caches
+and tokens for plain or placed parameters (``serve/engine.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.shapes import Shape
 from repro_torch.models.config import ModelConfig
@@ -256,31 +259,93 @@ def build_cell(cfg: ModelConfig, shape: Shape, mesh: Mesh,
     return fn, args, in_sh, out_sh, donate
 
 
+def init_placed(model, shardings, mesh: DeviceMesh):
+    """``model.init(0, torch.float32)`` on ``mesh``'s device type, each
+    leaf placed by its sharding (a tree like :func:`build_cell`'s
+    ``in_sh[0]``) as soon as it is drawn, so a rank holds one whole leaf at
+    a time beside its blocks.  The values are ``model.init``'s: the same
+    draws in the same order."""
+    made = []       # the meta pass's leaves, in the order drawn
+    meta = model._init(None, torch.float32, torch.device("meta"),
+                       lambda t: made.append(t) or t)
+    by_id = {}
+    spec_map(lambda sh, t: by_id.__setitem__(id(t), sh), shardings, meta)
+    order = iter([by_id[id(t)] for t in made])
+    return model.init(0, torch.float32, mesh.device_type,
+                      place=lambda t: distribute(t, next(order), mesh))
+
+
+def place_caches(model, mesh: DeviceMesh, b: int, seq_len: int):
+    """``model.init_cache(b, seq_len, torch.float32)`` laid out by
+    :func:`cache_shardings` (the KV sequence over "data" when ``b == 1``,
+    as :func:`build_cell` lays out a decode cell): each rank makes only its
+    block of every leaf, zeros, on ``mesh``'s device type."""
+    shardings = cache_shardings(model, mesh, b, seq_len, seq_shard=b == 1)
+
+    def make(sh: NamedSharding, spec):
+        shape, dt = spec
+        local = torch.zeros(sh.shard_shape(tuple(shape)), dtype=dt,
+                            device=mesh.device_type)
+        return DTensor.from_local(local, mesh, sh.placements,
+                                  run_check=False)
+
+    return spec_map(make, shardings,
+                    model.cache_specs(b, seq_len, torch.float32))
+
+
+def place_tokens(tokens: torch.Tensor, mesh: DeviceMesh) -> DTensor:
+    """A decode step's tokens [B, 1], whole on every rank, laid out as a
+    decode cell's (``BATCH_AXES``: batch over "data")."""
+    sh = NamedSharding(mesh, resolve(BATCH_AXES["tokens"], mesh,
+                                     shape=tuple(tokens.shape)))
+    return distribute(tokens, sh, mesh)
+
+
+def decode_inputs(model, params, b: int, seq_len: int, device):
+    """A decode run's float32 caches and the layout of its tokens [B, 1],
+    ``(caches, feed)``, for ``params``: on DTensors :func:`place_caches`
+    and :func:`place_tokens` on their mesh, as a decode cell lays them
+    out; on plain tensors ``model.init_cache`` on ``device`` and the
+    tokens as given."""
+    leaf = leaves(params)[0]
+    if not isinstance(leaf, DTensor):
+        return (model.init_cache(b, seq_len, dtype=torch.float32,
+                                 device=device), lambda t: t)
+    mesh = leaf.device_mesh
+    return (place_caches(model, mesh, b, seq_len),
+            lambda t: place_tokens(t, mesh))
+
+
 def place_cell(cfg: ModelConfig, shape: Shape, mesh: DeviceMesh,
                batch: Dict[str, torch.Tensor], *, params=None,
                opt_cfg: Optional[adamw.AdamWConfig] = None):
-    """(fn, args) of a train or prefill cell placed on ``mesh`` by
-    :func:`build_cell`'s shardings: ``fn(*args)`` runs the step.
+    """(fn, args) of a cell placed on ``mesh`` by :func:`build_cell`'s
+    shardings: ``fn(*args)`` runs the step.
 
     ``batch`` holds the cell's inputs whole (``registry.input_specs(cfg,
     shape)``'s shapes); ``params`` is a whole parameter tree on the mesh's
     device (such as ``models/convert.params_from_reference``'s), or
-    ``None`` to draw a float32 one from seed 0.  Every rank must pass the
-    same values: each keeps its own block of every leaf, and a replicated
-    leaf's block is the given tensor itself, which a train step updates in
-    place.  A train cell's optimizer state is ``adamw.init`` of the placed
-    parameters, so its moments follow them (ZeRO-1,
-    :func:`opt_state_specs`)."""
-    if shape.kind not in ("train", "prefill"):
-        raise ValueError(f"place_cell places train and prefill cells, not "
-                         f"{shape.kind!r} (ROADMAP Queue 1 item 5)")
+    ``None`` to draw a float32 one from seed 0 a leaf at a time
+    (:func:`init_placed`).  Every rank must pass the same values: each
+    keeps its own block of every leaf (a copy, where the block is part of
+    the whole tensor), and a replicated leaf's block is the given tensor
+    itself, which a train step updates in place.  A train cell's optimizer
+    state is ``adamw.init`` of the placed parameters, so its moments
+    follow them (ZeRO-1, :func:`opt_state_specs`).  A decode cell's
+    parameters take the serve layout where :func:`build_cell` chooses it,
+    and its caches are :func:`place_caches`' float32 zeros: args
+    ``(params, caches, batch)``."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     fn, _, in_sh, _, _ = build_cell(cfg, shape, mesh, opt_cfg)
+    model = build_model(cfg)
     if params is None:
-        params = build_model(cfg).init(0, torch.float32,
-                                       device=mesh.device_type)
-    placed = distribute(params, in_sh[0], mesh)
+        placed = init_placed(model, in_sh[0], mesh)
+    else:
+        placed = distribute(params, in_sh[0], mesh)
     inputs = distribute(batch, in_sh[-1], mesh)
     if shape.kind == "prefill":
         return fn, (placed, inputs)
+    if shape.kind == "decode":
+        caches = place_caches(model, mesh, shape.global_batch, shape.seq_len)
+        return fn, (placed, caches, inputs)
     return fn, (placed, adamw.init(opt_cfg, placed), inputs)

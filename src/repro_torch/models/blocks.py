@@ -46,8 +46,9 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed import _functional_collectives as funcol
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import local_map
 from torch.profiler import record_function
 
@@ -256,24 +257,67 @@ def apply_attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
     Window layers keep a ring buffer of ``smax`` slots (``slot = length %
     smax``); attention is order-free and RoPE is applied before caching.
     Other layers write slot ``length``, clamped to the last slot as the
-    reference's ``dynamic_update_slice`` clamps it.
+    reference's ``dynamic_update_slice`` clamps it.  On a placed decode
+    cell (DTensor caches, ``length`` replicated) each rank writes and
+    attends its own cache blocks (:func:`_decode_attend`).
     """
     b = x.shape[0]
     h = norm_apply(cfg, p["norm"], x)
     q, k, v = _qkv(cfg, p, h)                    # [B, H, 1, hd]
     length = cache["length"]
-    positions = length.to(torch.int32).expand(b, 1)
+    n = length.to_local() if isinstance(length, DTensor) else length
+    positions = n.to(torch.int32).expand(b, 1)
     q, k = _rope_qk(cfg, q, k, positions)
     ck, cv = cache["k"], cache["v"]
+    o = _decode_attend(q, k, v, ck, cv, n, ring=window is not None)
+    out = _heads_out(o[:, :, None], p["wo"])     # [B, 1, d]
+    return (shard(x + out, ("batch", None, None)),
+            {"k": ck, "v": cv, "length": length + 1})
+
+
+def _decode_attend(q, k, v, ck, cv, length: torch.Tensor, *, ring: bool):
+    """Writes the step's k and v [B, Hkv, 1, hd] into the caches ck, cv
+    [B, Hkv, smax, hd] in place at the step's slot, then attends q
+    [B, Hq, 1, hd] over the valid slots -> [B, Hq, hd].  ``length`` is a
+    plain scalar tensor.
+
+    On DTensor caches each rank works on its blocks: q, k and v are laid
+    out by the caches' batch and heads blocks (where the model axis does
+    not split the KV heads, it splits no heads, so each block keeps whole
+    GQA groups, as :func:`_attention`), and whole over a mesh dim that
+    splits the cache's slots ("seq" over "data", ``long_500k``'s layout).
+    There only the rank whose block holds the slot writes, and the ranks'
+    partial attentions merge over that dim (``decode_attention``'s
+    ``all_reduce``)."""
     smax = ck.shape[2]
-    slot = length % smax if window is not None else length.clamp(max=smax - 1)
-    slot = slot.reshape(1).long()
-    ck.index_copy_(2, slot, k.to(ck.dtype))
-    cv.index_copy_(2, slot, v.to(cv.dtype))
+    slot = (length % smax if ring else length.clamp(max=smax - 1)).long()
     valid = torch.minimum(length + 1, torch.full_like(length, smax))
-    o = decode_attention(q[:, :, 0], ck, cv, valid.expand(b))  # [B, H, hd]
-    out = torch.einsum("bhk,hkd->bd", o, p["wo"].to(o.dtype))[:, None]
-    return x + out, {"k": ck, "v": cv, "length": length + 1}
+    placed, split = isinstance(ck, DTensor), []
+    if placed:
+        mesh = ck.device_mesh
+        split = [i for i, pl in enumerate(ck.placements) if pl.is_shard(2)]
+        pq = tuple(Replicate() if pl.is_shard(2) else pl
+                   for pl in ck.placements)
+        q, k, v = (t.redistribute(mesh, pq).to_local() for t in (q, k, v))
+        ck, cv = ck.to_local(), cv.to_local()
+    q, lengths = q[:, :, 0], valid.expand(q.shape[0])
+    if not split:
+        ck.index_copy_(2, slot.reshape(1), k.to(ck.dtype))
+        cv.index_copy_(2, slot.reshape(1), v.to(cv.dtype))
+        o = decode_attention(q, ck, cv, lengths)
+    else:
+        (dim,) = split
+        block = ck.shape[2]
+        start = mesh.get_coordinate()[dim] * block
+        mine = (slot >= start) & (slot < start + block)
+        idx = (slot - start).clamp(0, block - 1).reshape(1)
+        for c, new in ((ck, k), (cv, v)):
+            c.index_copy_(2, idx, torch.where(mine, new.to(c.dtype),
+                                              c.index_select(2, idx)))
+        o = decode_attention(
+            q, ck, cv, lengths - start,
+            all_reduce=lambda t, op: funcol.all_reduce(t, op, (mesh, dim)))
+    return DTensor.from_local(o, mesh, pq, run_check=False) if placed else o
 
 
 def attn_cache_spec(cfg: ModelConfig, b: int, s: int,

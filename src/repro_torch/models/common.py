@@ -16,7 +16,7 @@ gathered whole first.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -31,29 +31,39 @@ class Init:
 
     On the ``meta`` device nothing is drawn: the helpers return tensors
     that carry only shapes and dtypes (used to check converted weights).
+    ``place``, if given, is applied to each tensor as it is made, in the
+    order made, and its result takes the tensor's place in the tree
+    (``launch/steps.init_placed`` puts each leaf on a mesh, so the whole
+    tree is never held at once).
     """
 
     def __init__(self, generator: Optional[torch.Generator],
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, device: torch.device,
+                 place: Optional[Callable[[torch.Tensor], Any]] = None):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(device)
+        self.place = place
+
+    def _made(self, t: torch.Tensor):
+        return t if self.place is None else self.place(t)
 
     def normal(self, shape: Sequence[int], *, std: float = 0.02
                ) -> torch.Tensor:
         if self.device.type == "meta":
-            return torch.empty(tuple(shape), dtype=self.dtype,
-                               device=self.device)
+            return self._made(torch.empty(tuple(shape), dtype=self.dtype,
+                                          device=self.device))
         t = torch.randn(tuple(shape), generator=self.generator,
                         device=self.device, dtype=torch.float32)
-        return t.mul_(std).to(self.dtype)
+        return self._made(t.mul_(std).to(self.dtype))
 
     def zeros(self, shape: Sequence[int]) -> torch.Tensor:
-        return torch.zeros(tuple(shape), dtype=self.dtype,
-                           device=self.device)
+        return self._made(torch.zeros(tuple(shape), dtype=self.dtype,
+                                      device=self.device))
 
     def ones(self, shape: Sequence[int]) -> torch.Tensor:
-        return torch.ones(tuple(shape), dtype=self.dtype, device=self.device)
+        return self._made(torch.ones(tuple(shape), dtype=self.dtype,
+                                     device=self.device))
 
 
 # ---------------------------------------------------------------------------

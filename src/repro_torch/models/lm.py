@@ -32,7 +32,7 @@ plain PyTorch (one token against the caches), and so is the MoE dispatch.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -159,22 +159,25 @@ def _layer_cache_spec(cfg, kind, b, s, dtype):
 
 def _index(tree, r: int):
     """The ``r``-th slice of every tensor of a tree stacked over repeats
-    (views, so in-place cache writes land in the stack)."""
+    (views, so in-place cache writes land in the stack; a DTensor's slice
+    is a DTensor whose local block is a view of the stack's, the stack
+    dim being never sharded)."""
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}
     return tree[r]
 
 
-def _restack(old, trees):
+def _restack(old, given, trees):
     """Inverse of :func:`_index` over a list of per-repeat trees: a leaf
-    whose every slice is still a view of ``old``'s (written in place) keeps
-    ``old``'s tensor; the others are stacked anew."""
+    whose every new tensor is the slice :func:`_index` gave (``given``,
+    written in place) keeps ``old``'s tensor; the others are stacked
+    anew."""
     if not trees:
         return old
     if isinstance(old, dict):
-        return {k: _restack(old[k], [t[k] for t in trees]) for k in old}
-    if all(t.data_ptr() == old[r].data_ptr() and t.shape == old[r].shape
-           for r, t in enumerate(trees)):
+        return {k: _restack(old[k], [g[k] for g in given],
+                            [t[k] for t in trees]) for k in old}
+    if all(t is g for t, g in zip(trees, given)):
         return old
     return torch.stack(trees)
 
@@ -206,20 +209,22 @@ class LM:
 
     def init(self, generator: Union[None, int, torch.Generator] = None,
              dtype: torch.dtype = torch.float32,
-             device: DeviceLike = None) -> Dict[str, Any]:
+             device: DeviceLike = None, *,
+             place: Optional[Callable[[torch.Tensor], Any]] = None
+             ) -> Dict[str, Any]:
         """Random parameters (normal std 0.02 / zeros / ones, as the
         reference draws them) from ``generator``: a ``torch.Generator`` on
         ``device``, or an int seed (``None`` = 0).  ``device=None`` means
-        ``"cuda"``."""
+        ``"cuda"``; ``place`` is :class:`~.common.Init`'s."""
         dev = resolve_device(device)
-        return self._init(generator, dtype, dev)
+        return self._init(generator, dtype, dev, place)
 
-    def _init(self, generator, dtype, dev: torch.device):
+    def _init(self, generator, dtype, dev: torch.device, place=None):
         if dev.type != "meta" and not isinstance(generator, torch.Generator):
             generator = torch.Generator(device=dev).manual_seed(
                 0 if generator is None else int(generator))
         cfg = self.cfg
-        init = Init(generator, dtype, dev)
+        init = Init(generator, dtype, dev, place)
         params: Dict[str, Any] = {
             "embed": init.normal((cfg.vocab, cfg.d_model))}
         if not cfg.tie_embeddings:
@@ -301,10 +306,13 @@ class LM:
 
     def _embed(self, params, tokens, vision_embeds=None):
         # the rows by token id (the reference's ``embed[tokens]``); on a
-        # DTensor each rank looks up its vocab block's ids, and the
-        # constraint below adds the blocks
-        x = F.embedding(tokens.long(), shard(params["embed"],
-                                             ("vocab", None))) * 1.0
+        # DTensor each rank looks up its vocab block's ids for its batch
+        # block, and the constraint adds the blocks (one all-reduce;
+        # scaled first, the partial rows went through a reduce-scatter and
+        # an all-gather)
+        ids = shard(tokens.long(), ("batch", None))
+        x = shard(F.embedding(ids, shard(params["embed"], ("vocab", None))),
+                  ("batch", None, None)) * 1.0
         if vision_embeds is not None:
             x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
         return shard(x, ("batch", None, None))
@@ -401,21 +409,25 @@ class LM:
         cfg = self.cfg
         x = self._embed(params, tokens)
         shared = params.get("shared_attn")
+        unit_given: List[List[Any]] = [[] for _ in self.unit]
         unit_new: List[List[Any]] = [[] for _ in self.unit]
-        shared_new = []
+        shared_given, shared_new = [], []
         for r in range(self.repeats):
             for i, kind in enumerate(self.unit):
+                c = _index(caches["units"][i], r)
                 x, nc = _apply_layer_decode(
-                    cfg, kind, _index(params["units"][i], r), x,
-                    _index(caches["units"][i], r))
+                    cfg, kind, _index(params["units"][i], r), x, c)
+                unit_given[i].append(c)
                 unit_new[i].append(nc)
             if shared is not None:
-                x, nc = apply_attention_decode(
-                    cfg, shared["attn"], x, _index(caches["shared"], r))
+                c = _index(caches["shared"], r)
+                x, nc = apply_attention_decode(cfg, shared["attn"], x, c)
                 x = apply_mlp(cfg, shared["mlp"], x)
+                shared_given.append(c)
                 shared_new.append(nc)
         new: Dict[str, Any] = {"units": tuple(
-            _restack(old, u) for old, u in zip(caches["units"], unit_new))}
+            _restack(old, g, u) for old, g, u in
+            zip(caches["units"], unit_given, unit_new))}
         if self.tail:
             tails = []
             for i, kind in enumerate(self.tail):
@@ -424,5 +436,6 @@ class LM:
                 tails.append(nc)
             new["tail"] = tuple(tails)
         if shared is not None:
-            new["shared"] = _restack(caches["shared"], shared_new)
+            new["shared"] = _restack(caches["shared"], shared_given,
+                                     shared_new)
         return self.logits(params, x)[:, 0], new

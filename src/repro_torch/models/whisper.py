@@ -32,7 +32,7 @@ The port keeps that fault of the reference as it is (ROADMAP, Queue 3).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -59,17 +59,19 @@ class EncDec:
 
     def init(self, generator: Union[None, int, torch.Generator] = None,
              dtype: torch.dtype = torch.float32,
-             device: DeviceLike = None) -> Dict[str, Any]:
+             device: DeviceLike = None, *,
+             place: Optional[Callable[[torch.Tensor], Any]] = None
+             ) -> Dict[str, Any]:
         """Random parameters from ``generator`` (a ``torch.Generator`` on
         ``device`` or an int seed, ``None`` = 0), as :meth:`LM.init`."""
-        return self._init(generator, dtype, resolve_device(device))
+        return self._init(generator, dtype, resolve_device(device), place)
 
-    def _init(self, generator, dtype, dev: torch.device):
+    def _init(self, generator, dtype, dev: torch.device, place=None):
         if dev.type != "meta" and not isinstance(generator, torch.Generator):
             generator = torch.Generator(device=dev).manual_seed(
                 0 if generator is None else int(generator))
         cfg = self.cfg
-        init = Init(generator, dtype, dev)
+        init = Init(generator, dtype, dev, place)
         n_enc, n_dec = (cfg.n_enc_layers,), (cfg.n_layers,)
         enc = {"attn": init_attention(cfg, init, n_enc),
                "mlp": init_mlp(cfg, init, lead=n_enc)}
@@ -210,14 +212,16 @@ class EncDec:
         length = caches["self"]["length"][0]
         x = params["embed"][tokens.long()] + \
             params["pos_dec"][length.long()][None, None]
+        given: List[Any] = []
         new_self: List[Any] = []
         for i in range(cfg.n_layers):
             layer = _index(params["dec"], i)
             # apply_attention_decode rotates q and k by RoPE at ``length``:
             # the reference's decode does, its prefill does not (module
             # docstring)
+            given.append(_index(caches["self"], i))
             x, nc = apply_attention_decode(cfg, layer["self_attn"], x,
-                                           _index(caches["self"], i))
+                                           given[-1])
             new_self.append(nc)
             x = apply_attention(cfg, layer["cross_attn"], x, positions=None,
                                 causal=False,
@@ -225,5 +229,5 @@ class EncDec:
                                     caches["cross"]["v"][i]))
             x = apply_mlp(cfg, layer["mlp"], x)
         logits = self._logits(params, x)[:, 0]
-        return logits, {"self": _restack(caches["self"], new_self),
+        return logits, {"self": _restack(caches["self"], given, new_self),
                         "cross": caches["cross"]}

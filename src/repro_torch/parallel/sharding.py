@@ -103,7 +103,9 @@ def mesh_axis_sizes(mesh: Mesh) -> Dict[str, int]:
     """{axis name: size} for either kind of mesh."""
     if isinstance(mesh, MeshShape):
         return mesh.shape
-    return dict(zip(mesh_axes(mesh), mesh.mesh.shape))
+    # ``size(d)``, not ``mesh.mesh.shape``: the mesh tensor is rebuilt at
+    # each read, a cost every constraint of a step paid
+    return {a: mesh.size(d) for d, a in enumerate(mesh_axes(mesh))}
 
 
 def mesh_size(mesh: Mesh) -> int:
@@ -260,13 +262,23 @@ def distribute(tree, shardings, mesh: DeviceMesh):
     DTensor whose local block this rank cuts from the whole tensor it
     holds (``distribute_tensor`` with no source rank, so no collective:
     every rank must hold the same values, as a seed or a converted tree
-    gives them).  A sharding's mesh may be a :class:`MeshShape`; its axes
-    must be ``mesh``'s, in order."""
+    gives them).  A block that is part of the whole tensor is copied out,
+    so that dropping the whole frees it; a replicated leaf's block is the
+    whole tensor itself.  A sharding's mesh may be a :class:`MeshShape`;
+    its axes must be ``mesh``'s, in order."""
     def place(sh: NamedSharding, t: torch.Tensor) -> DTensor:
         if mesh_axes(sh.mesh) != mesh_axes(mesh):
             raise ValueError(f"a sharding over {mesh_axes(sh.mesh)} placed "
                              f"on a mesh over {mesh_axes(mesh)}")
-        return distribute_tensor(t, mesh, sh.placements, src_data_rank=None)
+        d = distribute_tensor(t, mesh, sh.placements, src_data_rank=None)
+        local = d.to_local()
+        if local.untyped_storage().nbytes() > \
+                local.numel() * local.element_size() > 0 and \
+                local.numel() < t.numel():
+            d = DTensor.from_local(local.clone(), mesh, d.placements,
+                                   run_check=False, shape=d.shape,
+                                   stride=d.stride())
+        return d
 
     return spec_map(place, shardings, tree)
 

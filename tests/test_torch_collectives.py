@@ -164,7 +164,20 @@ def test_dryrun_counts_the_train_cells_collectives(tmp_path):
     ("qwen1.5-4b", "train_4k", True),
     ("gemma3-12b", "prefill_32k", True),
     ("qwen2-vl-72b", "train_4k", True),
-    ("qwen1.5-4b", "decode_32k", False),
+    ("qwen1.5-4b", "decode_32k", True),
+    ("phi3-mini-3.8b", "decode_32k", True),
+    ("gemma3-12b", "decode_32k", True),
+    ("qwen2.5-32b", "decode_32k", True),
+    ("qwen2-vl-72b", "decode_32k", True),
+    ("gemma3-12b", "long_500k", True),
+    ("mixtral-8x7b", "decode_32k", False),
+    ("kimi-k2-1t-a32b", "decode_32k", False),
+    ("mixtral-8x7b", "long_500k", False),
+    ("rwkv6-7b", "decode_32k", False),
+    ("rwkv6-7b", "long_500k", False),
+    ("zamba2-7b", "decode_32k", False),
+    ("zamba2-7b", "long_500k", False),
+    ("whisper-large-v3", "decode_32k", False),
     ("mixtral-8x7b", "train_4k", False),
     ("rwkv6-7b", "prefill_32k", False),
     ("zamba2-7b", "train_4k", False),
@@ -174,6 +187,42 @@ def test_dryrun_says_which_cells_it_cannot_count(arch, shape, counted):
     why = dryrun.collectives_skipped(ARCHS[arch], SHAPES[shape])
     assert (why is None) == counted
     assert why is None or len(why) > 20
+    if why is not None:
+        # a family's own reason, for its kind of cell
+        kind = SHAPES[shape].kind == "decode"
+        assert why == dryrun.SKIPPED[ARCHS[arch].family][kind]
+
+
+def test_dryrun_counts_the_decode_cells_collectives(tmp_path):
+    """The dense and VLM decode cells at 16 x 16: qwen1.5-4b's decode_32k
+    (the serve layout, batch over "data") and gemma3-12b's long_500k (batch
+    1, the KV sequence over "data": each global layer merges the ranks'
+    partial attentions), counted on fake tensors, each with collectives
+    and no reduce-scatter (no gradient)."""
+    out = tmp_path / "dry.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import json, sys; from repro_torch.launch import dryrun; "
+            "recs = dryrun.run_all('16x16', ['qwen1.5-4b', 'gemma3-12b'], "
+            "['decode_32k', 'long_500k'], True); "
+            "json.dump(recs, open(sys.argv[1], 'w'))")
+    proc = subprocess.run([sys.executable, "-c", code, str(out)], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=DRY_TIMEOUT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    recs = {(r["arch"], r["shape"]): r for r in json.loads(out.read_text())}
+    assert "skipped" in recs[("qwen1.5-4b", "long_500k")]
+    for cell in (("qwen1.5-4b", "decode_32k"), ("gemma3-12b", "decode_32k"),
+                 ("gemma3-12b", "long_500k")):
+        coll = recs[cell]["collectives"]
+        assert "collectives_skipped" not in recs[cell]
+        assert coll["count"] > 0 and coll["all-reduce"] > 0
+        assert coll["reduce-scatter"] == 0
+        t = roofline.terms(recs[cell], ARCHS[cell[0]])
+        assert t["t_collective"] is not None and t["t_collective"] > 0
+    # qwen1.5-4b: 20 heads on 16 replicate, so attention adds nothing over
+    # "model": one all-reduce a layer (the MLP's) and the embedding's
+    assert recs[("qwen1.5-4b", "decode_32k")]["collectives"]["count"] == \
+        ARCHS["qwen1.5-4b"].n_layers + 1
 
 
 def test_dtensor_helpers_leave_plain_tensors_alone():

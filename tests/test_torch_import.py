@@ -23,6 +23,7 @@ def _modules():
 
 DRIVERS = ("scripts/torch_batched_smoke.py", "scripts/torch_reconfig_smoke.py",
            "scripts/torch_open_loop_smoke.py", "scripts/torch_trace_report.py",
+           "scripts/chip_phases.py",
            "examples/torch_quickstart.py", "examples/torch_serve_kvstore.py",
            "examples/torch_train_fault_tolerant.py")
 

@@ -1,5 +1,6 @@
 """Rank bodies of the port's sharded serve path, multi-rank MoE
-gradients, sharded train step and collective counter, for
+gradients, sharded train step, sharded decode cell and collective
+counter, for
 ``tests/torch_ranks.py``'s ``run_ranks`` (imports no JAX).
 
 :data:`WORKLOADS` and :func:`run_workload` are shared with the reference's
@@ -286,6 +287,94 @@ def train_mesh_rank(rank, world, case_path):
         with torch.no_grad():
             res["prefill"] = _full(pfn(*pargs))
         out[f"{shape[0]}x{shape[1]}"] = res
+    return out
+
+
+def _block_bounds(t):
+    """(start, stop) a dim of this rank's block of DTensor ``t`` in the
+    whole tensor (Shard and Replicate placements, mesh dims in order)."""
+    coord = t.device_mesh.get_coordinate()
+    start, size = [0] * t.dim(), list(t.shape)
+    for mdim, pl in enumerate(t.placements):
+        if pl.is_shard():
+            size[pl.dim] //= t.device_mesh.size(mdim)
+            start[pl.dim] += coord[mdim] * size[pl.dim]
+    return tuple((a, a + n) for a, n in zip(start, size))
+
+
+def decode_mesh_rank(rank, world, case_path):
+    """For each case of ``case["cases"]`` (a config, whole parameters, a
+    cache length ``seq``, tokens [B, T], prompts and a generation length)
+    and each (data, model) mesh of the case: the decode cell placed by
+    ``launch/steps.place_cell``; every teacher-forced step's logits, whole;
+    one step's collectives (``count_at``) with each all-gather's input
+    shape; every cache leaf's block, bounds and placements after the
+    steps; the parameters' layouts; then ``DecodeEngine.generate`` on the
+    placed parameters."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import steps
+    from repro_torch.launch.collectives import (
+        CollectiveCounter, collective_kind,
+    )
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import DecodeEngine, ServeConfig
+    from repro_torch.tree import leaves
+
+    class Gathers(CollectiveCounter):
+        """The counter, and each all-gather's input shape."""
+
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if (not any(issubclass(t, DTensor) for t in types) and
+                    collective_kind(func._schema.name) == "all-gather"):
+                self.shapes.append(tuple(args[0].shape))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    torch.set_num_threads(1)
+    case = torch.load(case_path)
+    out = {}
+    for name, c in case["cases"].items():
+        cfg = ModelConfig(**c["cfg"])
+        tokens = c["tokens"]
+        b, steps_n = tokens.shape
+        cell = Shape("decode", c["seq"], b, "decode")
+        for shape in c["meshes"]:
+            mesh = make_device_mesh(shape, "cpu")
+            fn, (params, caches, _) = steps.place_cell(
+                cfg, cell, mesh, {"tokens": tokens[:, :1]},
+                params=c["params"])
+            res = {"coord": tuple(mesh.get_coordinate())}
+            logits = []
+            for t in range(steps_n):
+                batch = {"tokens": steps.place_tokens(tokens[:, t:t + 1],
+                                                      mesh)}
+                if t == c["count_at"]:
+                    with Gathers() as counter:
+                        lg, caches = fn(params, caches, batch)
+                    res["collectives"] = counter.result()
+                    res["gathers"] = counter.shapes
+                else:
+                    lg, caches = fn(params, caches, batch)
+                logits.append(_full(lg))
+            res["logits"] = torch.stack(logits)
+            res["caches"] = [(_block_bounds(x), x.to_local().clone(),
+                              str(x.placements)) for x in leaves(caches)]
+            res["param_layout"] = [(tuple(x.to_local().shape),
+                                    str(x.placements), x.element_size())
+                                   for x in leaves(params)]
+            engine = DecodeEngine(build_model(cfg), params,
+                                  ServeConfig(max_seq=c["seq"], batch=b),
+                                  device="cpu")
+            res["generated"] = torch.from_numpy(
+                engine.generate(c["prompts"], c["gen"]))
+            out[f"{name}/{shape[0]}x{shape[1]}"] = res
     return out
 
 
