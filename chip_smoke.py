@@ -67,23 +67,34 @@ Phases (any failure exits nonzero and prints no result):
    kind of group: ``place_cell`` of a decode cell (the parameters drawn
    a leaf at a time into ``build_cell``'s serve layout, no weight over
    "data"; the caches' blocks by ``cache_shardings``) served through
-   ``DecodeEngine.generate`` on the placed parameters, in two cases:
-   qwen1.5-4b whole (40 layers) at ``decode_32k``'s layout cut to batch
-   4 and 2048 cache slots, a 16-token prompt and 4 generated; and
+   ``DecodeEngine.generate`` on the placed parameters, in four cases:
+   qwen1.5-4b at 20 of 40 layers in ``decode_32k``'s layout cut to
+   batch 4 and 2048 cache slots, a 16-token prompt and 4 generated;
    gemma3-12b cut to one unit (6 of 48 layers) at ``long_500k``'s, batch
    1 and 64 slots with the KV sequence over "data" (32 a rank), a
    40-token prompt and 32 generated, so the global layer's writes cross
    into data rank 1's block and clamp at the last slot, and the local
-   rings wrap.  Against the same model, weights and prompts served in one
-   process on the card: generated tokens equal (the smallest top-1/top-2
-   gap at a pick printed), every step's logits and every rank's cache
+   rings wrap;
+   rwkv6-7b at 8 of 32 layers in ``decode_32k``'s layout as qwen1.5-4b's
+   (its WKV state by batch and heads); zamba2-7b cut to one unit (6
+   Mamba2 layers and the shared block) in ``long_500k``'s as gemma3's
+   (the SSM state by heads, the shared block's KV sequence over "data").
+   Against the same model, weights and prompts served in one process on
+   the card: generated tokens equal (the smallest top-1/top-2 gap at a
+   pick printed), every step's logits and every rank's cache and state
    blocks within 1e-5 of their max, the prefill cell of the same prompts
-   on the same mesh (``flash_attention`` on each rank's blocks, once a
-   layer, counts set to 0 just before) within 1e-3 of the last prompt
-   step's logits, and no parameter gathered (a step's staged all-gathers
-   smaller than any parameter block).  Prints a step's collectives, what
-   rank 0 staged a step, ms a step a rank beside one process's, peak GB a
-   rank and the phase's seconds.
+   on the same mesh (the float kernels on each rank's blocks, counts set
+   to 0 just before: ``flash_attention`` 20 and 6 times a rank, ``wkv6``
+   8 times on (2, 32, 16, 64), ``ssd`` 6 times on (1, 40, 56, 64) and
+   ``flash_attention`` once on (1, 16, 40, 112)) within 1e-3 of the last
+   prompt step's logits, each kernel's first call within 1e-4 of its
+   plain version on its block (timed on rank 0 by CUDA events), and no
+   parameter gathered (the counted step's all-gathers exactly zamba2's
+   in-projection activations, none elsewhere; a step's staged
+   all-gathers smaller than any parameter block where a case gathers
+   none).  Prints a step's collectives, what rank 0 staged a step, ms a
+   step a rank beside one process's, peak GB a rank and the phase's
+   seconds.
 4. **Schedule replay** (``repro_torch.core.replay``): the port's scalar
    cluster with both trace taps at the serve phase's width and seeds (5 x
    800 sessions x 2^20 keys, 4000 ops; seed 0 plain, seed 1 all-aboard
@@ -337,8 +348,7 @@ launches on each rank of phase 3's ``[serve_mesh]``, ``smoke_launches``,
 their launches in each smoke of phase 8, ``examples_launches``, in each example of phase
 24, and ``kimi_engine_launches``, in phase 23's engine; for
 ``flash_attention`` also ``train_mesh_launches``, its launches on each
-rank of phase 3's ``[train_mesh]``, ``decode_mesh_launches``, on each
-rank in the prefill cells of phase 3's ``[decode_mesh]``, ``zoo_launches``,
+rank of phase 3's ``[train_mesh]``, ``zoo_launches``,
 its launches in the f32
 prefills of phases 14-16, in whisper's decode step and in phase 18's
 shard_map prefill, ``zoo_bf16_ms``, its device time a call in their bf16
@@ -348,8 +358,12 @@ prefills, ``dense_launches`` and ``dense_bf16_ms``, the same for phase
 ``bf16_shape_ms``, its time, bound and SDPA time at each shape of phases
 17 and 19, and ``examples_launches``, its launches in serve_kvstore's
 prefill and in train_fault_tolerant's steps; for the select networks
-``dense_engine_launches``, their launches in each engine of phase 17),
-and ``{"ok": true, "device": {...}}``.
+``dense_engine_launches``, their launches in each engine of phase 17;
+for the three float kernels ``decode_mesh_launches``, their launches on
+each rank in the prefill cells of phase 3's ``[decode_mesh]`` by case,
+and ``decode_mesh_rank0``, rank 0's first call there: its block, its
+error against the plain version and its ms a call), and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1432,15 +1446,26 @@ def phase_train_mesh(torch, mods, dev):
 DECODE_MESH_SHAPE = (2, 2)  # (data, model)
 # name -> (arch, layers, batch, cache slots, prompt tokens, generated):
 # "serve" is decode_32k's layout (batch 4 of 128, a cache of 2048 slots of
-# 32,768), qwen1.5-4b whole; "seq" long_500k's (batch 1, a cache of 64
+# 32,768), qwen1.5-4b at 20 of 40 layers (whole until the recurrent cases
+# came: its 1.07-1.27 s steps a rank were most of the phase, and the
+# script's 1200 s limit is shared); "seq" long_500k's (batch 1, a cache of 64
 # slots of 524,288, 32 a data rank), gemma3-12b cut to one unit (5 local
 # layers and a global one): its 72 tokens cross from data rank 0's block
 # into rank 1's, wrap the local rings and clamp the global layer's write
 # at its last slot.  "serve" generates 4 tokens (16 picks over its batch),
 # not 16, to keep the phase near 100 s: its step a rank takes 1.2 s on an
-# H100 (PERF.md section 5); the 16-token prompt is the prefill's (gate 4)
-DECODE_MESH_CASES = {"serve": ("qwen1.5-4b", 40, 4, 2048, 16, 4),
-                     "seq": ("gemma3-12b", 6, 1, 64, 40, 32)}
+# H100 (PERF.md section 5); the 16-token prompt is the prefill's (gate 4).
+# The recurrent families: "ssm" is rwkv6-7b at 8 of 32 layers in
+# decode_32k's layout (batch 4 of 128: 2 a data rank; its WKV state by
+# batch and heads, 32 of 64 a model rank); "hybrid" zamba2-7b cut to one
+# unit (6 Mamba2 layers and the shared block) in long_500k's, as "seq"
+# (the shared block's KV sequence over "data", its writes crossing into
+# data rank 1's block and clamping at the last slot; the SSM state's 112
+# heads, 56 a model rank)
+DECODE_MESH_CASES = {"serve": ("qwen1.5-4b", 20, 4, 2048, 16, 4),
+                     "seq": ("gemma3-12b", 6, 1, 64, 40, 32),
+                     "ssm": ("rwkv6-7b", 8, 4, 2048, 16, 4),
+                     "hybrid": ("zamba2-7b", 6, 1, 64, 40, 32)}
 DECODE_MESH_LIMIT = 300.0  # seconds; a rank still running then is killed
 # every step's logits and every cache block against one process's, of
 # the max |value|: [train_mesh]'s bound for its blocks' products
@@ -1468,13 +1493,14 @@ class DecodeRecorder:
     """Wraps a model's ``decode_step`` as ``DecodeEngine.generate`` calls
     it: each step's ms (synchronised), its logits whole (gathered after
     the timed step), the last caches, and on a mesh what ``staged`` took
-    a step and the counter's collectives of step ``count_at``."""
+    a step and the counter's collectives of step ``count_at`` with each
+    all-gather's input shape."""
 
     def __init__(self, torch, mods, model, staged=None, count_at=None):
         self.torch, self.mods, self.step = torch, mods, model.decode_step
         self.staged, self.count_at = staged, count_at
         self.ms, self.logits, self.staged_steps = [], [], []
-        self.caches, self.collectives = None, None
+        self.caches, self.collectives, self.gathers = None, None, None
         model.decode_step = self
 
     def __call__(self, params, caches, tokens):
@@ -1482,7 +1508,7 @@ class DecodeRecorder:
         before = (None if self.staged is None else
                   (dict(self.staged.ops), dict(self.staged.bytes),
                    dict(self.staged.seconds)))
-        counter = (self.mods.CollectiveCounter()
+        counter = (_gather_counter(self.mods)
                    if len(self.ms) == self.count_at
                    else contextlib.nullcontext())
         torch.cuda.synchronize()
@@ -1493,6 +1519,7 @@ class DecodeRecorder:
         self.ms.append((time.perf_counter() - t0) * 1e3)
         if len(self.ms) - 1 == self.count_at:
             self.collectives = counter.result()
+            self.gathers = counter.shapes
         if before is not None:
             self.staged_steps.append({
                 k: (self.staged.ops[k] - before[0].get(k, 0),
@@ -1506,11 +1533,12 @@ class DecodeRecorder:
         return logits, caches
 
 
-def _written(torch, t, bounds, n):
+def _written(torch, t, bounds, n, name):
     """A cache leaf's block cut to the slots a run of ``n`` tokens wrote
-    ([..., B, H, S, hd] leaves; others whole) and the largest |value| of
+    (the KV caches ``k`` and ``v``, [..., B, H, S, hd]; the other leaves,
+    the recurrent states and lengths, whole) and the largest |value| of
     the slots it cut off (zero, as ``init_cache`` made them)."""
-    if t.dim() < 4:
+    if name not in ("k", "v"):
         return t.cpu(), 0.0
     start, stop = bounds[-2]
     keep = max(0, min(stop, n) - start)
@@ -1519,12 +1547,61 @@ def _written(torch, t, bounds, n):
             float(tail.abs().max()) if tail.numel() else 0.0)
 
 
+def _leaf_names(tree, name=None):
+    """Each leaf's key in a cache tree, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], k)]
+    if isinstance(tree, (tuple, list)):
+        return [n for t in tree for n in _leaf_names(t, name)]
+    return [name]
+
+
+def _gather_counter(mods):
+    """The collective counter that also keeps each all-gather's input
+    shape (``.shapes``)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.collectives import collective_kind
+
+    class Gathers(mods.CollectiveCounter):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if (not any(issubclass(t, DTensor) for t in types) and
+                    collective_kind(func._schema.name) == "all-gather"):
+                self.shapes.append(tuple(args[0].shape))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return Gathers()
+
+
+def activation_gathers(mods, cfg, b):
+    """The all-gathers' input shapes a decode step of ``cfg`` at batch
+    ``b`` runs on DECODE_MESH_SHAPE by design: zamba2's in-projection
+    [B/data, 1, cols/model] a Mamba2 layer (its columns pack z | x | B | C
+    | dt, whose bounds an even cut does not keep: ``blocks._mamba_split``),
+    none in the other families' steps (both head counts split or neither:
+    no query gather)."""
+    d, m = DECODE_MESH_SHAPE
+    if cfg.family != "hybrid" or m == 1:
+        return []
+    cols = 2 * cfg.ssm_heads * cfg.ssm_head_dim + \
+        2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
+    layers = mods.build_model(cfg)
+    n = sum(k == "mamba" for k in list(layers.unit) * layers.repeats
+            + list(layers.tail))
+    return [(b // d if b % d == 0 else b, 1, cols // m)] * n
+
+
 def _decode_mesh_case(torch, mods, mesh, staged, name, dev):
     """One case of ``[decode_mesh]`` on this rank: the decode cell placed
     by ``place_cell`` (the parameters a leaf at a time), served through
     ``DecodeEngine.generate`` on the placed parameters; then the prefill
-    cell of the same model and prompts on the same mesh, through
-    ``flash_attention`` on the rank's blocks (counts at 0 just before)."""
+    cell of the same model and prompts on the same mesh, through the
+    float kernels on the rank's blocks (counts at 0 just before), each
+    kernel's first call kept and, on rank 0, timed on its block."""
     arch, layers, b, slots, plen, gen = DECODE_MESH_CASES[name]
     cfg = _cut(mods, arch, layers)
     prompts = decode_mesh_prompts(torch, cfg, b, plen)
@@ -1549,9 +1626,9 @@ def _decode_mesh_case(torch, mods, mesh, staged, name, dev):
     t_decode = time.perf_counter() - t0
     decode_launches = _kernel_counts(mods)
     caches = []
-    for t in mods.leaves(rec.caches):
+    for t, leaf in zip(mods.leaves(rec.caches), _leaf_names(rec.caches)):
         bounds = _block_bounds(t)
-        block, tail = _written(torch, t.to_local(), bounds, plen + gen)
+        block, tail = _written(torch, t.to_local(), bounds, plen + gen, leaf)
         caches.append((bounds, block, tail, str(t.placements)))
     logits = torch.stack(rec.logits).cpu()
     del rec.caches, rec.logits, params, engine
@@ -1560,42 +1637,53 @@ def _decode_mesh_case(torch, mods, mesh, staged, name, dev):
         cfg, mods.Shape("decode_mesh", plen, b, "prefill"), mesh,
         {"tokens": torch.tensor(prompts, dtype=torch.int32, device=dev)})
     first = {}
-    wrapper = mods.blocks.flash_attention
 
-    def record_first(q, k, v, **kw):
-        out = wrapper(q, k, v, **kw)
-        if not first:
-            first.update(q=q.clone(), k=k.clone(), v=v.clone(),
-                         out=out.clone(), kw=kw)
-        return out
+    def record_first(kernel):
+        wrapper = _wrapper(mods, kernel)
 
-    mods.blocks.flash_attention = record_first
+        def call(*args, **kw):
+            out = wrapper(*args, **kw)
+            if kernel not in first:
+                first[kernel] = ([a.clone() for a in args], kw, out.clone())
+            return out
+        return call
+
+    for kernel in FLOAT_KERNELS:
+        setattr(mods.blocks, FLOAT_KERNELS[kernel][1], record_first(kernel))
     _zero_kernel_counts(mods)
     t0 = time.perf_counter()
     try:
         with torch.no_grad():
             prefill = pfn(*pargs).full_tensor().cpu()
     finally:
-        mods.blocks.flash_attention = wrapper
+        for kernel in FLOAT_KERNELS:
+            setattr(mods.blocks, FLOAT_KERNELS[kernel][1],
+                    _wrapper(mods, kernel))
     t_prefill = time.perf_counter() - t0
     prefill_launches = _kernel_counts(mods)
-    want = mods.fa_ops.attention_plain(first["q"], first["k"], first["v"],
-                                       **first["kw"])
-    del pargs
+    kernels = {}
+    for kernel, (args, kw, out) in first.items():
+        want = _plain(mods, kernel)(*args, **kw)
+        ms = None
+        if mesh.get_rank() == 0:
+            # after the counts are read: these launches are not the path's
+            ms = cuda_ms(torch, lambda: _wrapper(mods, kernel)(*args, **kw),
+                         20)
+        kernels[kernel] = {"block": tuple(args[0].shape),
+                           "err": float((out - want).abs().max()),
+                           "scale": float(want.abs().max()), "ms": ms}
+    del pargs, first
     return {"coord": tuple(mesh.get_coordinate()),
             "generated": torch.from_numpy(generated),
             "logits": logits if mesh.get_rank() == 0 else None,
             "logits_sha": hashlib.sha256(logits.numpy().tobytes())
             .hexdigest(), "ms": rec.ms, "staged": rec.staged_steps,
-            "collectives": rec.collectives, "caches": caches,
-            "layout": layout, "place_s": t_place, "decode_s": t_decode,
-            "prefill_s": t_prefill,
+            "collectives": rec.collectives, "gathers": rec.gathers,
+            "caches": caches, "layout": layout, "place_s": t_place,
+            "decode_s": t_decode, "prefill_s": t_prefill,
             "decode_launches": decode_launches,
             "prefill": prefill if mesh.get_rank() == 0 else None,
-            "prefill_launches": prefill_launches,
-            "fa_block": tuple(first["q"].shape),
-            "fa_err": float((first["out"] - want).abs().max()),
-            "fa_scale": float(want.abs().max()),
+            "prefill_launches": prefill_launches, "kernels": kernels,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -1630,12 +1718,19 @@ def phase_decode_mesh(torch, mods, dev):
     by ``cache_shardings``.  Held to the same model, weights and prompts
     served in one process on the card: (1) generated tokens equal, (2)
     every step's logits and (3) every rank's cache blocks within
-    DECODE_MESH_TOL of the max |value|, (4) the prefill cell of the same
-    prompts on the same mesh (``flash_attention`` on each rank's blocks,
-    once a layer) gives the last prompt step's logits within MODEL_TOL,
-    its first kernel call within FLOAT_TOL of ``attention_plain`` on its
-    block, (5) weight-stationary: a step's staged all-gathers carry fewer
-    bytes than any parameter leaf's block on the rank."""
+    DECODE_MESH_TOL of the max |value| (the KV caches, the WKV, SSM,
+    conv and token-shift states), (4) the prefill cell of the same prompts
+    on the same mesh (the float kernels on each rank's blocks:
+    ``flash_attention`` once an attention layer, ``wkv6`` once an RWKV6
+    layer, ``ssd`` once a Mamba2 layer, counts set to 0 just before)
+    gives the last prompt step's logits within MODEL_TOL, each kernel's
+    launches a rank equal to ``expected_launches`` and its first call
+    within FLOAT_TOL of its plain version on the rank's block (rank 0
+    times it there by CUDA events), (5) weight-stationary: no weight split
+    over "data", the counted step's all-gathers exactly the activations
+    its layers gather by design (``activation_gathers``), and where there
+    are none a step's staged all-gathers carry fewer bytes than any
+    parameter leaf's block on the rank."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -1653,15 +1748,20 @@ def phase_decode_mesh(torch, mods, dev):
         serve = all("data" not in str(sh.spec)
                     for sh in mods.leaves(in_sh[0]))
         k = mods.leaves(in_sh[1])[0]
+        heads = (f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
+                 f"{cfg.rwkv_head_dim}" if cfg.family == "ssm" else
+                 f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}")
+        if cfg.family == "hybrid":
+            heads += (f", {cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, "
+                      f"state {cfg.ssm_state}")
         log(f"[{tag}] {name}: {arch} at full width (d_model "
-            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-            f"{cfg.hd}, vocab {cfg.vocab}), {layers} of "
+            f"{cfg.d_model}, {heads}, vocab {cfg.vocab}), {layers} of "
             f"{mods.ARCHS[arch].n_layers} layers, {cfg.n_params():,} "
             f"float32 parameters; batch {b}, {slots} cache slots, a "
             f"{plen}-token prompt and {gen} generated; build_cell's layout: "
             f"{'serve (no weight over data)' if serve else 'FSDP'} "
             f"({cfg.n_params() * 2 / DECODE_MESH_SHAPE[1] / 1e9:.2f} GB a "
-            f"model rank in bf16 < 10); first KV cache leaf {k.spec}")
+            f"model rank in bf16 < 10); first cache leaf {k.spec}")
         if not serve:
             raise AssertionError(f"[{tag}] {name}: build_cell kept FSDP")
     ctx = mp.get_context("spawn")
@@ -1676,12 +1776,13 @@ def phase_decode_mesh(torch, mods, dev):
         _join_ranks(procs, work, DECODE_MESH_LIMIT, tag)
         ranks = [torch.load(work / f"rank{r}.pt") for r in range(world)]
     t_ranks = time.perf_counter() - t0
-    out = {"launches": {}, "step_ms": {}, "peak_gb": {}}
+    out = {"launches": {}, "kernels": {}, "step_ms": {}, "peak_gb": {}}
     for name, (arch, layers, b, slots, plen, gen) in \
             DECODE_MESH_CASES.items():
         torch.cuda.reset_peak_memory_stats()
         one = _one_process_decode(torch, mods, name, dev)
         one_peak = torch.cuda.max_memory_allocated() / 1e9
+        cfg = _cut(mods, arch, layers)
         got = [res[name] for res in ranks]
         r0 = got[0]
         what = f"[{tag}] {name}"
@@ -1732,17 +1833,35 @@ def phase_decode_mesh(torch, mods, dev):
         hold_logits(tag, f"{name}: the prefill cell on the mesh vs the "
                     f"teacher-forced decode's step {plen}",
                     r0["prefill"].to(dev), want[plen - 1])
+        runs = {k: n for k, n in
+                expected_launches(mods.build_model(cfg)).items() if n}
         for r, res in enumerate(got):
-            rel = res["fa_err"] / max(res["fa_scale"], 1e-30)
-            n_fa = res["prefill_launches"]["flash_attention"]
+            line = []
+            for kernel, n in runs.items():
+                k = res["kernels"].get(kernel)
+                rel = k["err"] / max(k["scale"], 1e-30) if k else None
+                line.append(f"{kernel} {res['prefill_launches'][kernel]} "
+                            f"times (want {n}), its first call on the block "
+                            f"{k and k['block']} within {rel:.3e} of the "
+                            f"plain version" + (f", {k['ms']:.6f} ms a call "
+                                                f"(CUDA events)"
+                                                if k and k["ms"] else ""))
+                if res["prefill_launches"][kernel] != n or \
+                        not rel <= FLOAT_TOL["float32"]:
+                    raise AssertionError(f"{what}: rank {r}'s prefill "
+                                         f"{kernel}")
+            others = {k: v for k, v in res["prefill_launches"].items()
+                      if k not in runs and v}
             log(f"{what} rank {r} {res['coord']}: the prefill launched "
-                f"flash_attention {n_fa} times, its first call on the block "
-                f"{res['fa_block']} within {rel:.3e} of attention_plain "
-                f"(tolerance {FLOAT_TOL['float32']:g}); the decode "
-                f"launched {json.dumps(res['decode_launches'])}")
-            if n_fa != layers or not rel <= FLOAT_TOL["float32"]:
-                raise AssertionError(f"{what}: rank {r}'s prefill kernel")
-        # gate 5: weight-stationary
+                f"{'; '.join(line)} (tolerance {FLOAT_TOL['float32']:g}); "
+                f"the decode launched {json.dumps(res['decode_launches'])}")
+            if others:
+                raise AssertionError(f"{what}: rank {r}'s prefill launched "
+                                     f"{others}")
+        # gate 5: weight-stationary; the step's all-gathers are the
+        # activations its layers gather by design, and where there are
+        # none a step stages fewer all-gathered bytes than any parameter
+        # block holds
         least = min(n for res in got for _, _, n in res["layout"])
         gathered = max(s.get(ALL_GATHER, (0, 0, 0))[1]
                        for res in got for s in res["staged"])
@@ -1750,10 +1869,19 @@ def phase_decode_mesh(torch, mods, dev):
                for res in got for _, pl, _ in res["layout"]):
             raise AssertionError(f"{what}: a rank holds a weight split "
                                  f"over data")
-        if not gathered < least:
+        by_design = activation_gathers(mods, cfg, b)
+        for r, res in enumerate(got):
+            if res["gathers"] != by_design:
+                raise AssertionError(f"{what}: rank {r}'s step "
+                                     f"{DECODE_MESH_COUNT_AT + 1} "
+                                     f"all-gathered {res['gathers']}, by "
+                                     f"design {by_design}")
+        if not by_design and not gathered < least:
             raise AssertionError(f"{what}: a step all-gathered {gathered} "
                                  f"B, a parameter block is {least} B")
-        log(f"{what}: weight-stationary: the most a rank's step staged in "
+        log(f"{what}: weight-stationary: step {DECODE_MESH_COUNT_AT + 1}'s "
+            f"all-gathers {len(by_design)} activations by design "
+            f"{sorted(set(by_design))}; the most a rank's step staged in "
             f"all-gathers {gathered} B, the least parameter block {least} B; "
             f"collectives of step {DECODE_MESH_COUNT_AT + 1} a rank (bytes a "
             f"device): {json.dumps(r0['collectives'])}")
@@ -1769,8 +1897,9 @@ def phase_decode_mesh(torch, mods, dev):
                   for res in got]
         out["step_ms"][name] = step_ms
         out["peak_gb"][name] = [res["peak_gb"] for res in got]
-        out["launches"][name] = [res["prefill_launches"]["flash_attention"]
-                                 for res in got]
+        out["launches"][name] = [{k: res["prefill_launches"][k]
+                                  for k in runs} for res in got]
+        out["kernels"][name] = {k: r0["kernels"][k] for k in runs}
         log(f"{what}: ms a decode step a rank (median of {plen + gen}): "
             f"{[round(x, 3) for x in step_ms]}, one process "
             f"{statistics.median(one['ms']):.3f}; seconds a rank to place, "
@@ -5518,8 +5647,17 @@ def main(argv=None) -> int:
         "mixtral_shardmap_prefill": parallel["flash_attention"]}
     # [train_mesh]'s steps, on each rank's block
     fa["train_mesh_launches"] = train_mesh["launches"]
-    # [decode_mesh]'s prefill cells on the mesh, on each rank's block
-    fa["decode_mesh_launches"] = decode_mesh["launches"]
+    # [decode_mesh]'s prefill cells on the mesh, on each rank's block:
+    # each float kernel's launches a rank by case, and rank 0's first call
+    # (its block, its error against the plain version, ms a call)
+    for k in kernels:
+        cases = {c: [r[k["name"]] for r in per]
+                 for c, per in decode_mesh["launches"].items()
+                 if k["name"] in per[0]}
+        if cases:
+            k["decode_mesh_launches"] = cases
+            k["decode_mesh_rank0"] = {c: decode_mesh["kernels"][c][k["name"]]
+                                      for c in cases}
     fa["examples_launches"] = {
         "serve_kvstore_prefill":
             examples["launches"]["flash_attention"]["serve_kvstore"],

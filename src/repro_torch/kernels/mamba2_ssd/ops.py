@@ -10,8 +10,10 @@ Port of ``repro.kernels.mamba2_ssd.{kernel,ops,ref}``.  Per head h with an
 B and C are shared across head groups: head h reads group ``h // (H/G)``.
 :func:`ssd` dispatches on the device of its inputs: CPU tensors take
 :func:`ssd_plain` (the sequential scan of ``ssd_ref``), CUDA tensors launch
-the kernel of ``csrc/mamba2_ssd.cu`` or raise.  The kernel takes any T (the
-TPU launcher's ``t % chunk`` contract does not apply): bfloat16 inputs run
+the kernel of ``csrc/mamba2_ssd.cu`` or raise; fake tensors (the dry
+run's, which hold no data) give the output's shape and dtype and run no
+scan.  The kernel takes any T (the TPU launcher's ``t % chunk`` contract
+does not apply): bfloat16 inputs run
 the chunked dual form on the tensor cores (chunks of 64 steps, the state
 in float32), float32 inputs the sequential scan on the CUDA cores.  :func:`ssd_decode`
 is one step of the recurrence, plain PyTorch on every device, as the
@@ -32,7 +34,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._grad import plain_vjp
+from repro_torch.kernels._grad import plain_vjp, shapes_only
 
 MAX_STATE = 128          # N the kernel takes (its mma tiles and registers)
 
@@ -100,8 +102,11 @@ def _check(x, dt, A, Bm, Cm) -> None:
 
 def _forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
-    """CPU: :func:`ssd_plain`; CUDA: the kernel or raise."""
+    """CPU: :func:`ssd_plain`; CUDA: the kernel or raise; fake
+    tensors: the output's shape and dtype."""
     dev = x.device
+    if shapes_only(x):
+        return torch.empty_like(x)
     if dev.type == "cpu":
         return ssd_plain(x, dt, A, Bm, Cm)
     if dev.type != "cuda":

@@ -9,11 +9,12 @@ with a ``[K, V]`` float32 state S (K = key dim, V = value dim)::
 with a data-dependent decay ``w_t`` in [0, 1] and the head's bonus ``u``.
 :func:`wkv6` dispatches on the device of its inputs: CPU tensors take
 :func:`wkv6_plain` (the sequential scan of ``wkv6_ref``), CUDA tensors
-launch a kernel of ``csrc/rwkv6_wkv.cu`` or raise: for bfloat16 the
-chunked form on the tensor cores (64-step chunks, every pair of steps
-factored at a reference step between them, so that each decay factor
-is a product of w in [0, 1]), for float32 the sequential scan on the
-CUDA cores.  The kernels take any T (the TPU launcher's ``t % chunk``
+launch a kernel of ``csrc/rwkv6_wkv.cu`` or raise (fake tensors, the dry
+run's, which hold no data, give the output's shape and dtype and run no
+scan): for bfloat16 the chunked form on the tensor cores (64-step
+chunks, every pair of steps factored at a reference step between them,
+so that each decay factor is a product of w in [0, 1]), for float32 the
+sequential scan on the CUDA cores.  The kernels take any T (the TPU launcher's ``t % chunk``
 contract does not apply).
 :func:`wkv6_decode` is one step of the recurrence, plain PyTorch on every
 device, as the reference's ``wkv6_decode_ref``.
@@ -32,7 +33,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._grad import plain_vjp
+from repro_torch.kernels._grad import plain_vjp, shapes_only
 
 MAX_KEY = 64             # K the kernels take
 
@@ -88,8 +89,11 @@ def _check(r, k, v, w, u) -> None:
 
 def _forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """CPU: :func:`wkv6_plain`; CUDA: the kernel or raise."""
+    """CPU: :func:`wkv6_plain`; CUDA: the kernel or raise; fake
+    tensors: the output's shape and dtype."""
     dev = r.device
+    if shapes_only(r):
+        return r.new_empty(tuple(r.shape[:3]) + (v.shape[-1],))
     if dev.type == "cpu":
         return wkv6_plain(r, k, v, w, u)
     if dev.type != "cuda":

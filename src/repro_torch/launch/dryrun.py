@@ -16,10 +16,12 @@ shardings' shard shapes:
   step (:func:`step_collectives`): the step runs for real on DTensors
   placed by the cell's shardings, as rank 0 of a fake process group of
   the mesh's size, on fake CPU tensors (shapes only, nothing computed or
-  sent), and ``launch/collectives.py`` counts what it issues: the
+  sent; the WKV and SSD wrappers give their outputs' shapes and run no
+  scan), and ``launch/collectives.py`` counts what it issues: the
   reference's ``collective_bytes`` keys, from which the roofline takes its
-  collective term.  A cell that cannot run so keeps ``"collectives":
-  None`` and says why in ``"collectives_skipped"``.
+  collective term.  The dense, VLM, SSM and hybrid families' cells run so;
+  a MoE or encoder-decoder cell keeps ``"collectives": None`` and says
+  why in ``"collectives_skipped"`` (:data:`SKIPPED`).
 
 Meshes: ``16x16`` and ``2x16x16`` (the reference's production layouts)
 and ``1xH100`` (one card as a 1 x 1 (data, model) mesh).  Usage::
@@ -101,12 +103,6 @@ SKIPPED = {
             "process groups, not on DTensors",
             "the MoE dispatch's expert counts (moe_route's bincount) have "
             "no DTensor sharding rule"),
-    "ssm": ("the WKV kernel has no block layout on DTensors",
-            "apply_rwkv6_decode runs on DTensors, but no test holds its "
-            "sharded state to one process or the reference yet"),
-    "hybrid": ("the SSD kernel has no block layout on DTensors",
-               "apply_mamba2_decode runs on DTensors, but no test holds its "
-               "sharded state to one process or the reference yet"),
     "encdec": ("the encoder-decoder carries no sharding constraints",
                "EncDec.decode_step reads pos_dec at the cache length, a "
                "data-dependent index that fake tensors cannot give"),
@@ -115,7 +111,7 @@ SKIPPED = {
 
 def collectives_skipped(cfg, shape) -> Optional[str]:
     """Why a cell's step cannot be counted on DTensors, or None."""
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family not in SKIPPED:
         return None
     return SKIPPED[cfg.family][shape.kind == "decode"]
 

@@ -25,11 +25,12 @@ returns the tensors only.  Under a
 :func:`apply_moe_shardmap` over the mesh's process groups.
 
 Parameters placed on a ``DeviceMesh`` as DTensors (``launch/steps.py``
-``place_cell``) run the same code: the attention and MLP blocks constrain
-their activations where the reference does
+``place_cell``) run the same code: the blocks constrain their
+activations where the reference does, and where DTensor needs a layout
 (:func:`~repro_torch.parallel.sharding.shard`, a redistribute; a no-op on
-plain tensors), and the attention kernel runs on each rank's block of
-batch and heads (:func:`_attention`).
+plain tensors), and the attention, WKV and SSD kernels run on each rank's
+block of batch and heads (:func:`_on_blocks`), as do the RWKV6 and Mamba2
+decode steps on their states' blocks.
 
 Decode caches are updated in place where that saves a copy of the whole
 cache: :func:`apply_attention_decode` writes the new key and value into the
@@ -48,7 +49,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed import _functional_collectives as funcol
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.distributed.tensor.experimental import local_map
 from torch.profiler import record_function
 
@@ -226,11 +227,11 @@ def apply_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
 
 def _attention(q, k, v, *, causal: bool, window: Optional[int]):
     """:func:`flash_attention` on each rank's block of DTensor q, k, v
-    (``local_map``: batch over "batch", heads over "heads" / "kv_heads",
-    resolved against the shapes; where the model axis divides one head
-    count and not the other, both replicate, so each block keeps whole
-    GQA groups), its backward on the blocks too; on plain tensors as they
-    are."""
+    (batch over "batch", heads over "heads" / "kv_heads", resolved
+    against the shapes; where the model axis divides one head count and
+    not the other, both replicate, so each block keeps whole GQA groups),
+    its backward on the blocks too (:func:`_on_blocks`); on plain tensors
+    as they are."""
     def kernel(q, k, v):
         return flash_attention(q, k, v, causal=causal, window=window)
 
@@ -242,10 +243,37 @@ def _attention(q, k, v, *, causal: bool, window: Optional[int]):
     if sq[1] != sk[1]:
         sq, sk = sq[:1] + (None,) + sq[2:], sk[:1] + (None,) + sk[2:]
     pq, pk = placements(sq, mesh), placements(sk, mesh)
-    # out_placements a list: local_map reads a tuple as one an output
-    return local_map(kernel, out_placements=list(pq),
-                     in_placements=(pq, pk, pk), device_mesh=mesh,
-                     redistribute_inputs=True)(q, k, v)
+    return _on_blocks(kernel, (q.redistribute(mesh, pq),
+                               k.redistribute(mesh, pk),
+                               v.redistribute(mesh, pk)))
+
+
+def _on_blocks(kernel, args, outs=(0,)):
+    """``kernel(*args)`` on each rank's block of DTensor ``args``, laid
+    out as they come: ``local_map``, its backward on the blocks too.
+    Output ``i`` takes the layout of ``args[outs[i]]``.  On plain tensors
+    ``kernel(*args)`` as it is.
+
+    The first arg's layout is the work's split.  An input replicated over
+    a mesh dim that splits the work (the WKV's bonus, the SSD's decay
+    rates over the batch; B and C shared by the heads over "model") gets
+    from its block's backward only that block's share of its gradient,
+    the sum over the other blocks left out: its gradient is declared
+    ``Partial`` over that dim, which DTensor adds up where it is read.
+    Declared as the input's own layout, each rank's share would pass for
+    the whole sum."""
+    if not isinstance(args[0], DTensor):
+        return kernel(*args)
+    pls = [a.placements for a in args]
+    grads = tuple(tuple(Partial() if p.is_replicate() and w.is_shard()
+                        else p for p, w in zip(pl, pls[0])) for pl in pls)
+    # out_placements a list for one output: local_map reads a tuple as one
+    # an output
+    out = (list(pls[outs[0]]) if len(outs) == 1
+           else tuple(list(pls[i]) for i in outs))
+    return local_map(kernel, out_placements=out, in_placements=tuple(pls),
+                     in_grad_placements=grads,
+                     device_mesh=args[0].device_mesh)(*args)
 
 
 def apply_attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
@@ -699,27 +727,55 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
     Returns (y, new_state) where state is the last K-1 inputs."""
     k = w.shape[0]
-    if state is None:
-        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
-                            device=x.device)
+    if state is None:                  # zeros laid out as x (a DTensor too)
+        state = torch.zeros_like(x[:, :1]).expand(-1, k - 1, -1)
     dt = torch.promote_types(state.dtype, x.dtype)
     xp = torch.cat([state.to(dt), x.to(dt)], dim=1)
     ys = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
     return ys, xp[:, -(k - 1):]
 
 
-def _mamba_split(cfg: ModelConfig, p, x: torch.Tensor):
+def _mamba_split(cfg: ModelConfig, p, x: torch.Tensor, *,
+                 step: bool = False):
+    """``x @ w_in`` cut into z, x, B, C and dt.
+
+    On DTensors the product is made whole over "model", and each piece
+    takes its layout after the cut: ``w_in``'s columns pack z | x | B | C
+    | dt, bounds that an even cut of the columns over "model" does not
+    keep (zamba2-7b: 14,576 columns, 7,288 a rank at 2, 911 at 16).  A
+    sequence gathers ``w_in`` (d x 14,576, far less than a train or
+    prefill cell's activation [B, S, 14,576]) and each model rank makes the
+    whole product; a decode ``step`` gathers its one token's activation
+    instead, so that a step in the serve layout gathers no parameter."""
     g, n = cfg.ssm_groups, cfg.ssm_state
     inner = cfg.ssm_heads * cfg.ssm_head_dim
-    zxbcdt = _mm(x, p["w_in"])
+    if step:
+        zxbcdt = shard(_mm(x, p["w_in"]), ("batch", None, None))
+    else:
+        zxbcdt = _mm(x, shard(p["w_in"], (None, None)))
     return torch.split(zxbcdt, [inner, inner, g * n, g * n, cfg.ssm_heads],
                        dim=-1)
 
 
+def _ssd_heads(cfg: ModelConfig, x: torch.Tensor):
+    """The logical axis of the SSD's heads on x's mesh: "heads", or None
+    where the mesh does not split G > 1 groups (B and C go whole then, and
+    a block of heads would read groups that are not its own)."""
+    if isinstance(x, DTensor) and cfg.ssm_groups > 1 and resolve(
+            ("heads",), x.device_mesh, (cfg.ssm_groups,))[0] is None:
+        return None
+    return "heads"
+
+
 def apply_mamba2(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    b, s, _ = x.shape
+    """The full-sequence Mamba2 layer.  On DTensors the SSD runs on each
+    rank's block of batch and heads (:func:`_on_blocks`); B and C go
+    whole over "model" where it does not split their groups (zamba2: one
+    group)."""
+    b, s, d = x.shape
     h_heads, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
     p_dim = cfg.ssm_head_dim
+    ha = _ssd_heads(cfg, x)
     hidden = norm_apply(cfg, p["norm"], x)
     z, xc, Bc, Cc, dt = _mamba_split(cfg, p, hidden)
     conv_in = torch.cat([xc, Bc, Cc], -1)
@@ -727,41 +783,52 @@ def apply_mamba2(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     conv_out = F.silu(conv_out)
     xc, Bc, Cc = torch.split(conv_out, [xc.shape[-1], Bc.shape[-1],
                                         Cc.shape[-1]], dim=-1)
-    xh = xc.reshape(b, s, h_heads, p_dim)
-    Bm = Bc.reshape(b, s, g, n)
-    Cm = Cc.reshape(b, s, g, n)
-    dt = _softplus(dt + p["dt_bias"])                       # [B,S,H]
-    A = -torch.exp(p["A_log"].float())
-    y = ssd(xh, dt, A, Bm, Cm)                              # [B,S,H,P]
+    xh = shard(xc.reshape(b, s, h_heads, p_dim), ("batch", None, ha, None))
+    Bm = shard(Bc.reshape(b, s, g, n), ("batch", None, "heads", None))
+    Cm = shard(Cc.reshape(b, s, g, n), ("batch", None, "heads", None))
+    dt = shard(_softplus(dt + p["dt_bias"]), ("batch", None, ha))  # [B,S,H]
+    A = shard(-torch.exp(p["A_log"].float()), (ha,))
+    y = _on_blocks(ssd, (xh, dt, A, Bm, Cm))                # [B,S,H,P]
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(b, s, h_heads * p_dim)
+    z = shard(z, ("batch", None, ha), sizes=(b, s, h_heads))
     y = rms_norm(y * F.silu(z), p["gate_norm"]["scale"])
-    return x + _mm(y, p["w_out"])
+    w_out = shard(p["w_out"], (ha, None), sizes=(h_heads, d))
+    return shard(x + _mm(y, w_out), ("batch", None, None))
 
 
 def apply_mamba2_decode(cfg: ModelConfig, p, x: torch.Tensor,
                         cache: Dict[str, torch.Tensor]):
-    """x: [B, 1, d]; cache: dict(conv [B,K-1,C], ssm [B,H,N,P])."""
-    b = x.shape[0]
+    """x: [B, 1, d]; cache: dict(conv [B,K-1,C], ssm [B,H,N,P]).  On a
+    placed decode cell each rank steps its block of the SSM state (batch
+    and heads); the conv state and the in-projection's pieces go whole
+    over "model"."""
+    b, _, d = x.shape
     h_heads, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
     p_dim = cfg.ssm_head_dim
+    ha = _ssd_heads(cfg, x)
     hidden = norm_apply(cfg, p["norm"], x)
-    z, xc, Bc, Cc, dt = _mamba_split(cfg, p, hidden)
+    z, xc, Bc, Cc, dt = _mamba_split(cfg, p, hidden, step=True)
     conv_in = torch.cat([xc, Bc, Cc], -1)
     conv_out, conv_state = _causal_conv(conv_in, p["conv_w"], cache["conv"])
     conv_out = F.silu(conv_out)
     xc, Bc, Cc = torch.split(conv_out, [xc.shape[-1], Bc.shape[-1],
                                         Cc.shape[-1]], dim=-1)
-    dt = _softplus(dt + p["dt_bias"])
-    A = -torch.exp(p["A_log"].float())
-    y, ssm = ssd_decode(xc.reshape(b, h_heads, p_dim),
-                        dt.reshape(b, h_heads), A,
-                        Bc.reshape(b, g, n), Cc.reshape(b, g, n),
-                        cache["ssm"])
-    y = y + p["D"][None, :, None] * xc.reshape(b, h_heads, p_dim)
+    xh = shard(xc.reshape(b, h_heads, p_dim), ("batch", ha, None))
+    dt = shard(_softplus(dt + p["dt_bias"]).reshape(b, h_heads),
+               ("batch", ha))
+    A = shard(-torch.exp(p["A_log"].float()), (ha,))
+    Bm = shard(Bc.reshape(b, g, n), ("batch", "heads", None))
+    Cm = shard(Cc.reshape(b, g, n), ("batch", "heads", None))
+    y, ssm = _on_blocks(ssd_decode, (xh, dt, A, Bm, Cm, cache["ssm"]),
+                        (0, 5))
+    y = y + p["D"][None, :, None] * xh
     y = y.reshape(b, 1, h_heads * p_dim)
+    z = shard(z, ("batch", None, ha), sizes=(b, 1, h_heads))
     y = rms_norm(y * F.silu(z), p["gate_norm"]["scale"])
-    return x + _mm(y, p["w_out"]), {"conv": conv_state, "ssm": ssm}
+    w_out = shard(p["w_out"], (ha, None), sizes=(h_heads, d))
+    return (shard(x + _mm(y, w_out), ("batch", None, None)),
+            {"conv": conv_state, "ssm": ssm})
 
 
 def mamba_cache_spec(cfg: ModelConfig, b: int,
@@ -820,37 +887,47 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
 
 def _rwkv_time_mix(cfg: ModelConfig, p, x: torch.Tensor,
                    x_prev: torch.Tensor, state=None):
+    """The time mixing -> (its output, the new WKV state of a decode step
+    or None).  On DTensors r, k, v, w and g are laid out by heads (judged
+    on the head count), the WKV runs on each rank's block of batch and
+    heads (:func:`_on_blocks`), the whole-d norm ``ln_x`` reduces over
+    "model", and the output projection leaves partial sums over it."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     nh = d // hd
+
     def mix(i):
         return x + (x_prev - x) * p["mu"][i]
 
-    r = _mm(mix(0), p["wr"])
-    k = _mm(mix(1), p["wk"])
-    v = _mm(mix(2), p["wv"])
-    w_in = mix(3)
-    g = _mm(mix(4), p["wg"])
-    w = p["w_base"] + _mm(torch.tanh(_mm(w_in, p["w_lora_a"])),
+    def proj(i, name):
+        return _mm(mix(i), shard(p[name], (None, "heads"), sizes=(d, nh)))
+
+    r, k, v, g = proj(0, "wr"), proj(1, "wk"), proj(2, "wv"), proj(4, "wg")
+    w = p["w_base"] + _mm(torch.tanh(_mm(mix(3), p["w_lora_a"])),
                           p["w_lora_b"])
     # the double exp in float32, the decay cast back before the kernel
     w = torch.exp(-torch.exp(w.float())).to(x.dtype)
+    w = shard(w, ("batch", None, "heads"), sizes=(b, s, nh))
+    u = shard(p["bonus"], ("heads", None))
 
     def heads(t):
         return t.reshape(b, s, nh, hd).transpose(1, 2)
 
     if state is None:
-        y = wkv6(heads(r), heads(k), heads(v), heads(w), p["bonus"])
+        y = _on_blocks(wkv6, (heads(r), heads(k), heads(v), heads(w), u))
         new_state = None
     else:
-        y, new_state = wkv6_decode(
-            r.reshape(b, nh, hd), k.reshape(b, nh, hd),
-            v.reshape(b, nh, hd), w.reshape(b, nh, hd), p["bonus"], state)
+        def step(t):
+            return t.reshape(b, nh, hd)
+
+        y, new_state = _on_blocks(
+            wkv6_decode, (step(r), step(k), step(v), step(w), u, state),
+            (0, 5))
         y = y[:, :, None]                              # [B, H, 1, hd]
     y = y.transpose(1, 2).reshape(b, s, d)
     # the reference normalises over the whole d, not per head
     y = rms_norm(y, p["ln_x"]) * F.silu(g)
-    return _mm(y, p["wo"]), new_state
+    return _mm(y, shard(p["wo"], ("heads", None), sizes=(nh, d))), new_state
 
 
 def _rwkv_channel_mix(cfg: ModelConfig, p, x: torch.Tensor,
@@ -858,9 +935,10 @@ def _rwkv_channel_mix(cfg: ModelConfig, p, x: torch.Tensor,
     def mix(i):
         return x + (x_prev - x) * p["mu_c"][i]
 
-    k = torch.square(F.relu(_mm(mix(0), p["ck"])))
-    r = torch.sigmoid(_mm(mix(1), p["cr"]))
-    return r * _mm(k, p["cv"])
+    k = torch.square(F.relu(_mm(mix(0), shard(p["ck"], (None, "mlp")))))
+    r = torch.sigmoid(_mm(mix(1), shard(p["cr"], (None, None))))
+    kv = _mm(shard(k, ("batch", None, "mlp")), shard(p["cv"], ("mlp", None)))
+    return r * shard(kv, ("batch", None, None))
 
 
 def apply_rwkv6(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -868,22 +946,26 @@ def apply_rwkv6(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     h = norm_apply(cfg, p["norm_t"], x)
     last = torch.zeros_like(h[:, 0])
     y, _ = _rwkv_time_mix(cfg, p, h, _token_shift(h, last))
-    x = x + y
+    x = shard(x + y, ("batch", None, None))
     h2 = norm_apply(cfg, p["norm_c"], x)
-    return x + _rwkv_channel_mix(cfg, p, h2, _token_shift(h2, last))
+    x = x + _rwkv_channel_mix(cfg, p, h2, _token_shift(h2, last))
+    return shard(x, ("batch", None, None))
 
 
 def apply_rwkv6_decode(cfg: ModelConfig, p, x: torch.Tensor,
                        cache: Dict[str, torch.Tensor]):
     """x: [B, 1, d]; cache: dict(last_t, last_c [B,d], wkv [B,H,K,V]).
-    ``last_t`` and ``last_c`` hold the normed inputs of the two mixes."""
+    ``last_t`` and ``last_c`` hold the normed inputs of the two mixes.  On
+    a placed decode cell each rank steps its block of the WKV state (batch
+    and heads); ``last_t`` and ``last_c`` go by batch."""
     h = norm_apply(cfg, p["norm_t"], x)
     y, wkv_state = _rwkv_time_mix(cfg, p, h, cache["last_t"][:, None],
                                   state=cache["wkv"])
-    x = x + y
+    x = shard(x + y, ("batch", None, None))
     h2 = norm_apply(cfg, p["norm_c"], x)
     x = x + _rwkv_channel_mix(cfg, p, h2, cache["last_c"][:, None])
-    return x, {"last_t": h[:, 0], "last_c": h2[:, 0], "wkv": wkv_state}
+    return (shard(x, ("batch", None, None)),
+            {"last_t": h[:, 0], "last_c": h2[:, 0], "wkv": wkv_state})
 
 
 def rwkv_cache_spec(cfg: ModelConfig, b: int,

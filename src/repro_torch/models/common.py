@@ -19,7 +19,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.parallel.sharding import replicate_like
 
@@ -73,9 +73,22 @@ class Init:
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm: the variance reduction in float32, the multiply in x's
-    dtype (``inv`` is cast to x's dtype first, as the reference does)."""
+    dtype (``inv`` is cast to x's dtype first, as the reference does).  On
+    a DTensor whose last dim a mesh dim splits (RWKV6's ``ln_x`` and
+    Mamba2's gate norm over heads) the variance's partial sums are
+    all-reduced at [..., 1]; DTensor alone reduce-scatters them over
+    another dim and gathers them back."""
     xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
+    if isinstance(x, DTensor) and any(p.is_shard(x.dim() - 1)
+                                      for p in x.placements):
+        # the partial sums' gradient comes back a partial sum: a sum here,
+        # not a mean, whose partial average the way back cannot take
+        var = (xf * xf).sum(-1, keepdim=True)
+        var = var.redistribute(var.device_mesh, [
+            Replicate() if p.is_partial() else p for p in var.placements])
+        var = var / x.shape[-1]
+    else:
+        var = (xf * xf).mean(-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * scale
 

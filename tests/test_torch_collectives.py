@@ -173,14 +173,16 @@ def test_dryrun_counts_the_train_cells_collectives(tmp_path):
     ("mixtral-8x7b", "decode_32k", False),
     ("kimi-k2-1t-a32b", "decode_32k", False),
     ("mixtral-8x7b", "long_500k", False),
-    ("rwkv6-7b", "decode_32k", False),
-    ("rwkv6-7b", "long_500k", False),
-    ("zamba2-7b", "decode_32k", False),
-    ("zamba2-7b", "long_500k", False),
+    ("rwkv6-7b", "decode_32k", True),
+    ("rwkv6-7b", "long_500k", True),
+    ("zamba2-7b", "decode_32k", True),
+    ("zamba2-7b", "long_500k", True),
     ("whisper-large-v3", "decode_32k", False),
     ("mixtral-8x7b", "train_4k", False),
-    ("rwkv6-7b", "prefill_32k", False),
-    ("zamba2-7b", "train_4k", False),
+    ("rwkv6-7b", "prefill_32k", True),
+    ("zamba2-7b", "train_4k", True),
+    ("rwkv6-7b", "train_4k", True),
+    ("zamba2-7b", "prefill_32k", True),
     ("whisper-large-v3", "train_4k", False),
 ])
 def test_dryrun_says_which_cells_it_cannot_count(arch, shape, counted):
@@ -194,35 +196,51 @@ def test_dryrun_says_which_cells_it_cannot_count(arch, shape, counted):
 
 
 def test_dryrun_counts_the_decode_cells_collectives(tmp_path):
-    """The dense and VLM decode cells at 16 x 16: qwen1.5-4b's decode_32k
-    (the serve layout, batch over "data") and gemma3-12b's long_500k (batch
-    1, the KV sequence over "data": each global layer merges the ranks'
-    partial attentions), counted on fake tensors, each with collectives
-    and no reduce-scatter (no gradient)."""
+    """The decode cells at 16 x 16: qwen1.5-4b's decode_32k (the serve
+    layout, batch over "data") and gemma3-12b's long_500k (batch 1, the KV
+    sequence over "data": each global layer merges the ranks' partial
+    attentions), the recurrent families' decode_32k (rwkv6-7b's and
+    zamba2-7b's states by batch and heads) and rwkv6-7b's train_4k (the
+    WKV kernel's shape-only path on fake tensors, forward and backward),
+    counted on fake tensors, each with collectives; the decode cells with
+    no reduce-scatter (no gradient)."""
     out = tmp_path / "dry.json"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cells = [("qwen1.5-4b", "decode_32k"), ("qwen1.5-4b", "long_500k"),
+             ("gemma3-12b", "decode_32k"), ("gemma3-12b", "long_500k"),
+             ("rwkv6-7b", "decode_32k"), ("zamba2-7b", "decode_32k"),
+             ("rwkv6-7b", "train_4k")]
     code = ("import json, sys; from repro_torch.launch import dryrun; "
-            "recs = dryrun.run_all('16x16', ['qwen1.5-4b', 'gemma3-12b'], "
-            "['decode_32k', 'long_500k'], True); "
+            "cells = json.loads(sys.argv[2])\n"
+            "with dryrun.fake_world(256):\n"
+            "    recs = [dryrun.run_cell(a, s, '16x16', True) "
+            "for a, s in cells]\n"
             "json.dump(recs, open(sys.argv[1], 'w'))")
-    proc = subprocess.run([sys.executable, "-c", code, str(out)], cwd=ROOT,
-                          env=env, capture_output=True, text=True,
+    proc = subprocess.run([sys.executable, "-c", code, str(out),
+                           json.dumps(cells)], cwd=ROOT, env=env,
+                          capture_output=True, text=True,
                           timeout=DRY_TIMEOUT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     recs = {(r["arch"], r["shape"]): r for r in json.loads(out.read_text())}
     assert "skipped" in recs[("qwen1.5-4b", "long_500k")]
-    for cell in (("qwen1.5-4b", "decode_32k"), ("gemma3-12b", "decode_32k"),
-                 ("gemma3-12b", "long_500k")):
+    for cell in cells:
+        if cell == ("qwen1.5-4b", "long_500k"):
+            continue
         coll = recs[cell]["collectives"]
         assert "collectives_skipped" not in recs[cell]
         assert coll["count"] > 0 and coll["all-reduce"] > 0
-        assert coll["reduce-scatter"] == 0
+        assert (coll["reduce-scatter"] == 0) == \
+            (SHAPES[cell[1]].kind == "decode")
         t = roofline.terms(recs[cell], ARCHS[cell[0]])
         assert t["t_collective"] is not None and t["t_collective"] > 0
     # qwen1.5-4b: 20 heads on 16 replicate, so attention adds nothing over
     # "model": one all-reduce a layer (the MLP's) and the embedding's
     assert recs[("qwen1.5-4b", "decode_32k")]["collectives"]["count"] == \
         ARCHS["qwen1.5-4b"].n_layers + 1
+    # zamba2-7b's step gathers its in-projection's activations over
+    # "model", one a Mamba2 layer, and no parameter; rwkv6-7b's none
+    assert recs[("zamba2-7b", "decode_32k")]["collectives"]["all-gather"] > 0
+    assert recs[("rwkv6-7b", "decode_32k")]["collectives"]["all-gather"] == 0
 
 
 def test_dtensor_helpers_leave_plain_tensors_alone():

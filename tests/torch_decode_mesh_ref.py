@@ -15,7 +15,9 @@ generate (``c__gen``).  On a 2 x 2 ("data", "model") mesh with Auto axes
 refuses), this jits ``launch.steps.build_cell``'s decode cell
 (``make_decode_step`` with its in-shardings: the serve layout, the caches
 by ``cache_shardings``, the KV sequence over "data" at batch 1, the
-caches donated) and writes each step's logits (``c__logits``, [T, B,
+caches donated, and laid out again by their in-shardings after each step:
+XLA may give a recurrent state back in another layout, which the jitted
+cell refuses) and writes each step's logits (``c__logits``, [T, B,
 vocab]), the cache leaves after the steps (``c__cache0``, ...), and the
 greedy generation from the prompts as the reference's
 ``DecodeEngine.generate`` runs it (``c__generated``, [B, gen]); then the
@@ -75,9 +77,12 @@ def run_case(case, c: str, mesh) -> dict:
         def feed(t):
             return put_tokens(jnp.asarray(t, jnp.int32))
 
+        def put(out):
+            return out[0], put_cache(out[1])
+
         caches, logits = fresh(), []
         for t in range(tokens.shape[1]):
-            lg, caches = step(p, caches, feed(tokens[:, t:t + 1]))
+            lg, caches = put(step(p, caches, feed(tokens[:, t:t + 1])))
             logits.append(np.asarray(lg))
         out[f"{c}__{tag}logits"] = np.stack(logits)
         for i, leaf in enumerate(jax.tree.leaves(caches)):
@@ -85,12 +90,12 @@ def run_case(case, c: str, mesh) -> dict:
         # repro.serve.engine.DecodeEngine.generate's loop, on this cell
         caches = fresh()
         for t in range(prompts.shape[1]):
-            lg, caches = step(p, caches, feed(prompts[:, t:t + 1]))
+            lg, caches = put(step(p, caches, feed(prompts[:, t:t + 1])))
         last = np.asarray(jnp.argmax(lg, -1))[:, None]
         generated = np.zeros((b, gen), np.int32)
         for t in range(gen):
             generated[:, t] = last[:, 0]
-            lg, caches = step(p, caches, feed(last))
+            lg, caches = put(step(p, caches, feed(last)))
             last = np.asarray(jnp.argmax(lg, -1))[:, None]
         out[f"{c}__{tag}generated"] = generated
     return out

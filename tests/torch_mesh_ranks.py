@@ -1,6 +1,6 @@
 """Rank bodies of the port's sharded serve path, multi-rank MoE
-gradients, sharded train step, sharded decode cell and collective
-counter, for
+gradients, sharded train step, sharded decode cell, the recurrent
+families' cells and the collective counter, for
 ``tests/torch_ranks.py``'s ``run_ranks`` (imports no JAX).
 
 :data:`WORKLOADS` and :func:`run_workload` are shared with the reference's
@@ -302,31 +302,16 @@ def _block_bounds(t):
     return tuple((a, a + n) for a, n in zip(start, size))
 
 
-def decode_mesh_rank(rank, world, case_path):
-    """For each case of ``case["cases"]`` (a config, whole parameters, a
-    cache length ``seq``, tokens [B, T], prompts and a generation length)
-    and each (data, model) mesh of the case: the decode cell placed by
-    ``launch/steps.place_cell``; every teacher-forced step's logits, whole;
-    one step's collectives (``count_at``) with each all-gather's input
-    shape; every cache leaf's block, bounds and placements after the
-    steps; the parameters' layouts; then ``DecodeEngine.generate`` on the
-    placed parameters."""
+def _gathers_counter():
+    """The collective counter that also keeps each all-gather's input
+    shape (``.shapes``)."""
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.configs.shapes import Shape
-    from repro_torch.launch import steps
     from repro_torch.launch.collectives import (
         CollectiveCounter, collective_kind,
     )
-    from repro_torch.launch.mesh import make_device_mesh
-    from repro_torch.models.config import ModelConfig
-    from repro_torch.models.registry import build_model
-    from repro_torch.serve.engine import DecodeEngine, ServeConfig
-    from repro_torch.tree import leaves
 
     class Gathers(CollectiveCounter):
-        """The counter, and each all-gather's input shape."""
-
         def __init__(self):
             super().__init__()
             self.shapes = []
@@ -337,44 +322,134 @@ def decode_mesh_rank(rank, world, case_path):
                 self.shapes.append(tuple(args[0].shape))
             return super().__torch_dispatch__(func, types, args, kwargs)
 
+    return Gathers()
+
+
+def decode_mesh_case(c, shape):
+    """One decode case ``c`` (a config, whole parameters, a cache length
+    ``seq``, tokens [B, T], prompts and a generation length) on a (data,
+    model) mesh of ``shape``: the decode cell placed by
+    ``launch/steps.place_cell``; every teacher-forced step's logits,
+    whole; one step's collectives (``count_at``) with each all-gather's
+    input shape; every cache leaf's block, bounds and placements after
+    the steps; the parameters' layouts; then ``DecodeEngine.generate`` on
+    the placed parameters."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import DecodeEngine, ServeConfig
+    from repro_torch.tree import leaves
+
+    cfg = ModelConfig(**c["cfg"])
+    tokens = c["tokens"]
+    b, steps_n = tokens.shape
+    cell = Shape("decode", c["seq"], b, "decode")
+    mesh = make_device_mesh(shape, "cpu")
+    fn, (params, caches, _) = steps.place_cell(
+        cfg, cell, mesh, {"tokens": tokens[:, :1]}, params=c["params"])
+    res = {"coord": tuple(mesh.get_coordinate())}
+    logits = []
+    for t in range(steps_n):
+        batch = {"tokens": steps.place_tokens(tokens[:, t:t + 1], mesh)}
+        if t == c["count_at"]:
+            with _gathers_counter() as counter:
+                lg, caches = fn(params, caches, batch)
+            res["collectives"] = counter.result()
+            res["gathers"] = counter.shapes
+        else:
+            lg, caches = fn(params, caches, batch)
+        logits.append(_full(lg))
+    res["logits"] = torch.stack(logits)
+    res["caches"] = [(_block_bounds(x), x.to_local().clone(),
+                      str(x.placements)) for x in leaves(caches)]
+    res["param_layout"] = [(tuple(x.to_local().shape), str(x.placements),
+                            x.element_size()) for x in leaves(params)]
+    engine = DecodeEngine(build_model(cfg), params,
+                          ServeConfig(max_seq=c["seq"], batch=b),
+                          device="cpu")
+    res["generated"] = torch.from_numpy(engine.generate(c["prompts"],
+                                                        c["gen"]))
+    return res
+
+
+def decode_mesh_rank(rank, world, case_path):
+    """:func:`decode_mesh_case` for each case of ``case["cases"]`` and
+    each (data, model) mesh of the case."""
     torch.set_num_threads(1)
     case = torch.load(case_path)
-    out = {}
-    for name, c in case["cases"].items():
+    return {f"{name}/{shape[0]}x{shape[1]}": decode_mesh_case(c, shape)
+            for name, c in case["cases"].items() for shape in c["meshes"]}
+
+
+def recurrent_mesh_rank(rank, world, case_path):
+    """The recurrent families' cells over ranks: :func:`decode_mesh_case`
+    for each case of ``case["decode"]`` and mesh; for each arch of
+    ``case["cells"]`` (a config, whole parameters, tokens [B, S]) and
+    mesh: the train cell placed by ``place_cell``, ``train_loss`` and its
+    gradient at those parameters (whole on every rank) with the blocks
+    the WKV or SSD kernel was handed, the same gradient with ``Replicate``
+    planted in place of ``_on_blocks``' ``Partial`` gradient placements on
+    the meshes of ``case["plant"]``, and the prefill cell's logits (keyed
+    ``cell/<arch>/<mesh>``)."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import blocks
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.registry import build_model
+
+    torch.set_num_threads(1)
+    case = torch.load(case_path)
+    out = {f"{name}/{shape[0]}x{shape[1]}": decode_mesh_case(c, shape)
+           for name, c in case["decode"].items() for shape in c["meshes"]}
+    for arch, c in case["cells"].items():
         cfg = ModelConfig(**c["cfg"])
+        model = build_model(cfg)
         tokens = c["tokens"]
-        b, steps_n = tokens.shape
-        cell = Shape("decode", c["seq"], b, "decode")
+        b, s = tokens.shape
         for shape in c["meshes"]:
             mesh = make_device_mesh(shape, "cpu")
-            fn, (params, caches, _) = steps.place_cell(
-                cfg, cell, mesh, {"tokens": tokens[:, :1]},
-                params=c["params"])
             res = {"coord": tuple(mesh.get_coordinate())}
-            logits = []
-            for t in range(steps_n):
-                batch = {"tokens": steps.place_tokens(tokens[:, t:t + 1],
-                                                      mesh)}
-                if t == c["count_at"]:
-                    with Gathers() as counter:
-                        lg, caches = fn(params, caches, batch)
-                    res["collectives"] = counter.result()
-                    res["gathers"] = counter.shapes
-                else:
-                    lg, caches = fn(params, caches, batch)
-                logits.append(_full(lg))
-            res["logits"] = torch.stack(logits)
-            res["caches"] = [(_block_bounds(x), x.to_local().clone(),
-                              str(x.placements)) for x in leaves(caches)]
-            res["param_layout"] = [(tuple(x.to_local().shape),
-                                    str(x.placements), x.element_size())
-                                   for x in leaves(params)]
-            engine = DecodeEngine(build_model(cfg), params,
-                                  ServeConfig(max_seq=c["seq"], batch=b),
-                                  device="cpu")
-            res["generated"] = torch.from_numpy(
-                engine.generate(c["prompts"], c["gen"]))
-            out[f"{name}/{shape[0]}x{shape[1]}"] = res
+            _, (p, _, batch) = steps.place_cell(
+                cfg, Shape("train", s, b, "train"), mesh,
+                {"tokens": tokens}, params=c["params"])
+            seen = []
+            kernels = {n: getattr(blocks, n) for n in ("wkv6", "ssd")}
+
+            def recording(name):
+                def kernel(*args):
+                    seen.append((name, tuple(args[0].shape),
+                                 type(args[0]).__name__))
+                    return kernels[name](*args)
+                return kernel
+
+            for n in kernels:
+                setattr(blocks, n, recording(n))
+            try:
+                loss, grads = steps._value_and_grad(model, p, batch, True)
+            finally:
+                for n, k in kernels.items():
+                    setattr(blocks, n, k)
+            res.update(loss=_full(loss), grads=[_full(g) for g in grads],
+                       blocks=seen)
+            if list(shape) in [list(m) for m in case["plant"]]:
+                partial = blocks.Partial
+                blocks.Partial = Replicate
+                try:
+                    _, planted = steps._value_and_grad(model, p, batch, True)
+                finally:
+                    blocks.Partial = partial
+                res["planted"] = [_full(g) for g in planted]
+            pfn, pargs = steps.place_cell(
+                cfg, Shape("prefill", s, b, "prefill"), mesh,
+                {"tokens": tokens}, params=c["params"])
+            with torch.no_grad():
+                res["prefill"] = _full(pfn(*pargs))
+            out[f"cell/{arch}/{shape[0]}x{shape[1]}"] = res
     return out
 
 

@@ -5,8 +5,8 @@ first ``jax`` import)::
 
     PYTHONPATH=src python tests/torch_train_mesh_ref.py CASE.npz OUT.npz
 
-CASE holds the qwen1.5-4b smoke config's parameters as the leaves of its
-``init`` tree (``p0``, ``p1``, ... in ``jax.tree.leaves`` order), the
+CASE holds a smoke config's name (``arch``; qwen1.5-4b where it is
+absent), its parameters as the leaves of its ``init`` tree (``p0``, ``p1``, ... in ``jax.tree.leaves`` order), the
 tokens of each step (``tokens``, [steps, B, S]) and the AdamW settings as
 JSON (``opt``).  On a 2 x 2 ("data", "model") mesh with Auto axes (JAX
 0.9 makes Explicit ones by default, which the reference's ``shard``
@@ -44,7 +44,8 @@ ARCH = "qwen1.5-4b"
 
 def main(case_path: str, out_path: str) -> None:
     case = np.load(case_path)
-    model = build_model(SMOKE[ARCH])
+    arch = str(case["arch"]) if "arch" in case else ARCH
+    model = build_model(SMOKE[arch])
     init, specs = model.init(jax.random.PRNGKey(0))
     treedef = jax.tree.structure(init)
     params = jax.tree.unflatten(treedef, [
