@@ -68,28 +68,36 @@ Phases (any failure exits nonzero and prints no result):
    a leaf at a time into ``build_cell``'s serve layout, no weight over
    "data"; the caches' blocks by ``cache_shardings``) served through
    ``DecodeEngine.generate`` on the placed parameters, in four cases:
-   qwen1.5-4b at 20 of 40 layers in ``decode_32k``'s layout cut to
+   qwen1.5-4b at 8 of 40 layers in ``decode_32k``'s layout cut to
    batch 4 and 2048 cache slots, a 16-token prompt and 4 generated;
    gemma3-12b cut to one unit (6 of 48 layers) at ``long_500k``'s, batch
    1 and 64 slots with the KV sequence over "data" (32 a rank), a
    40-token prompt and 32 generated, so the global layer's writes cross
    into data rank 1's block and clamp at the last slot, and the local
    rings wrap;
-   rwkv6-7b at 8 of 32 layers in ``decode_32k``'s layout as qwen1.5-4b's
+   rwkv6-7b at 4 of 32 layers in ``decode_32k``'s layout as qwen1.5-4b's
    (its WKV state by batch and heads); zamba2-7b cut to one unit (6
    Mamba2 layers and the shared block) in ``long_500k``'s as gemma3's
-   (the SSM state by heads, the shared block's KV sequence over "data").
+   (the SSM state by heads, the shared block's KV sequence over "data");
+   mixtral-8x7b at 2 of 32 layers in ``decode_32k``'s layout as
+   qwen1.5-4b's (the shard_map MoE, its experts' ff dim over "model",
+   routing each data rank's batch block); whisper-large-v3 (32 encoder
+   layers, 16 of 32 decoder layers) in the same layout, 1500 encoder
+   frames (the cross caches by batch and heads).
    Against the same model, weights and prompts served in one process on
-   the card: generated tokens equal (the smallest top-1/top-2 gap at a
+   the card (mixtral's routing there block by block, as on the mesh):
+   generated tokens equal (the smallest top-1/top-2 gap at a
    pick printed), every step's logits and every rank's cache and state
    blocks within 1e-5 of their max, the prefill cell of the same prompts
    on the same mesh (the float kernels on each rank's blocks, counts set
-   to 0 just before: ``flash_attention`` 20 and 6 times a rank, ``wkv6``
-   8 times on (2, 32, 16, 64), ``ssd`` 6 times on (1, 40, 56, 64) and
-   ``flash_attention`` once on (1, 16, 40, 112)) within 1e-3 of the last
-   prompt step's logits, each kernel's first call within 1e-4 of its
-   plain version on its block (timed on rank 0 by CUDA events), and no
-   parameter gathered (the counted step's all-gathers exactly zamba2's
+   to 0 just before: ``flash_attention`` 8 and 6 times a rank, ``wkv6``
+   4 times on (2, 32, 16, 64), ``ssd`` 6 times on (1, 40, 56, 64) and
+   ``flash_attention`` once on (1, 16, 40, 112), mixtral's 2 times and
+   whisper's 64) within 1e-3 of the last prompt step's logits (of the
+   same prefill in one process for mixtral and whisper), each kernel's
+   first call within 1e-4 of its plain version on its block (timed on
+   rank 0 by CUDA events), mixtral's decode one MoE all-reduce a layer
+   a step, and no parameter gathered (the counted step's all-gathers exactly zamba2's
    in-projection activations, none elsewhere; a step's staged
    all-gathers smaller than any parameter block where a case gathers
    none).  Prints a step's collectives, what rank 0 staged a step, ms a
@@ -297,14 +305,14 @@ Phases (any failure exits nonzero and prints no result):
     memory, each kernel's forward against its backward recompute in
     device time, and the busy share of one profiled step.
 21. **rwkv6-7b trained** (``[train_rwkv6]``, ``phase_train`` again): full
-    width cut to 4 of 32 layers (1,410,535,424 float32 parameters),
+    width cut to 2 of 32 layers (973,705,216 float32 parameters),
     65536-token vocabulary, 2 x 1024 tokens a step.  Gate 1 as phase 20's
-    (4 WKV launches, no attention or SSD); gate 2: the loss and every
+    (2 WKV launches, no attention or SSD); gate 2: the loss and every
     parameter leaf's gradient of ``train_loss`` through the kernel
     against the same with ``wkv6_plain`` swapped in (loss within 1e-5
-    relative, each leaf within 1e-4 of its max |g|; 4 launches a forward,
-    8 with the remat recompute); gate 3 as phase 20's (checkpoints of
-    16.9 GB) with 8 WKV launches a step.
+    relative, each leaf within 1e-4 of its max |g|; 2 launches a forward,
+    4 with the remat recompute); gate 3 as phase 20's (checkpoints of
+    11.7 GB) with 4 WKV launches a step.
 22. **The zoo's train steps** (``[train_zoo]``): mixtral-8x7b at 2 of 32
     layers (2 x 1024 tokens) and whisper-large-v3 whole (2 x 1500 frames,
     2 x 64 tokens), float32: the loss and every leaf's gradient through
@@ -1446,26 +1454,38 @@ def phase_train_mesh(torch, mods, dev):
 DECODE_MESH_SHAPE = (2, 2)  # (data, model)
 # name -> (arch, layers, batch, cache slots, prompt tokens, generated):
 # "serve" is decode_32k's layout (batch 4 of 128, a cache of 2048 slots of
-# 32,768), qwen1.5-4b at 20 of 40 layers (whole until the recurrent cases
-# came: its 1.07-1.27 s steps a rank were most of the phase, and the
-# script's 1200 s limit is shared); "seq" long_500k's (batch 1, a cache of 64
+# 32,768), qwen1.5-4b at 8 of 40 layers (whole until the recurrent cases
+# came, 20 until the MoE and encoder-decoder ones: its steps a rank were
+# most of the phase, and the script's 1200 s limit is shared); "seq" long_500k's (batch 1, a cache of 64
 # slots of 524,288, 32 a data rank), gemma3-12b cut to one unit (5 local
 # layers and a global one): its 72 tokens cross from data rank 0's block
 # into rank 1's, wrap the local rings and clamp the global layer's write
 # at its last slot.  "serve" generates 4 tokens (16 picks over its batch),
 # not 16, to keep the phase near 100 s: its step a rank takes 1.2 s on an
 # H100 (PERF.md section 5); the 16-token prompt is the prefill's (gate 4).
-# The recurrent families: "ssm" is rwkv6-7b at 8 of 32 layers in
-# decode_32k's layout (batch 4 of 128: 2 a data rank; its WKV state by
+# The recurrent families: "ssm" is rwkv6-7b at 4 of 32 layers (8 until
+# the MoE and encoder-decoder cases came) in decode_32k's layout (batch 4 of 128: 2 a data rank; its WKV state by
 # batch and heads, 32 of 64 a model rank); "hybrid" zamba2-7b cut to one
 # unit (6 Mamba2 layers and the shared block) in long_500k's, as "seq"
 # (the shared block's KV sequence over "data", its writes crossing into
 # data rank 1's block and clamping at the last slot; the SSM state's 112
-# heads, 56 a model rank)
-DECODE_MESH_CASES = {"serve": ("qwen1.5-4b", 20, 4, 2048, 16, 4),
+# heads, 56 a model rank).  The MoE and encoder-decoder families: "moe" is
+# mixtral-8x7b at 2 of 32 layers (3.2 B float32 parameters, 6.5 GB a
+# rank in build_cell's serve layout, the experts' ff dim over "model" as
+# the shard_map path's in_specs want it) in decode_32k's layout; its
+# shard_map MoE routes each data rank's 2 tokens a step on their own (the
+# capacity from the block's tokens), one all-reduce over "model" a layer;
+# "encdec" whisper-large-v3 with its 32 encoder layers over 1500 frames
+# whole and 16 of its 32 decoder layers (whole, the script ran 1115 s of
+# phases on an H100 at 700 W, over the 1080 s it aims at) in the same
+# layout, its cross caches by batch and heads (zero, as the engine leaves
+# them; the prefill cell encodes frames drawn from a seed)
+DECODE_MESH_CASES = {"serve": ("qwen1.5-4b", 8, 4, 2048, 16, 4),
                      "seq": ("gemma3-12b", 6, 1, 64, 40, 32),
-                     "ssm": ("rwkv6-7b", 8, 4, 2048, 16, 4),
-                     "hybrid": ("zamba2-7b", 6, 1, 64, 40, 32)}
+                     "ssm": ("rwkv6-7b", 4, 4, 2048, 16, 4),
+                     "hybrid": ("zamba2-7b", 6, 1, 64, 40, 32),
+                     "moe": ("mixtral-8x7b", 2, 4, 2048, 16, 4),
+                     "encdec": ("whisper-large-v3", 16, 4, 2048, 16, 4)}
 DECODE_MESH_LIMIT = 300.0  # seconds; a rank still running then is killed
 # every step's logits and every cache block against one process's, of
 # the max |value|: [train_mesh]'s bound for its blocks' products
@@ -1479,6 +1499,43 @@ def decode_mesh_prompts(torch, cfg, b, n):
     every rank and in the one-process run)."""
     g = torch.Generator().manual_seed(28)
     return torch.randint(1, cfg.vocab, (b, n), generator=g).tolist()
+
+
+def decode_mesh_batch(torch, cfg, prompts, dev):
+    """The prefill cell's inputs: the prompts, and an encoder-decoder's
+    frames [B, enc_seq, d] drawn on the card from a seed (the same on
+    every rank and in the one-process run)."""
+    batch = {"tokens": torch.tensor(prompts, dtype=torch.int32, device=dev)}
+    if cfg.family == "encdec":
+        g = torch.Generator(device=dev).manual_seed(30)
+        batch["frames"] = torch.randn((len(prompts), cfg.enc_seq,
+                                       cfg.d_model), generator=g, device=dev)
+    return batch
+
+
+@contextlib.contextmanager
+def moe_blocks(torch, mods, cfg):
+    """In one process, a shard_map MoE config routed as on
+    DECODE_MESH_SHAPE: each MoE layer routes each data block of the batch
+    on its own (``apply_moe_spmd`` on the block, the capacity from its
+    tokens), as each data rank does; other configs as they are."""
+    if cfg.family != "moe" or cfg.moe_impl != "shardmap":
+        yield
+        return
+    n = DECODE_MESH_SHAPE[0]
+    whole = mods.lm.apply_moe
+
+    def apply(cfg, p, x):
+        k = n if x.shape[0] % n == 0 else 1
+        ys, aux = zip(*[mods.blocks.apply_moe_spmd(cfg, p, c)
+                        for c in x.chunk(k)])
+        return torch.cat(ys), torch.stack(aux).mean()
+
+    mods.lm.apply_moe = apply
+    try:
+        yield
+    finally:
+        mods.lm.apply_moe = whole
 
 
 def _decode_mesh_rank_body(torch, dev):
@@ -1621,10 +1678,12 @@ def _decode_mesh_case(torch, mods, mesh, staged, name, dev):
     engine = mods.DecodeEngine(model, params, mods.ServeConfig(
         max_seq=slots, batch=b), device=dev)
     _zero_kernel_counts(mods)
+    all_reduces = mods.blocks.apply_moe_shardmap.all_reduces
     t0 = time.perf_counter()
     generated = engine.generate(prompts, gen)
     t_decode = time.perf_counter() - t0
     decode_launches = _kernel_counts(mods)
+    all_reduces = mods.blocks.apply_moe_shardmap.all_reduces - all_reduces
     caches = []
     for t, leaf in zip(mods.leaves(rec.caches), _leaf_names(rec.caches)):
         bounds = _block_bounds(t)
@@ -1635,7 +1694,7 @@ def _decode_mesh_case(torch, mods, mesh, staged, name, dev):
     # gate 4: the prefill cell of the same model and prompts on this mesh
     pfn, pargs = mods.place_cell(
         cfg, mods.Shape("decode_mesh", plen, b, "prefill"), mesh,
-        {"tokens": torch.tensor(prompts, dtype=torch.int32, device=dev)})
+        decode_mesh_batch(torch, cfg, prompts, dev))
     first = {}
 
     def record_first(kernel):
@@ -1682,6 +1741,7 @@ def _decode_mesh_case(torch, mods, mesh, staged, name, dev):
             "caches": caches, "layout": layout, "place_s": t_place,
             "decode_s": t_decode, "prefill_s": t_prefill,
             "decode_launches": decode_launches,
+            "moe_all_reduces": all_reduces,
             "prefill": prefill if mesh.get_rank() == 0 else None,
             "prefill_launches": prefill_launches, "kernels": kernels,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -1690,15 +1750,23 @@ def _decode_mesh_case(torch, mods, mesh, staged, name, dev):
 def _one_process_decode(torch, mods, name, dev):
     """The case's model, weights and prompts served in this process:
     generated tokens, each step's logits and ms, the caches, the
-    top-1/top-2 gap at each greedy pick."""
+    top-1/top-2 gap at each greedy pick; for the MoE and encoder-decoder
+    families the prefill of the prompts (and frames) too.  A shard_map
+    MoE routes block by block, as on the mesh (:func:`moe_blocks`)."""
     arch, layers, b, slots, plen, gen = DECODE_MESH_CASES[name]
     cfg = _cut(mods, arch, layers)
     prompts = decode_mesh_prompts(torch, cfg, b, plen)
     model = mods.build_model(cfg)
     params = model.init(0, device=dev)
     rec = DecodeRecorder(torch, mods, model)
-    generated = mods.DecodeEngine(model, params, mods.ServeConfig(
-        max_seq=slots, batch=b), device=dev).generate(prompts, gen)
+    prefill = None
+    with moe_blocks(torch, mods, cfg):
+        generated = mods.DecodeEngine(model, params, mods.ServeConfig(
+            max_seq=slots, batch=b), device=dev).generate(prompts, gen)
+        if cfg.family in ("moe", "encdec"):
+            with torch.no_grad():
+                prefill = mods.steps.make_prefill(model)(
+                    params, decode_mesh_batch(torch, cfg, prompts, dev))
     picks = torch.stack(rec.logits[plen - 1:plen - 1 + gen])
     top = torch.topk(picks, 2, dim=-1).values
     gaps = (top[..., 0] - top[..., 1]).flatten().tolist()
@@ -1706,7 +1774,7 @@ def _one_process_decode(torch, mods, name, dev):
     return {"generated": torch.from_numpy(generated),
             "logits": torch.stack(rec.logits),
             "ms": rec.ms, "caches": mods.leaves(rec.caches), "gaps": gaps,
-            "scale": float(picks.abs().max())}
+            "scale": float(picks.abs().max()), "prefill": prefill}
 
 
 def phase_decode_mesh(torch, mods, dev):
@@ -1721,15 +1789,19 @@ def phase_decode_mesh(torch, mods, dev):
     DECODE_MESH_TOL of the max |value| (the KV caches, the WKV, SSM,
     conv and token-shift states), (4) the prefill cell of the same prompts
     on the same mesh (the float kernels on each rank's blocks:
-    ``flash_attention`` once an attention layer, ``wkv6`` once an RWKV6
-    layer, ``ssd`` once a Mamba2 layer, counts set to 0 just before)
-    gives the last prompt step's logits within MODEL_TOL, each kernel's
-    launches a rank equal to ``expected_launches`` and its first call
-    within FLOAT_TOL of its plain version on the rank's block (rank 0
-    times it there by CUDA events), (5) weight-stationary: no weight split
-    over "data", the counted step's all-gathers exactly the activations
-    its layers gather by design (``activation_gathers``), and where there
-    are none a step's staged all-gathers carry fewer bytes than any
+    ``flash_attention`` once an attention layer, an encoder layer, and
+    twice a decoder layer, ``wkv6`` once an RWKV6 layer, ``ssd`` once a
+    Mamba2 layer, counts set to 0 just before) gives the last prompt
+    step's logits within MODEL_TOL (the MoE's and the encoder-decoder's:
+    the same prefill's in one process, the MoE routed block by block as
+    on the mesh), each kernel's launches a rank equal to
+    ``expected_launches`` and its first call within FLOAT_TOL of its
+    plain version on the rank's block (rank 0 times it there by CUDA
+    events); the shard_map MoE all-reduces its partial output once a
+    layer a decode step; (5) weight-stationary: no weight split over
+    "data", the counted step's all-gathers exactly the activations its
+    layers gather by design (``activation_gathers``), and where there are
+    none a step's staged all-gathers carry fewer bytes than any
     parameter leaf's block on the rank."""
     import tempfile
 
@@ -1754,6 +1826,13 @@ def phase_decode_mesh(torch, mods, dev):
         if cfg.family == "hybrid":
             heads += (f", {cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, "
                       f"state {cfg.ssm_state}")
+        if cfg.family == "moe":
+            heads += (f", {cfg.n_experts} experts of d_ff "
+                      f"{cfg.expert_d_ff}, top {cfg.top_k}, moe_impl "
+                      f"{cfg.moe_impl} ({cfg.moe_strategy})")
+        if cfg.family == "encdec":
+            heads += (f", {cfg.n_enc_layers} encoder layers over "
+                      f"{cfg.enc_seq} frames")
         log(f"[{tag}] {name}: {arch} at full width (d_model "
             f"{cfg.d_model}, {heads}, vocab {cfg.vocab}), {layers} of "
             f"{mods.ARCHS[arch].n_layers} layers, {cfg.n_params():,} "
@@ -1829,10 +1908,31 @@ def phase_decode_mesh(torch, mods, dev):
             f"leaf's max |c_one|: {worst:.3e} (bound {DECODE_MESH_TOL:g})")
         if not worst <= DECODE_MESH_TOL:
             raise AssertionError(f"{what}: cache blocks differ")
-        # gate 4: the prefill cell on the mesh against the decode
-        hold_logits(tag, f"{name}: the prefill cell on the mesh vs the "
-                    f"teacher-forced decode's step {plen}",
-                    r0["prefill"].to(dev), want[plen - 1])
+        # gate 4: the prefill cell on the mesh against the decode, or
+        # against the same prefill in one process where the two differ by
+        # design: a MoE's capacity depends on its token count, whisper's
+        # decode rotates by RoPE and reads zero cross caches
+        if one["prefill"] is not None:
+            hold_logits(tag, f"{name}: the prefill cell on the mesh vs the "
+                        f"same prefill in one process",
+                        r0["prefill"].to(dev), one["prefill"])
+        else:
+            hold_logits(tag, f"{name}: the prefill cell on the mesh vs the "
+                        f"teacher-forced decode's step {plen}",
+                        r0["prefill"].to(dev), want[plen - 1])
+        # the shard_map MoE: one all-reduce of the partial output a layer
+        # a decode step, on every rank
+        moe = 0
+        if cfg.family == "moe" and cfg.moe_impl == "shardmap":
+            moe = cfg.n_layers * (plen + gen)
+        if [res["moe_all_reduces"] for res in got] != [moe] * world:
+            raise AssertionError(f"{what}: the MoE all-reduced "
+                                 f"{[res['moe_all_reduces'] for res in got]}"
+                                 f" times, want {moe} a rank")
+        if moe:
+            log(f"{what}: the shard_map MoE all-reduced its partial output "
+                f"{moe} times a rank over {plen + gen} decode steps, one a "
+                f"layer a step")
         runs = {k: n for k, n in
                 expected_launches(mods.build_model(cfg)).items() if n}
         for r, res in enumerate(got):
@@ -4496,12 +4596,13 @@ TRAIN_DATA = dict(seq_len=1024, batch=2, batches_per_shard=2)
 # zamba2: one unit, six Mamba2 layers + the shared block (902,732,256
 # float32 parameters); a checkpoint is 10.8 GB
 TRAIN = TrainSpec("train", ZAMBA, 6, dict(TRAIN_DATA, vocab=32000), "rows")
-# rwkv6-7b at 4 of 32 layers (1,410,535,424 float32 parameters, 22.6 GB
-# with gradients and both moments; 51.1 GB at the restore's peak, which
-# holds three copies of the 16.9 GB state, so 6 layers would fit the card):
-# the script's time limit sets the cut, at 3.7 s a step and 26 s a
-# checkpoint
-TRAIN_RWKV6 = TrainSpec("train_rwkv6", RWKV, 4, dict(TRAIN_DATA, vocab=65536),
+# rwkv6-7b at 2 of 32 layers (973,705,216 float32 parameters, 15.6 GB
+# with gradients and both moments; at 4 layers 22.6 GB, and 51.1 GB at the
+# restore's peak, which holds three copies of the state, so 6 layers would
+# fit the card): the script's time limit sets the cut (4 layers until the
+# MoE and encoder-decoder cases of [decode_mesh] came, at 3.4-3.9 s a step
+# and 26 s a checkpoint, 96-152 s a phase on an H100 at 700 W)
+TRAIN_RWKV6 = TrainSpec("train_rwkv6", RWKV, 2, dict(TRAIN_DATA, vocab=65536),
                         "model")
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
 # gate 3: run 1 trains steps 1-4 and run 2 resumes there for 5-8; a

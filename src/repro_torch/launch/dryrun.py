@@ -19,9 +19,10 @@ shardings' shard shapes:
   sent; the WKV and SSD wrappers give their outputs' shapes and run no
   scan), and ``launch/collectives.py`` counts what it issues: the
   reference's ``collective_bytes`` keys, from which the roofline takes its
-  collective term.  The dense, VLM, SSM and hybrid families' cells run so;
-  a MoE or encoder-decoder cell keeps ``"collectives": None`` and says
-  why in ``"collectives_skipped"`` (:data:`SKIPPED`).
+  collective term.  Every family's cells run so: the dense, VLM, SSM,
+  hybrid, MoE (the shard_map path of mixtral-8x7b's and kimi-k2's
+  configs on each rank's blocks, one all-reduce a layer) and
+  encoder-decoder ones.
 
 Meshes: ``16x16`` and ``2x16x16`` (the reference's production layouts)
 and ``1xH100`` (one card as a 1 x 1 (data, model) mesh).  Usage::
@@ -42,7 +43,7 @@ import contextlib
 import json
 import math
 import sys
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.distributed as dist
@@ -94,26 +95,6 @@ def device_bytes(args, shardings) -> int:
                             f"NamedSharding ({sh!r})")
         total += math.prod(sh.shard_shape(tuple(t.shape))) * t.element_size()
     return total
-
-
-# why a family's cells are not counted on DTensors, by cell kind: the
-# step that does not run so
-SKIPPED = {
-    "moe": ("the MoE dispatch runs on whole tensors or over use_mesh "
-            "process groups, not on DTensors",
-            "the MoE dispatch's expert counts (moe_route's bincount) have "
-            "no DTensor sharding rule"),
-    "encdec": ("the encoder-decoder carries no sharding constraints",
-               "EncDec.decode_step reads pos_dec at the cache length, a "
-               "data-dependent index that fake tensors cannot give"),
-}
-
-
-def collectives_skipped(cfg, shape) -> Optional[str]:
-    """Why a cell's step cannot be counted on DTensors, or None."""
-    if cfg.family not in SKIPPED:
-        return None
-    return SKIPPED[cfg.family][shape.kind == "decode"]
 
 
 @contextlib.contextmanager
@@ -209,11 +190,7 @@ def run_cell(arch: str, shape_name: str, mesh: str = "16x16",
         "bytes_per_device": per_dev,
     }
     if collectives:
-        why = collectives_skipped(cfg, shape)
-        if why:
-            rec["collectives_skipped"] = why
-        else:
-            rec["collectives"] = step_collectives(cfg, shape, m)
+        rec["collectives"] = step_collectives(cfg, shape, m)
     return rec
 
 

@@ -30,7 +30,9 @@ activations where the reference does, and where DTensor needs a layout
 (:func:`~repro_torch.parallel.sharding.shard`, a redistribute; a no-op on
 plain tensors), and the attention, WKV and SSD kernels run on each rank's
 block of batch and heads (:func:`_on_blocks`), as do the RWKV6 and Mamba2
-decode steps on their states' blocks.
+decode steps on their states' blocks.  The MoE keeps each path's
+semantics there: the shard_map path on each rank's blocks laid out as
+the reference's ``in_specs``, the spmd path routing the global batch.
 
 Decode caches are updated in place where that saves a copy of the whole
 cache: :func:`apply_attention_decode` writes the new key and value into the
@@ -412,6 +414,13 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 # Routing, the sort, the scatter into the capacity buffer, the expert
 # products and the weighted scatter-add are plain PyTorch on every device:
 # the reference computes them outside any Pallas kernel.
+#
+# On DTensors (a placed cell) both keep their semantics: the shard_map
+# path runs _moe_local_compute on each rank's blocks laid out as the
+# reference's in_specs (_moe_shardmap_placed); the spmd path routes all T
+# tokens of the global batch, as XLA's partitioner keeps one program's
+# semantics, and runs the expert products on the expert or ff blocks at
+# the reference's shard sites (_moe_spmd_placed).
 # ---------------------------------------------------------------------------
 
 def init_moe(cfg: ModelConfig, init: Init, lead: Sequence[int] = ()):
@@ -426,10 +435,15 @@ def init_moe(cfg: ModelConfig, init: Init, lead: Sequence[int] = ()):
                 norm=init_norm(cfg, init, lead=lead))
 
 
+def _moe_axes(cfg: ModelConfig):
+    """(the expert dim's logical axis, the ff dim's): EP shards the
+    expert dim, TP the within-expert ff dim."""
+    tp = cfg.moe_strategy == "tp"
+    return (None if tp else "experts"), ("expert_mlp" if tp else None)
+
+
 def moe_specs(cfg: ModelConfig) -> Specs:
-    """EP shards the expert dim, TP the within-expert ff dim."""
-    ff_axis = "expert_mlp" if cfg.moe_strategy == "tp" else None
-    e_axis = None if cfg.moe_strategy == "tp" else "experts"
+    e_axis, ff_axis = _moe_axes(cfg)
     return dict(router=(None, None),
                 w_gate=(e_axis, "embed_fsdp", ff_axis),
                 w_up=(e_axis, "embed_fsdp", ff_axis),
@@ -466,6 +480,16 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _count(ids: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """How often each of ``0 .. n - 1`` occurs in ``ids``: a scatter-add
+    of ones into ``zeros((n,))``, the reference's ``.at[ids].add(1)``.
+    The values of ``torch.bincount(ids, minlength=n)``, whose length
+    depends on the data (fake tensors refuse it, DTensor has no rule for
+    it); this one's shape is static."""
+    return torch.zeros((n,), dtype=dtype, device=ids.device).scatter_add(
+        0, ids, torch.ones_like(ids, dtype=dtype))
+
+
 def moe_route(cfg: ModelConfig, router: torch.Tensor, h: torch.Tensor,
               lo: int = 0, n_local: Optional[int] = None) -> MoERoute:
     """Top-k routing and capacity slots of the normed tokens h [T, d].
@@ -483,7 +507,7 @@ def moe_route(cfg: ModelConfig, router: torch.Tensor, h: torch.Tensor,
     gate_w = gate_w / gate_w.sum(-1, keepdim=True)
     flat_e = idx.reshape(-1)                               # [T*k]
     # load-balance aux (Switch): E * sum_e(frac_tokens_e * mean_prob_e)
-    frac = torch.bincount(flat_e, minlength=e).float() / (t * k)
+    frac = _count(flat_e, e, torch.float32) / (t * k)
     aux = e * torch.sum(frac * probs.mean(0))
     # the reference's formula: the integer // before the float multiply
     capacity = int(t * k // e * cfg.capacity_factor) + 1
@@ -492,7 +516,7 @@ def moe_route(cfg: ModelConfig, router: torch.Tensor, h: torch.Tensor,
                      torch.full_like(le, n_local))         # trash expert
     order = torch.argsort(le, stable=True)                 # jnp.argsort
     sorted_e = le[order]
-    counts = torch.bincount(sorted_e, minlength=n_local + 1)
+    counts = _count(sorted_e, n_local + 1, torch.int64)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(t * k, device=h.device) - starts[sorted_e]
     pos = torch.where((rank < capacity) & (sorted_e < n_local), rank,
@@ -503,18 +527,66 @@ def moe_route(cfg: ModelConfig, router: torch.Tensor, h: torch.Tensor,
 
 def apply_moe(cfg: ModelConfig, p, x: torch.Tensor):
     """The MoE layer -> (y, aux).  A ``moe_impl="shardmap"`` config takes
-    :func:`apply_moe_shardmap` under a :func:`use_mesh` block whose mesh
-    has a "model" axis that its strategy can split over (TP always, EP when
-    |model| divides E), as the reference decides; else
-    :func:`apply_moe_spmd`."""
+    the shard_map path over a mesh with a "model" axis that its strategy
+    can split over (TP always, EP when |model| divides E), as the
+    reference decides; else :func:`apply_moe_spmd`.  The mesh is a placed
+    x's own (:func:`_moe_shardmap_placed`), or that of a :func:`use_mesh`
+    block over whole tensors (:func:`apply_moe_shardmap`)."""
+    placed = isinstance(x, DTensor)
     if cfg.moe_impl == "shardmap":
-        mesh = current_mesh()
+        mesh = x.device_mesh if placed else current_mesh()
         ok = mesh is not None and "model" in mesh_axes(mesh) and (
             cfg.moe_strategy == "tp"                      # ff-sliced experts
             or cfg.n_experts % mesh_axis_sizes(mesh)["model"] == 0)
         if ok:
-            return apply_moe_shardmap(cfg, p, x, mesh)
+            return (_moe_shardmap_placed(cfg, p, x) if placed
+                    else apply_moe_shardmap(cfg, p, x, mesh))
     return apply_moe_spmd(cfg, p, x)
+
+
+def _moe_dispatch(cfg: ModelConfig, router: torch.Tensor, h: torch.Tensor,
+                  lo: int, n_local: int):
+    """Route ``h`` [t, d] against experts ``lo .. lo + n_local - 1`` and
+    scatter the kept assignments into an [n_local, C, d] buffer -> (the
+    route, each sorted assignment's token, its expert's buffer row, the
+    buffer).  Slot C of the scatter takes every overflow and every other
+    rank's assignment, and is cut off."""
+    t, d = h.shape
+    r = moe_route(cfg, router, h, lo, n_local)
+    src = r.order // cfg.top_k                             # token index
+    ex = r.sorted_e.clamp(max=n_local - 1)                 # trash: slot C
+    buf = h.new_zeros((n_local, r.capacity + 1, d))
+    buf[ex, r.pos] = h[src]
+    return r, src, ex, buf[:, :r.capacity]
+
+
+def _moe_experts(cfg: ModelConfig, p, buf: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU on their buffers [E, C, d] as batched
+    products.  On DTensors at the reference's ``shard`` sites: the
+    buffers and outputs over the expert dim (EP), the activation also
+    over the ff dim (TP), each weight gathered over its FSDP dim for the
+    product; on plain tensors the constraints are no-ops."""
+    e_ax, f_ax = _moe_axes(cfg)
+    dt = buf.dtype
+    buf = shard(buf, (e_ax, None, None))
+    gate = torch.einsum("ecd,edf->ecf", buf,
+                        shard(p["w_gate"], (e_ax, None, f_ax)).to(dt))
+    up = torch.einsum("ecd,edf->ecf", buf,
+                      shard(p["w_up"], (e_ax, None, f_ax)).to(dt))
+    act = shard(F.silu(gate) * up, (e_ax, None, f_ax))
+    y_e = torch.einsum("ecf,efd->ecd", act,
+                       shard(p["w_down"], (e_ax, f_ax, None)).to(dt))
+    return shard(y_e, (e_ax, None, None))
+
+
+def _moe_combine(r: MoERoute, src, ex, y_e: torch.Tensor,
+                 w_sorted: torch.Tensor, t: int, k: int) -> torch.Tensor:
+    """The experts' outputs read back per sorted assignment (a zero row
+    padded on at slot C, so an assignment without a slot contributes 0),
+    weighted and added per token in the reference's order -> [t, d]."""
+    y_e = F.pad(y_e, (0, 0, 0, 1))                         # slot C reads 0
+    gathered = y_e[ex, r.pos]                              # [t*k, d]
+    return combine_in_order(w_sorted[:, None] * gathered, src, t, k)
 
 
 def _moe_local_compute(cfg: ModelConfig, p_local, h: torch.Tensor,
@@ -524,35 +596,22 @@ def _moe_local_compute(cfg: ModelConfig, p_local, h: torch.Tensor,
     output [t, d], aux).  Local math, no collectives.
 
     Assignments are sorted by local expert, scattered into an
-    [e_local, C + 1, d] buffer (slot C takes every overflow and every
-    other rank's assignment, and is cut off), run through the experts as
-    batched products, read back with a zero row padded on at slot C (so
-    an assignment without a slot contributes 0), and combined by a
-    weighted scatter-add over tokens in the reference's order
-    (:func:`combine_in_order`).  The capacity C comes from the local
-    token count t."""
-    t, d = h.shape
-    k = cfg.top_k
+    [e_local, C + 1, d] buffer (:func:`_moe_dispatch`), run through the
+    experts as batched products, read back and combined by a weighted
+    scatter-add over tokens in the reference's order
+    (:func:`_moe_combine`, :func:`combine_in_order`).  The capacity C
+    comes from the local token count t."""
+    t = h.shape[0]
     # three profiler ranges (no cost unless a profiler records): routing
     # and the scatter, the expert products, the gather and the combine
     with record_function("moe.dispatch"):
-        r = moe_route(cfg, p_local["router"], h, my_rank * e_local, e_local)
-        src = r.order // k                                 # token index
-        ex = r.sorted_e.clamp(max=e_local - 1)             # trash: slot C
-        buf = h.new_zeros((e_local, r.capacity + 1, d))
-        buf[ex, r.pos] = h[src]
-        buf = buf[:, :r.capacity]
+        r, src, ex, buf = _moe_dispatch(cfg, p_local["router"], h,
+                                        my_rank * e_local, e_local)
     with record_function("moe.experts"):
-        gate = torch.einsum("ecd,edf->ecf", buf,
-                            p_local["w_gate"].to(h.dtype))
-        up = torch.einsum("ecd,edf->ecf", buf, p_local["w_up"].to(h.dtype))
-        y_e = torch.einsum("ecf,efd->ecd", F.silu(gate) * up,
-                           p_local["w_down"].to(h.dtype))
+        y_e = _moe_experts(cfg, p_local, buf)
     with record_function("moe.combine"):
-        y_e = F.pad(y_e, (0, 0, 0, 1))                     # slot C reads 0
-        gathered = y_e[ex, r.pos]                          # [t*k, d]
         w_sorted = r.gate_w.reshape(-1)[r.order].to(h.dtype)
-        out = combine_in_order(w_sorted[:, None] * gathered, src, t, k)
+        out = _moe_combine(r, src, ex, y_e, w_sorted, t, cfg.top_k)
     return out, r.aux
 
 
@@ -575,16 +634,25 @@ def combine_in_order(terms: torch.Tensor, src: torch.Tensor, t: int,
     return out
 
 
+def _batch_axes(b: int, sizes: Dict[str, int]) -> Tuple[str, ...]:
+    """The data axes ("pod", "data") that split a batch of ``b`` under
+    the shard_map path: the major ones dropped first until their product
+    divides ``b`` (e.g. none at decode b = 1), as the reference does."""
+    axes = tuple(a for a in ("pod", "data") if a in sizes)
+    while axes and b % math.prod(sizes[a] for a in axes):
+        axes = axes[1:]
+    return axes
+
+
 def apply_moe_shardmap(cfg: ModelConfig, p, x: torch.Tensor, mesh):
     """Explicit MoE parallelism over a ``DeviceMesh`` with a "model" axis:
     one all-reduce over "model" a layer -> (this rank's batch block of
     x + y, aux).
 
     ``x`` [B, S, d] and ``p`` are whole on every rank.  The batch splits
-    over the data axes ("pod", "data") that divide B (dropping the major
-    ones first, as the reference does, e.g. at decode B = 1); the rank
-    takes its block, as the reference's ``in_specs=P(batch_axes)``, and
-    returns it, as its ``out_specs``.
+    over the data axes ("pod", "data") that divide B (:func:`_batch_axes`);
+    the rank takes its block, as the reference's
+    ``in_specs=P(batch_axes)``, and returns it, as its ``out_specs``.
 
     * strategy "ep" (kimi): experts sharded over "model"; each rank keeps
       the assignments to its own E/|model| experts.
@@ -617,10 +685,7 @@ def apply_moe_shardmap(cfg: ModelConfig, p, x: torch.Tensor, mesh):
     if (f if tp else e) % msize:
         raise ValueError(f"|model| = {msize} does not divide "
                          f"{'expert_d_ff' if tp else 'n_experts'}")
-    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
-    # divisibility: drop batch axes that don't divide b (e.g. decode b=1)
-    while batch_axes and b % math.prod(sizes[a] for a in batch_axes):
-        batch_axes = batch_axes[1:]
+    batch_axes = _batch_axes(b, sizes)
     coord = dict(zip(mesh_axes(mesh), mesh.get_coordinate()))
     blk = 0
     for a in batch_axes:                                   # major first
@@ -649,6 +714,73 @@ def apply_moe_shardmap(cfg: ModelConfig, p, x: torch.Tensor, mesh):
 
 
 apply_moe_shardmap.all_reduces = 0
+
+
+def _moe_shardmap_placed(cfg: ModelConfig, p, x: torch.Tensor):
+    """The shard_map path on a placed layer: DTensor ``x`` [B, S, d] and
+    parameters -> (x + y, aux), laid out as x.
+
+    Each input is laid out as the reference's ``in_specs``: the router
+    and the norm's scale whole, the experts over "model" (EP) or their ff
+    dim over it (TP; an FSDP split over "data" is gathered here, the
+    reference's gather at the shard_map edge), x's batch over the data
+    axes of :func:`_batch_axes` and whole over "model".  Then
+    :func:`_moe_local_compute` runs on each rank's blocks (``local_map``)
+    with the rank's experts (its "model" coordinate under EP) and the
+    capacity of its block's tokens.  Its output is partial over "model":
+    one all-reduce a layer makes it whole (counted in
+    ``apply_moe_shardmap.all_reduces``).
+
+    Gradients are the reference's ``jax.grad``'s: an input whole over a
+    mesh dim that splits the work ("model", and the batch's data axes)
+    gets only its block's share from each rank, so its gradient is
+    declared ``Partial`` there (the router, the norm's scale and x over
+    "model" sum the ranks' uses, as :class:`_SumGradOver` does; the
+    weights over the data axes sum the batch blocks').
+
+    aux keeps the port's rule for several data blocks (ROADMAP Queue 3):
+    each block's own, here their mean, a scalar partial over the split
+    dims, so its gradient is the mean of the blocks' aux gradients, the
+    reference's (whose value is the first block's)."""
+    mesh = x.device_mesh
+    axes, sizes = mesh_axes(mesh), mesh_axis_sizes(mesh)
+    b, s, d = x.shape
+    tp = cfg.moe_strategy == "tp"
+    e_local = cfg.n_experts if tp else cfg.n_experts // sizes["model"]
+    batch_axes = _batch_axes(b, sizes)
+    mdim = axes.index("model")
+    split = {mdim} | {axes.index(a) for a in batch_axes}
+    w_specs = (((None, None, "model"),) * 2 + ((None, "model", None),)
+               if tp else (("model", None, None),) * 3)
+    specs = ((None, None),) + w_specs + ((None,), (batch_axes or None,
+                                                    None, None))
+    ins = [t.redistribute(mesh, placements(sp, mesh)) for t, sp in zip(
+        (p["router"], p["w_gate"], p["w_up"], p["w_down"],
+         p["norm"]["scale"], x), specs)]
+    grads = tuple(tuple(Partial() if pl.is_replicate() and i in split
+                        else pl for i, pl in enumerate(t.placements))
+                  for t in ins)
+    n = math.prod(mesh.size(i) for i in split)
+    out_pl = [Partial() if i == mdim else pl
+              for i, pl in enumerate(ins[-1].placements)]
+    aux_pl = [Partial() if i in split else Replicate()
+              for i in range(mesh.ndim)]
+    my_rank = 0 if tp else mesh.get_coordinate()[mdim]
+
+    def local(router, w_gate, w_up, w_down, scale, x_blk):
+        bl, sl, _ = x_blk.shape
+        h = rms_norm(x_blk, scale).reshape(bl * sl, d)
+        out, aux = _moe_local_compute(
+            cfg, dict(router=router, w_gate=w_gate, w_up=w_up,
+                      w_down=w_down), h, my_rank, e_local)
+        return out.reshape(bl, sl, d), aux / n
+
+    out, aux = local_map(local, out_placements=(out_pl, aux_pl),
+                         in_placements=tuple(t.placements for t in ins),
+                         in_grad_placements=grads, device_mesh=mesh)(*ins)
+    out = out.redistribute(mesh, x.placements)        # the all-reduce
+    apply_moe_shardmap.all_reduces += 1
+    return x + out, aux
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -686,11 +818,59 @@ class _SumGradOver(torch.autograd.Function):
 
 def apply_moe_spmd(cfg: ModelConfig, p, x: torch.Tensor):
     """Top-k MoE with sort-based capacity dispatch over all E experts ->
-    (x + y, aux): :func:`_moe_local_compute` as rank 0 of one."""
+    (x + y, aux): :func:`_moe_local_compute` as rank 0 of one, or
+    :func:`_moe_spmd_placed` on a placed layer."""
     b, s, d = x.shape
     h = norm_apply(cfg, p["norm"], x).reshape(b * s, d)
-    out, aux = _moe_local_compute(cfg, p, h, 0, cfg.n_experts)
-    return x + out.reshape(b, s, d), aux
+    if isinstance(h, DTensor):
+        out, aux = _moe_spmd_placed(cfg, p, h)
+        out = shard(out.reshape(b, s, d), ("batch", None, None))
+    else:
+        out, aux = _moe_local_compute(cfg, p, h, 0, cfg.n_experts)
+        out = out.reshape(b, s, d)
+    return x + out, aux
+
+
+def _moe_spmd_placed(cfg: ModelConfig, p, h: torch.Tensor):
+    """:func:`apply_moe_spmd` on a placed layer's normed tokens, DTensor h
+    [T, d] -> (the output [T, d] and aux, whole on every rank), with one
+    program's semantics, as XLA's partitioner keeps them: the top-k, the
+    capacity ``int(T*k//E*cf)+1`` and the stable sort over all T tokens
+    of the global batch.  The tokens are gathered, and each rank routes
+    them all and scatters them into the whole buffer (``local_map`` on
+    replicated blocks: every rank computes the same, so no gradient is a
+    partial sum); the expert products run as DTensor products at the
+    reference's ``shard`` sites (:func:`_moe_experts`: EP on each rank's
+    experts, TP on its ff slice, partial over "model" until the output's
+    constraint); each rank reads the outputs back and combines them whole."""
+    mesh = h.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    t = h.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    routed = {}
+
+    def dispatch(router, h):
+        r, src, ex, buf = _moe_dispatch(cfg, router, h, 0, e)
+        routed.update(r=r, src=src, ex=ex)
+        return buf, r.gate_w.reshape(-1)[r.order].to(h.dtype), r.aux
+
+    def combine(y_e, w_sorted):
+        return _moe_combine(routed["r"], routed["src"], routed["ex"], y_e,
+                            w_sorted, t, k)
+
+    with record_function("moe.dispatch"):
+        buf, w_sorted, aux = local_map(
+            dispatch, out_placements=(whole, whole, whole),
+            in_placements=(whole, whole), device_mesh=mesh)(
+                p["router"].redistribute(mesh, whole),
+                h.redistribute(mesh, whole))
+    with record_function("moe.experts"):
+        y_e = _moe_experts(cfg, p, buf).redistribute(mesh, whole)
+    with record_function("moe.combine"):
+        out = local_map(combine, out_placements=whole,
+                        in_placements=(whole, whole),
+                        device_mesh=mesh)(y_e, w_sorted)
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

@@ -35,9 +35,11 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.sharding import shard
 from .blocks import (
     _qkv, apply_attention, apply_attention_decode, apply_mlp,
     attention_specs, attn_cache_spec, init_attention, init_mlp, init_norm,
@@ -143,9 +145,24 @@ class EncDec:
                             causal=False, kv=kv)
         return apply_mlp(cfg, layer["mlp"], h)
 
+    def _embed(self, params, tokens, pos):
+        """The rows of ``tokens`` [B, S] (the reference's
+        ``embed[tokens]``) plus the positions' rows ``pos`` [S, d], laid
+        out by batch (the reference's constraint).  On a DTensor the
+        lookup is the LM's (``LM._embed``): each rank reads its vocab
+        block's ids for its batch block, and a constraint adds the blocks
+        (one all-reduce); an index into the embedding leaves a layout,
+        strided over "data", that the first projection cannot take.  The
+        second constraint lays the gradient of the sum out whole over
+        "model" before it reaches the lookup's partial rows."""
+        ids = shard(tokens.long(), ("batch", None))
+        x = F.embedding(ids, shard(params["embed"], ("vocab", None)))
+        x = shard(x, ("batch", None, None)) + pos[None]
+        return shard(x, ("batch", None, None))
+
     def _decoder(self, params, tokens, enc_out, remat: bool):
         s = tokens.shape[1]
-        x = params["embed"][tokens.long()] + params["pos_dec"][None, :s]
+        x = self._embed(params, tokens, params["pos_dec"][:s])
         for i in range(self.cfg.n_layers):
             layer = _index(params["dec"], i)
             if remat:
@@ -156,8 +173,13 @@ class EncDec:
         return x
 
     def _logits(self, params, x):
+        """The tied unembedding in float32.  On a DTensor the embedding is
+        laid out for the product, over "vocab", as ``LM.logits`` lays it
+        out: its gradient then comes back in the parameter's own layout,
+        where the lookup's is added to it."""
         h = norm_apply(self.cfg, params["final_norm"], x)
-        return (h @ params["embed"].T.to(h.dtype)).float()
+        w = shard(params["embed"].T, (None, "vocab"))
+        return (h @ w.to(h.dtype)).float()
 
     def train_loss(self, params, batch: Dict[str, torch.Tensor], *,
                    remat: bool = True) -> torch.Tensor:
@@ -210,8 +232,10 @@ class EncDec:
         """
         cfg = self.cfg
         length = caches["self"]["length"][0]
-        x = params["embed"][tokens.long()] + \
-            params["pos_dec"][length.long()][None, None]
+        # the row at the cache length by a one-element index: a static
+        # shape, which fake tensors (the dry run) can give
+        x = self._embed(params, tokens, params["pos_dec"].index_select(
+            0, length.long().reshape(1)))
         given: List[Any] = []
         new_self: List[Any] = []
         for i in range(cfg.n_layers):

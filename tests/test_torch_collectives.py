@@ -160,39 +160,70 @@ def test_dryrun_counts_the_train_cells_collectives(tmp_path):
         sum(v for k, v in coll.items() if k != "count") / 1e9)
 
 
-@pytest.mark.parametrize("arch,shape,counted", [
-    ("qwen1.5-4b", "train_4k", True),
-    ("gemma3-12b", "prefill_32k", True),
-    ("qwen2-vl-72b", "train_4k", True),
-    ("qwen1.5-4b", "decode_32k", True),
-    ("phi3-mini-3.8b", "decode_32k", True),
-    ("gemma3-12b", "decode_32k", True),
-    ("qwen2.5-32b", "decode_32k", True),
-    ("qwen2-vl-72b", "decode_32k", True),
-    ("gemma3-12b", "long_500k", True),
-    ("mixtral-8x7b", "decode_32k", False),
-    ("kimi-k2-1t-a32b", "decode_32k", False),
-    ("mixtral-8x7b", "long_500k", False),
-    ("rwkv6-7b", "decode_32k", True),
-    ("rwkv6-7b", "long_500k", True),
-    ("zamba2-7b", "decode_32k", True),
-    ("zamba2-7b", "long_500k", True),
-    ("whisper-large-v3", "decode_32k", False),
-    ("mixtral-8x7b", "train_4k", False),
-    ("rwkv6-7b", "prefill_32k", True),
-    ("zamba2-7b", "train_4k", True),
-    ("rwkv6-7b", "train_4k", True),
-    ("zamba2-7b", "prefill_32k", True),
-    ("whisper-large-v3", "train_4k", False),
-])
-def test_dryrun_says_which_cells_it_cannot_count(arch, shape, counted):
-    why = dryrun.collectives_skipped(ARCHS[arch], SHAPES[shape])
-    assert (why is None) == counted
-    assert why is None or len(why) > 20
-    if why is not None:
-        # a family's own reason, for its kind of cell
-        kind = SHAPES[shape].kind == "decode"
-        assert why == dryrun.SKIPPED[ARCHS[arch].family][kind]
+# the smoke-config dry run: every shape cut to a few tokens (a name's
+# kind and its batch-1 case kept)
+SMALL = {"train_4k": (32, 8), "prefill_32k": (32, 4), "decode_32k": (64, 8),
+         "long_500k": (64, 1)}
+CELLS = [
+    ("qwen1.5-4b", "train_4k"), ("gemma3-12b", "prefill_32k"),
+    ("qwen2-vl-72b", "train_4k"), ("qwen1.5-4b", "decode_32k"),
+    ("phi3-mini-3.8b", "decode_32k"), ("gemma3-12b", "decode_32k"),
+    ("qwen2.5-32b", "decode_32k"), ("qwen2-vl-72b", "decode_32k"),
+    ("gemma3-12b", "long_500k"), ("mixtral-8x7b", "decode_32k"),
+    ("kimi-k2-1t-a32b", "decode_32k"), ("mixtral-8x7b", "long_500k"),
+    ("rwkv6-7b", "decode_32k"), ("rwkv6-7b", "long_500k"),
+    ("zamba2-7b", "decode_32k"), ("zamba2-7b", "long_500k"),
+    ("whisper-large-v3", "decode_32k"), ("mixtral-8x7b", "train_4k"),
+    ("rwkv6-7b", "prefill_32k"), ("zamba2-7b", "train_4k"),
+    ("rwkv6-7b", "train_4k"), ("zamba2-7b", "prefill_32k"),
+    ("whisper-large-v3", "train_4k"),
+]
+
+
+@pytest.fixture(scope="module")
+def smoke_dryrun(tmp_path_factory):
+    """``run_cell`` with ``collectives`` for each of :data:`CELLS` at the
+    smoke configs, the shapes cut to :data:`SMALL`, on a 2 x 2 mesh of a
+    fake world of 4, in a fresh subprocess."""
+    out = tmp_path_factory.mktemp("smoke_dry") / "dry.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (
+        "import json, sys\n"
+        "from repro_torch.configs.archs import SMOKE\n"
+        "from repro_torch.configs.shapes import SHAPES, Shape\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.parallel.sharding import MeshShape\n"
+        "small = json.loads(sys.argv[2])\n"
+        "dryrun.ARCHS = SMOKE\n"
+        "dryrun.SHAPES = {n: Shape(n, *small[n], s.kind) "
+        "for n, s in SHAPES.items()}\n"
+        "dryrun.MESHES['2x2'] = lambda: MeshShape(('data', 'model'), "
+        "(2, 2))\n"
+        "with dryrun.fake_world(4):\n"
+        "    recs = [dryrun.run_cell(a, s, '2x2', True) "
+        "for a, s in json.loads(sys.argv[3])]\n"
+        "json.dump(recs, open(sys.argv[1], 'w'))")
+    proc = subprocess.run([sys.executable, "-c", code, str(out),
+                           json.dumps(SMALL), json.dumps(CELLS)], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=DRY_TIMEOUT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return {(r["arch"], r["shape"]): r for r in json.loads(out.read_text())}
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_dryrun_counts_every_cell(smoke_dryrun, arch, shape):
+    """Every family's cells are counted on DTensors, the MoE and
+    encoder-decoder ones too (no cell is left uncounted but by
+    ``skip_reason``): the smoke config's step on fake tensors over a 2 x 2
+    mesh issues collectives, and no reduce-scatter without a gradient."""
+    rec = smoke_dryrun[(arch, shape)]
+    assert "skipped" not in rec and not hasattr(dryrun, "SKIPPED")
+    coll = rec["collectives"]
+    assert set(coll) == set(KEYS) | {"count"}
+    assert coll["count"] > 0 and all(v >= 0 for v in coll.values())
+    if SHAPES[shape].kind != "train":
+        assert coll["reduce-scatter"] == 0
 
 
 def test_dryrun_counts_the_decode_cells_collectives(tmp_path):
@@ -200,16 +231,20 @@ def test_dryrun_counts_the_decode_cells_collectives(tmp_path):
     layout, batch over "data") and gemma3-12b's long_500k (batch 1, the KV
     sequence over "data": each global layer merges the ranks' partial
     attentions), the recurrent families' decode_32k (rwkv6-7b's and
-    zamba2-7b's states by batch and heads) and rwkv6-7b's train_4k (the
-    WKV kernel's shape-only path on fake tensors, forward and backward),
-    counted on fake tensors, each with collectives; the decode cells with
-    no reduce-scatter (no gradient)."""
+    zamba2-7b's states by batch and heads), the MoE and encoder-decoder
+    decode_32k (mixtral-8x7b's and kimi-k2's shard_map MoE on each rank's
+    blocks, whisper-large-v3's cross caches by batch and heads) and
+    rwkv6-7b's train_4k (the WKV kernel's shape-only path on fake tensors,
+    forward and backward), counted on fake tensors, each with
+    collectives; the decode cells with no reduce-scatter (no
+    gradient)."""
     out = tmp_path / "dry.json"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cells = [("qwen1.5-4b", "decode_32k"), ("qwen1.5-4b", "long_500k"),
              ("gemma3-12b", "decode_32k"), ("gemma3-12b", "long_500k"),
              ("rwkv6-7b", "decode_32k"), ("zamba2-7b", "decode_32k"),
-             ("rwkv6-7b", "train_4k")]
+             ("mixtral-8x7b", "decode_32k"), ("kimi-k2-1t-a32b", "decode_32k"),
+             ("whisper-large-v3", "decode_32k"), ("rwkv6-7b", "train_4k")]
     code = ("import json, sys; from repro_torch.launch import dryrun; "
             "cells = json.loads(sys.argv[2])\n"
             "with dryrun.fake_world(256):\n"
@@ -227,7 +262,6 @@ def test_dryrun_counts_the_decode_cells_collectives(tmp_path):
         if cell == ("qwen1.5-4b", "long_500k"):
             continue
         coll = recs[cell]["collectives"]
-        assert "collectives_skipped" not in recs[cell]
         assert coll["count"] > 0 and coll["all-reduce"] > 0
         assert (coll["reduce-scatter"] == 0) == \
             (SHAPES[cell[1]].kind == "decode")
@@ -241,6 +275,15 @@ def test_dryrun_counts_the_decode_cells_collectives(tmp_path):
     # "model", one a Mamba2 layer, and no parameter; rwkv6-7b's none
     assert recs[("zamba2-7b", "decode_32k")]["collectives"]["all-gather"] > 0
     assert recs[("rwkv6-7b", "decode_32k")]["collectives"]["all-gather"] == 0
+    # the shard_map MoE: one all-reduce of the partial output a MoE layer,
+    # beside the attention's and the embedding's; whisper's decode step
+    # gathers nothing (its 20 heads on 16 replicate)
+    for arch in ("mixtral-8x7b", "kimi-k2-1t-a32b"):
+        assert recs[(arch, "decode_32k")]["collectives"]["all-reduce"] > 0
+        assert recs[(arch, "decode_32k")]["collectives"]["count"] > \
+            ARCHS[arch].n_layers
+    assert recs[("whisper-large-v3", "decode_32k")]["collectives"][
+        "all-gather"] == 0
 
 
 def test_dtensor_helpers_leave_plain_tensors_alone():

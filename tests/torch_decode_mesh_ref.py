@@ -9,8 +9,12 @@ CASE holds, for each case ``c`` named in ``names`` (JSON), the smoke
 config's name (``c__arch``), its parameters as the leaves of its ``init``
 tree (``c__p0``, ``c__p1``, ... in ``jax.tree.leaves`` order), the cache
 length (``c__seq``), the teacher-forced tokens [B, T] (``c__tokens``), the
-left-padded prompts [B, P] (``c__prompts``) and the number of tokens to
-generate (``c__gen``).  On a 2 x 2 ("data", "model") mesh with Auto axes
+left-padded prompts [B, P] (``c__prompts``), the number of tokens to
+generate (``c__gen``) and, where present, the MoE path (``c__impl``,
+``"spmd"`` or ``"shardmap"``: the reference's ``--moe-impl`` override,
+``dataclasses.replace`` of the config) and an encoder-decoder's cross
+caches for the teacher-forced steps (``c__cross_k``, ``c__cross_v``; the
+generation starts from zero ones, as the reference's engine does).  On a 2 x 2 ("data", "model") mesh with Auto axes
 (JAX 0.9 makes Explicit ones by default, which the reference's ``shard``
 refuses), this jits ``launch.steps.build_cell``'s decode cell
 (``make_decode_step`` with its in-shardings: the serve layout, the caches
@@ -34,6 +38,7 @@ import sys
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=4")
 
+import dataclasses                                             # noqa: E402
 import json                                                    # noqa: E402
 
 import jax                                                     # noqa: E402
@@ -50,6 +55,8 @@ from repro.models.registry import build_model                  # noqa: E402
 
 def run_case(case, c: str, mesh) -> dict:
     cfg = SMOKE[str(case[f"{c}__arch"])]
+    if f"{c}__impl" in case:
+        cfg = dataclasses.replace(cfg, moe_impl=str(case[f"{c}__impl"]))
     model = build_model(cfg)
     init, _ = model.init(jax.random.PRNGKey(0))
     treedef = jax.tree.structure(init)
@@ -71,8 +78,12 @@ def run_case(case, c: str, mesh) -> dict:
             ("plain_", lambda p, c, t: plain(p, c, t["tokens"]),
              params, lambda c: c, lambda t: {"tokens": t})):
 
-        def fresh():
-            return put_cache(model.init_cache(b, seq, dtype=jnp.float32))
+        def fresh(cross=False):
+            caches = model.init_cache(b, seq, dtype=jnp.float32)
+            if cross and f"{c}__cross_k" in case:
+                caches["cross"] = {"k": jnp.asarray(case[f"{c}__cross_k"]),
+                                   "v": jnp.asarray(case[f"{c}__cross_v"])}
+            return put_cache(caches)
 
         def feed(t):
             return put_tokens(jnp.asarray(t, jnp.int32))
@@ -80,7 +91,7 @@ def run_case(case, c: str, mesh) -> dict:
         def put(out):
             return out[0], put_cache(out[1])
 
-        caches, logits = fresh(), []
+        caches, logits = fresh(cross=True), []
         for t in range(tokens.shape[1]):
             lg, caches = put(step(p, caches, feed(tokens[:, t:t + 1])))
             logits.append(np.asarray(lg))

@@ -1,6 +1,6 @@
 """Rank bodies of the port's sharded serve path, multi-rank MoE
-gradients, sharded train step, sharded decode cell, the recurrent
-families' cells and the collective counter, for
+gradients, sharded train step, sharded decode cell, the recurrent, MoE
+and encoder-decoder families' cells and the collective counter, for
 ``tests/torch_ranks.py``'s ``run_ranks`` (imports no JAX).
 
 :data:`WORKLOADS` and :func:`run_workload` are shared with the reference's
@@ -11,6 +11,7 @@ only (``torch.load`` reads them back with ``weights_only``).
 
 from __future__ import annotations
 
+import contextlib
 import enum
 import functools
 import hashlib
@@ -327,9 +328,10 @@ def _gathers_counter():
 
 def decode_mesh_case(c, shape):
     """One decode case ``c`` (a config, whole parameters, a cache length
-    ``seq``, tokens [B, T], prompts and a generation length) on a (data,
-    model) mesh of ``shape``: the decode cell placed by
-    ``launch/steps.place_cell``; every teacher-forced step's logits,
+    ``seq``, tokens [B, T], prompts and a generation length; an
+    encoder-decoder's ``cross`` caches, whole, for the teacher-forced
+    steps) on a (data, model) mesh of ``shape``: the decode cell placed
+    by ``launch/steps.place_cell``; every teacher-forced step's logits,
     whole; one step's collectives (``count_at``) with each all-gather's
     input shape; every cache leaf's block, bounds and placements after
     the steps; the parameters' layouts; then ``DecodeEngine.generate`` on
@@ -339,6 +341,7 @@ def decode_mesh_case(c, shape):
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.registry import build_model
+    from repro_torch.parallel.sharding import distribute
     from repro_torch.serve.engine import DecodeEngine, ServeConfig
     from repro_torch.tree import leaves
 
@@ -349,6 +352,10 @@ def decode_mesh_case(c, shape):
     mesh = make_device_mesh(shape, "cpu")
     fn, (params, caches, _) = steps.place_cell(
         cfg, cell, mesh, {"tokens": tokens[:, :1]}, params=c["params"])
+    if "cross" in c:
+        caches["cross"] = distribute(c["cross"], steps.cache_shardings(
+            build_model(cfg), mesh, b, c["seq"], seq_shard=b == 1)["cross"],
+            mesh)
     res = {"coord": tuple(mesh.get_coordinate())}
     logits = []
     for t in range(steps_n):
@@ -450,6 +457,108 @@ def recurrent_mesh_rank(rank, world, case_path):
             with torch.no_grad():
                 res["prefill"] = _full(pfn(*pargs))
             out[f"cell/{arch}/{shape[0]}x{shape[1]}"] = res
+    return out
+
+
+@contextlib.contextmanager
+def planted(name, data):
+    """A fault planted in the MoE for the block, to show a test sees it:
+    ``"capacity"``, the spmd path's capacity cut to a batch block's of
+    ``data`` blocks (its routing still over all T tokens), or
+    ``"replicate"``, ``Replicate`` declared in place of the router's
+    ``Partial`` gradient placements in the shard_map path's ``local_map``
+    (each rank's share of its gradient then passes for the whole)."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.models import blocks
+
+    route, local_map = blocks.moe_route, blocks.local_map
+
+    def block_capacity(cfg, router, h, lo=0, n_local=None):
+        r = route(cfg, router, h, lo, n_local)
+        t = h.shape[0] // data
+        c = int(t * cfg.top_k // cfg.n_experts * cfg.capacity_factor) + 1
+        return r._replace(capacity=c, pos=torch.where(
+            r.pos < c, r.pos, torch.full_like(r.pos, c)))
+
+    def replicated_router(fn, *, in_grad_placements=None, **kw):
+        if in_grad_placements is not None and fn.__name__ == "local":
+            router = tuple(Replicate() if p.is_partial() else p
+                           for p in in_grad_placements[0])
+            in_grad_placements = (router,) + tuple(in_grad_placements[1:])
+        return local_map(fn, in_grad_placements=in_grad_placements, **kw)
+
+    if name == "capacity":
+        blocks.moe_route = block_capacity
+    else:
+        blocks.local_map = replicated_router
+    try:
+        yield
+    finally:
+        blocks.moe_route, blocks.local_map = route, local_map
+
+
+def cells_mesh_rank(rank, world, case_path):
+    """The MoE and encoder-decoder cells over ranks:
+    :func:`decode_mesh_case` for each case of ``case["decode"]`` and mesh;
+    for each cell case of ``case["cells"]`` (a config, whole parameters,
+    a whole batch: tokens [B, S] and the encoder-decoder's frames) and
+    mesh: the train cell placed by ``place_cell``, ``train_loss`` and its
+    gradient at those parameters (whole on every rank) with the q and k
+    blocks ``flash_attention`` was handed, the same gradient with the
+    case's fault :func:`planted` on the meshes of its ``"plant"``, and
+    the prefill cell's logits with the shard_map path's all-reduces it
+    counted (keyed ``cell/<case>/<mesh>``)."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import blocks
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.registry import build_model
+
+    torch.set_num_threads(1)
+    case = torch.load(case_path)
+    out = {f"{name}/{shape[0]}x{shape[1]}": decode_mesh_case(c, shape)
+           for name, c in case["decode"].items() for shape in c["meshes"]}
+    for name, c in case["cells"].items():
+        cfg = ModelConfig(**c["cfg"])
+        model = build_model(cfg)
+        batch = c["batch"]
+        b, s = batch["tokens"].shape
+        for shape in c["meshes"]:
+            mesh = make_device_mesh(shape, "cpu")
+            res = {"coord": tuple(mesh.get_coordinate())}
+            _, (p, _, placed) = steps.place_cell(
+                cfg, Shape("train", s, b, "train"), mesh, batch,
+                params=c["params"])
+            seen = []
+            kernel = blocks.flash_attention
+
+            def recording(q, k, v, **kw):
+                seen.append((tuple(q.shape), tuple(k.shape),
+                             type(q).__name__))
+                return kernel(q, k, v, **kw)
+
+            blocks.flash_attention = recording
+            try:
+                loss, grads = steps._value_and_grad(model, p, placed, True)
+            finally:
+                blocks.flash_attention = kernel
+            res.update(loss=_full(loss), grads=[_full(g) for g in grads],
+                       blocks=seen)
+            fault, meshes = c.get("plant", (None, []))
+            if list(shape) in [list(m) for m in meshes]:
+                with planted(fault, shape[0]):
+                    _, bad = steps._value_and_grad(model, p, placed, True)
+                res["planted"] = [_full(g) for g in bad]
+            pfn, pargs = steps.place_cell(
+                cfg, Shape("prefill", s, b, "prefill"), mesh, batch,
+                params=c["params"])
+            before = blocks.apply_moe_shardmap.all_reduces
+            with torch.no_grad():
+                res["prefill"] = _full(pfn(*pargs))
+            res["all_reduces"] = blocks.apply_moe_shardmap.all_reduces - before
+            out[f"cell/{name}/{shape[0]}x{shape[1]}"] = res
     return out
 
 
