@@ -45,30 +45,38 @@ Phases (any failure exits nonzero and prints no result):
    a rank still running after 300 s is killed.  Prints each rank's
    waves, launches, lanes a launch, host ms from a launch to its end,
    gathers with their bytes and seconds, and its wall against
-   ``[serve]``'s.  Then ``[train_mesh]``, the sharded train step:
-   qwen1.5-4b at full width (d_model 2560, 20/20 heads, d_ff 6912, vocab
-   151936) cut to 4 of 40 layers, 2 x 1024 tokens a step, on 4 spawned
-   ranks on the one card as a (2, 2) (data, model) mesh over gloo,
+   ``[serve]``'s.  Then ``[train_mesh]``, every family's sharded train
+   step, in five cases at full width cut in depth, on 4 ranks on the one
+   card spawned once for all of them, as a (2, 2) (data, model) mesh over
+   gloo: qwen1.5-4b at 2 of 40 layers, rwkv6-7b at 1 of 32, zamba2-7b's
+   unit (6 Mamba2 layers and the shared block), mixtral-8x7b at 1 of 32
+   (its shard_map TP MoE), 2 x 1024 tokens a step, and whisper-large-v3
+   at 4 + 4 of 32 + 32 layers over 2 x 1500 frames and 2 x 64 tokens;
    placed as DTensors by ``launch/steps.place_cell`` (FSDP over "data";
-   heads, mlp and vocab over "model"; ZeRO-1 moments; the batch over
-   "data"), DTensor's collectives staged through host memory
-   (``parallel/host_staged.py``).  Step 1's gradient and three AdamW
-   steps on each rank, then the same model and batch in one process on
-   the card: each step's loss and grad norm within 1e-5 relative, every
-   gradient leaf of step 1 within 1e-4 of its max |g|, every parameter
-   after three steps within 3 x lr (the share beyond 1e-6 printed),
-   each rank's first ``flash_attention`` call within 1e-4 of
-   ``attention_plain`` on its block, its moments on the card in the
-   blocks ``opt_state_specs`` gives, and ``flash_attention`` launched 24
-   times a rank (counts set to 0 just before the steps); a rank still
-   running after 240 s is killed.  Prints the collectives of one step
-   (``launch/collectives.py``), what each rank staged, ms a step and
-   peak GB a rank.  Then ``[decode_mesh]``, the decode cell over the same
-   kind of group: ``place_cell`` of a decode cell (the parameters drawn
-   a leaf at a time into ``build_cell``'s serve layout, no weight over
+   heads, mlp, experts' ff and vocab over "model"; ZeRO-1 moments; the
+   batch over "data"), DTensor's collectives through buffers the ranks of
+   each group map on the card (``parallel/peer_staged.py``, CUDA IPC).
+   Two AdamW steps a case on each rank; once a case's ranks have written
+   their blocks (and wait), the same model and batch in one process on
+   the card (mixtral routed block by block, as each data rank routes):
+   each step's loss and grad norm within 1e-5 relative, every gradient
+   leaf of step 1 within 1e-4 of its max |g|, every parameter after the
+   steps within 2e-4, which a planted wrong-sign gradient block must
+   exceed (qwen's), each rank's moments on the card in the blocks
+   ``opt_state_specs`` gives, each float kernel's first call within 1e-4
+   of its plain version on its block, and its launches a rank, counted
+   from 0 just before the steps, twice a prefill's a step (the forward
+   and its remat recompute; mixtral's MoE all-reduce once a layer a
+   step); a case still running after 240 s is killed.  Prints each
+   case's collectives of one step (``launch/collectives.py``), what each
+   rank staged, the bytes written for the gates, ms a step and peak GB a
+   rank against one process's.  Then ``[decode_mesh]``, the decode cell
+   over the same kind of group: ``place_cell`` of a decode cell (the
+   parameters drawn a leaf at a time into ``build_cell``'s serve layout,
+   no weight over
    "data"; the caches' blocks by ``cache_shardings``) served through
    ``DecodeEngine.generate`` on the placed parameters, in four cases:
-   qwen1.5-4b at 8 of 40 layers in ``decode_32k``'s layout cut to
+   qwen1.5-4b at 4 of 40 layers in ``decode_32k``'s layout cut to
    batch 4 and 2048 cache slots, a 16-token prompt and 4 generated;
    gemma3-12b cut to one unit (6 of 48 layers) at ``long_500k``'s, batch
    1 and 64 slots with the KV sequence over "data" (32 a rank), a
@@ -82,7 +90,7 @@ Phases (any failure exits nonzero and prints no result):
    mixtral-8x7b at 2 of 32 layers in ``decode_32k``'s layout as
    qwen1.5-4b's (the shard_map MoE, its experts' ff dim over "model",
    routing each data rank's batch block); whisper-large-v3 (32 encoder
-   layers, 16 of 32 decoder layers) in the same layout, 1500 encoder
+   layers, 8 of 32 decoder layers) in the same layout, 1500 encoder
    frames (the cross caches by batch and heads).
    Against the same model, weights and prompts served in one process on
    the card (mixtral's routing there block by block, as on the mesh):
@@ -90,10 +98,10 @@ Phases (any failure exits nonzero and prints no result):
    pick printed), every step's logits and every rank's cache and state
    blocks within 1e-5 of their max, the prefill cell of the same prompts
    on the same mesh (the float kernels on each rank's blocks, counts set
-   to 0 just before: ``flash_attention`` 8 and 6 times a rank, ``wkv6``
+   to 0 just before: ``flash_attention`` 4 and 6 times a rank, ``wkv6``
    4 times on (2, 32, 16, 64), ``ssd`` 6 times on (1, 40, 56, 64) and
    ``flash_attention`` once on (1, 16, 40, 112), mixtral's 2 times and
-   whisper's 64) within 1e-3 of the last prompt step's logits (of the
+   whisper's 48) within 1e-3 of the last prompt step's logits (of the
    same prefill in one process for mixtral and whisper), each kernel's
    first call within 1e-4 of its plain version on its block (timed on
    rank 0 by CUDA events), mixtral's decode one MoE all-reduce a layer
@@ -981,6 +989,18 @@ def _serve_mesh_rank_body(torch, world, dev, n_ops):
             "compared": [apply_ok.compared, propose_ok.compared]}
 
 
+def _rank_tails(procs, work, tag):
+    """Print the tail of each rank's log and kill the ranks still alive."""
+    for r in range(len(procs)):
+        path = work / f"rank{r}.log"
+        tail = path.read_text()[-2000:] if path.is_file() else ""
+        log(f"[{tag}] rank {r} log tail:\n{tail}")
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(10)
+
+
 def _join_ranks(procs, work, limit, tag="serve_mesh"):
     """Wait for every rank; a rank that fails stops the others at once,
     and a rank still running at ``limit`` seconds is killed.  Raises with
@@ -1001,10 +1021,7 @@ def _join_ranks(procs, work, limit, tag="serve_mesh"):
                     f"still running after {limit:.0f} s; killed")
             time.sleep(0.2)
     except AssertionError:
-        for r in range(len(procs)):
-            path = work / f"rank{r}.log"
-            tail = path.read_text()[-2000:] if path.is_file() else ""
-            log(f"[{tag}] rank {r} log tail:\n{tail}")
+        _rank_tails(procs, work, tag)
         raise
     finally:
         for p in procs:
@@ -1110,20 +1127,47 @@ def phase_serve_mesh(torch, mods, n_ops, want):
 # [train_mesh]: the sharded train step, four ranks on the one card
 # ---------------------------------------------------------------------------
 
-TRAIN_MESH = "qwen1.5-4b"
-TRAIN_MESH_LAYERS = 4     # of 40: 1,095,160,320 float32 parameters
+# name -> (arch, its cut as dataclasses.replace fields, steps): every
+# family at full width, cut in depth to what four ranks and one process
+# hold on one card in turn and to the script's time limit.  "dense"
+# qwen1.5-4b at 2 of 40 layers (936,537,600 float32 parameters; 4 layers
+# and 3 steps until the other families came: with them the script ran
+# over the 1110 s of phases it aims at on an H100 at 700 W); "ssm"
+# rwkv6-7b at 1 of 32 (755,290,112; its 65536-word vocabulary is most of
+# them); "hybrid" zamba2-7b's one unit, 6 Mamba2 layers and the shared
+# block (902,732,256; a cut below one unit leaves the shared block's
+# leaves unused); "moe" mixtral-8x7b at 1 of 32 (1,713,418,240), the
+# shard_map TP MoE its config publishes; "encdec" whisper-large-v3 at 4 of
+# its 32 encoder and 4 of its 32 decoder layers (293,808,640) over
+# [train_zoo]'s 2 x 1500 frames and 2 x 64 tokens
+TRAIN_MESH_CASES = {
+    "dense": ("qwen1.5-4b", dict(n_layers=2), 2),
+    "ssm": ("rwkv6-7b", dict(n_layers=1), 2),
+    "hybrid": ("zamba2-7b", dict(n_layers=6), 2),
+    "moe": ("mixtral-8x7b", dict(n_layers=1, moe_impl="shardmap"), 2),
+    "encdec": ("whisper-large-v3", dict(n_layers=4, n_enc_layers=4), 2),
+}
 TRAIN_MESH_SHAPE = (2, 2)  # (data, model)
 TRAIN_MESH_TOKENS = 1024  # 2 x 1024 tokens a step, as the other train phases
-TRAIN_MESH_STEPS = 3
-TRAIN_MESH_LIMIT = 240.0  # seconds; a rank still running then is killed
-# every parameter after the steps against one process's: a few times the
-# worst of sound runs (5.57e-05 on an H100 80GB HBM3 at 700 W), below what
-# one wrong-sign gradient block moves (the phase's planted reading)
+# seconds a case may take on the ranks, and the ranks may wait for the
+# parent's gates of a case; a rank still running then is killed
+TRAIN_MESH_LIMIT = 240.0
+# every parameter after the steps against one process's, in every case: a
+# few times the worst of sound runs (5.57e-05 for qwen, and 4.45e-05,
+# 8.18e-05, 4.17e-05 and 1.23e-05 for the other families, on an H100 80GB
+# HBM3 at 700 W), below what one wrong-sign gradient block moves (the
+# phase's planted reading; 4.4e-04 in each family where it was planted)
 TRAIN_MESH_PARAM_TOL = 2e-4
-# the planted fault: this leaf's gradient negated on one "model" block of
-# its first layer, in this step (1-based; step 1's gradients are held
-# leaf by leaf, the later steps' only through the parameters)
+# the planted fault, in "dense": this leaf's gradient negated on one
+# "model" block of its first layer, in this step (1-based; step 1's
+# gradients are held leaf by leaf, the later steps' only through the
+# parameters)
 TRAIN_MESH_PLANT = ("units/0/mlp/w_up", 2)
+
+
+def train_mesh_cfg(mods, name):
+    arch, cut, _ = TRAIN_MESH_CASES[name]
+    return dataclasses.replace(mods.ARCHS[arch], **cut)
 
 
 def _block_bounds(t):
@@ -1140,20 +1184,27 @@ def _block_bounds(t):
 
 
 def train_mesh_batch(torch, cfg, dev):
-    """The step's 2 x TRAIN_MESH_TOKENS tokens, drawn on the card from a
-    seed (the same on every rank and in the one-process run)."""
+    """A step's batch, drawn on the card from a seed (the same on every
+    rank and in the one-process run): 2 x TRAIN_MESH_TOKENS tokens, or an
+    encoder-decoder's 2 x enc_seq frames and 2 x WHISPER_TOKENS tokens."""
     g = torch.Generator(device=dev).manual_seed(27)
-    return {"tokens": torch.randint(1, cfg.vocab, (2, TRAIN_MESH_TOKENS),
-                                    generator=g, device=dev,
-                                    dtype=torch.int32)}
+    n = TRAIN_MESH_TOKENS
+    batch = {}
+    if cfg.family == "encdec":
+        n = WHISPER_TOKENS
+        batch["frames"] = torch.randn((2, cfg.enc_seq, cfg.d_model),
+                                      generator=g, device=dev)
+    batch["tokens"] = torch.randint(1, cfg.vocab, (2, n), generator=g,
+                                    device=dev, dtype=torch.int32)
+    return batch
 
 
-def mesh_rank(rank, world, workdir, phase):
+def mesh_rank(rank, world, workdir, phase, *args):
     """One rank of ``[train_mesh]`` or ``[decode_mesh]`` (``phase``), a
     spawned process: joins the gloo group through the ``FileStore`` in
     ``workdir`` on ``cuda:0`` (every rank on the one card), runs the
-    phase's rank body and saves what the parent gates to ``rank<r>.pt``;
-    its log goes to ``rank<r>.log``."""
+    phase's rank body (with ``args``) and saves what it returns for the
+    parent's gates to ``rank<r>.pt``; its log goes to ``rank<r>.log``."""
     import torch
     import torch.distributed as dist
 
@@ -1170,32 +1221,85 @@ def mesh_rank(rank, world, workdir, phase):
         dist.init_process_group("gloo", init_method=f"file://{work}/store",
                                 rank=rank, world_size=world)
         try:
-            res = body(torch, dev)
+            res = body(torch, dev, work, *args)
         finally:
             dist.destroy_process_group()
-        torch.save(res, work / f"rank{rank}.pt")
+        if res is not None:
+            torch.save(res, work / f"rank{rank}.pt")
 
 
-def _train_mesh_rank_body(torch, dev):
+@contextlib.contextmanager
+def first_calls(mods):
+    """Each float kernel's wrapper in models/blocks.py wrapped to keep its
+    first call: ``{kernel: (inputs, keywords, output)}``, detached
+    copies."""
+    first = {}
+
+    def record(kernel):
+        wrapper = _wrapper(mods, kernel)
+
+        def call(*args, **kw):
+            out = wrapper(*args, **kw)
+            if kernel not in first:
+                first[kernel] = ([a.detach().clone() for a in args], kw,
+                                 out.detach().clone())
+            return out
+        return call
+
+    for kernel in FLOAT_KERNELS:
+        setattr(mods.blocks, FLOAT_KERNELS[kernel][1], record(kernel))
+    try:
+        yield first
+    finally:
+        for kernel in FLOAT_KERNELS:
+            setattr(mods.blocks, FLOAT_KERNELS[kernel][1],
+                    _wrapper(mods, kernel))
+
+
+def _train_mesh_rank_body(torch, dev, work, go):
+    """Every case of TRAIN_MESH_CASES on this rank, in order: the case's
+    results go to ``rank<r>.<case>.pt`` (``.json`` beside it says it is
+    whole: its bytes and the seconds the save took), then the rank frees
+    the case's tensors and the caching allocator and waits for the
+    parent's ``go`` of the case before the next one starts."""
+    import gc
+
     mods = load_modules()
-    cfg = _cut(mods, TRAIN_MESH, TRAIN_MESH_LAYERS)
     mesh = mods.make_device_mesh(TRAIN_MESH_SHAPE, dev)
+    rank = mesh.get_rank()
+    for i, name in enumerate(TRAIN_MESH_CASES):
+        res = _train_mesh_case(torch, mods, mesh, name, dev)
+        path = work / f"rank{rank}.{name}.pt"
+        t0 = time.perf_counter()
+        torch.save(res, path)
+        done = {"bytes": path.stat().st_size,
+                "save_s": time.perf_counter() - t0}
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        (work / f"rank{rank}.{name}.json").write_text(json.dumps(done))
+        log(f"[train_mesh] {name}: saved {done['bytes']} B in "
+            f"{done['save_s']:.2f} s")
+        if not go[i].wait(TRAIN_MESH_LIMIT):
+            raise RuntimeError(f"[train_mesh] {name}: no go from the parent "
+                               f"after {TRAIN_MESH_LIMIT:.0f} s")
+    return None
+
+
+def _train_mesh_case(torch, mods, mesh, name, dev):
+    """One case on this rank: the train cell placed by ``place_cell``
+    (the parameters a leaf at a time), its steps (counts at 0 just before
+    them, read just after; step 1's own gradients, its collectives and
+    each float kernel's first call kept), and the rank's blocks of the
+    gradients (laid out as their parameters) and of the parameters after
+    the steps."""
+    cfg = train_mesh_cfg(mods, name)
+    n_steps = TRAIN_MESH_CASES[name][2]
     batch = train_mesh_batch(torch, cfg, dev)
     opt_cfg = mods.AdamWConfig(**TRAIN_OPT)
-    cell = mods.Shape("train_mesh", TRAIN_MESH_TOKENS, 2, "train")
-    first = {}
-    wrapper = mods.blocks.flash_attention
-
-    def record_first(q, k, v, **kw):
-        out = wrapper(q, k, v, **kw)
-        if not first:
-            first.update(q=q.detach().clone(), k=k.detach().clone(),
-                         v=v.detach().clone(), out=out.detach().clone(),
-                         kw=kw)
-        return out
-
+    cell = mods.Shape("train_mesh", batch["tokens"].shape[1], 2, "train")
     torch.cuda.reset_peak_memory_stats()
-    with mods.HostStaged() as staged:
+    with mods.PeerStaged() as staged:
         t0 = time.perf_counter()
         fn, (params, opt_state, placed) = mods.place_cell(
             cfg, cell, mesh, batch, opt_cfg=opt_cfg)
@@ -1214,17 +1318,17 @@ def _train_mesh_rank_body(torch, dev):
         # the main path: counts at 0 just before the steps, read just after
         losses, norms, walls = [], [], []
         _zero_kernel_counts(mods)
-        for i in range(TRAIN_MESH_STEPS):
+        moe = mods.blocks.apply_moe_shardmap.all_reduces
+        for i in range(n_steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if i == 0:
-                mods.blocks.flash_attention = record_first
                 mods.steps._value_and_grad = record_grads
                 try:
-                    with mods.CollectiveCounter() as counter:
+                    with first_calls(mods) as first, \
+                            mods.CollectiveCounter() as counter:
                         params, opt_state, m = fn(params, opt_state, placed)
                 finally:
-                    mods.blocks.flash_attention = wrapper
                     mods.steps._value_and_grad = value_and_grad
             else:
                 params, opt_state, m = fn(params, opt_state, placed)
@@ -1232,9 +1336,10 @@ def _train_mesh_rank_body(torch, dev):
             norms.append(float(m["grad_norm"].full_tensor()))
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-            log(f"[train_mesh] step {i + 1}: loss {losses[-1]:.7f}, grad "
-                f"norm {norms[-1]:.7f}, {walls[-1]:.1f} ms")
+            log(f"[train_mesh] {name} step {i + 1}: loss {losses[-1]:.7f}, "
+                f"grad norm {norms[-1]:.7f}, {walls[-1]:.1f} ms")
         launches = _kernel_counts(mods)
+        moe = mods.blocks.apply_moe_shardmap.all_reduces - moe
         # a gradient may hold partial sums: lay it out as its parameter
         grad_blocks = []
         for g, p in zip(grads, mods.leaves(params)):
@@ -1247,119 +1352,154 @@ def _train_mesh_rank_body(torch, dev):
                 str(t.to_local().device), str(t.dtype))
                for t in mods.leaves(opt_state.m) + mods.leaves(opt_state.v)]
     step = int(opt_state.step.to_local())
-    # the first attention call, against the plain version on its block
-    want = mods.fa_ops.attention_plain(first["q"], first["k"], first["v"],
-                                       **first["kw"])
-    fa_err = float((first["out"] - want).abs().max())
-    fa_scale = float(want.abs().max())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt_state, placed, leaves, fn
+    # each kernel's first call, against its plain version on its block
+    kernels = {}
+    with torch.no_grad():
+        for kernel, (args, kw, out) in first.items():
+            want = _plain(mods, kernel)(*args, **kw)
+            kernels[kernel] = {"block": tuple(args[0].shape),
+                               "err": float((out - want).abs().max()),
+                               "scale": float(want.abs().max())}
+    del first
     return {"coord": tuple(mesh.get_coordinate()), "losses": losses,
             "grad_norms": norms, "walls_ms": walls, "place_s": t_place,
-            "launches": launches, "collectives": counter.result(),
+            "launches": launches, "moe_all_reduces": moe,
+            "collectives": counter.result(),
             "staged": {k: (staged.ops[k], staged.bytes[k],
                            staged.seconds[k]) for k in staged.ops},
             "grads": grad_blocks, "params": param_blocks,
-            "moments": moments, "step": step,
-            "fa_block": tuple(first["q"].shape), "fa_err": fa_err,
-            "fa_scale": fa_scale,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "block_bytes": sum(t.numel() * t.element_size()
+                               for _, t in grad_blocks + param_blocks),
+            "moments": moments, "step": step, "kernels": kernels,
+            "peak_gb": peak, "buffer_gb": staged.peak_buffer_bytes / 1e9}
 
 
-def phase_train_mesh(torch, mods, dev):
-    """qwen1.5-4b at full width cut to TRAIN_MESH_LAYERS, trained on a
-    TRAIN_MESH_SHAPE (data, model) mesh of spawned ranks on the one card
-    (gloo, DTensor collectives staged through host memory): FSDP over
-    "data", heads, mlp and vocab over "model", ZeRO-1 moments, the batch
-    over "data".  Held to the same model and batch in one process on the
-    card: each step's loss and grad norm within LOSS_TOL relative, step
-    1's gradient leaves (the first timed step's own) within LEAF_TOL of
-    each leaf's max |g|, every parameter after the steps within
-    TRAIN_MESH_PARAM_TOL, which one planted wrong-sign gradient block must
-    exceed; each rank's first attention
-    call within FLOAT_TOL of ``attention_plain`` on its block, its moments
-    the blocks ``opt_state_specs`` gives, on the card; ``flash_attention``
-    launched on every rank, twice a layer a step."""
-    import tempfile
+def _await_case(procs, work, name, deadline, tag):
+    """Each rank's ``.json`` note of case ``name``, once every rank has
+    written its results; raises at once when a rank has failed, or when
+    the case is not written by ``deadline`` (``time.monotonic()``)."""
+    notes = [work / f"rank{r}.{name}.json" for r in range(len(procs))]
+    while not all(p.is_file() for p in notes):
+        bad = {r: p.exitcode for r, p in enumerate(procs)
+               if p.exitcode not in (None, 0)}
+        if bad:
+            raise AssertionError(f"[{tag}] ranks exited with codes {bad}")
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"[{tag}] {name}: ranks "
+                f"{[r for r, p in enumerate(notes) if not p.is_file()]} "
+                f"still running after {TRAIN_MESH_LIMIT:.0f} s; killed")
+        time.sleep(0.2)
+    return [json.loads(p.read_text()) for p in notes]
 
-    import torch.multiprocessing as mp
 
-    tag = "train_mesh"
-    t_phase = time.perf_counter()
-    require_free(torch, tag)
-    cfg = _cut(mods, TRAIN_MESH, TRAIN_MESH_LAYERS)
+def _mesh_heads(cfg):
+    """The widths of a config's mixers, for the mesh phases' logs."""
+    heads = (f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
+             f"{cfg.rwkv_head_dim}" if cfg.family == "ssm" else
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}")
+    if cfg.family == "hybrid":
+        heads += (f", {cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, "
+                  f"state {cfg.ssm_state}")
+    if cfg.family == "moe":
+        heads += (f", {cfg.n_experts} experts of d_ff {cfg.expert_d_ff}, "
+                  f"top {cfg.top_k}, moe_impl {cfg.moe_impl} "
+                  f"({cfg.moe_strategy})")
+    if cfg.family == "encdec":
+        heads += (f", {cfg.n_enc_layers} encoder layers over "
+                  f"{cfg.enc_seq} frames")
+    return heads
+
+
+def train_mesh_want(mods, cfg, n_steps):
+    """(each float kernel's launches a rank over the steps, the shard_map
+    MoE's all-reduces a rank): every kernel as a prefill launches it
+    (``expected_launches``), twice a step (the forward and its remat
+    recompute), and one all-reduce a MoE layer a step: the recompute
+    (``checkpoint``'s early stop) ends with the last tensor the backward
+    saved, before the layer's all-reduce."""
     model = mods.build_model(cfg)
-    n = sum(math.prod(t.shape) for t in _leaves(model.param_shapes()))
-    world = math.prod(TRAIN_MESH_SHAPE)
-    log(f"[{tag}] {TRAIN_MESH} at full width (d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab}) cut to {TRAIN_MESH_LAYERS} of "
-        f"{mods.ARCHS[TRAIN_MESH].n_layers} layers: {n:,} float32 "
-        f"parameters, {n * 16 / 1e9:.2f} GB with gradients and moments; "
-        f"{world} ranks on {torch.cuda.get_device_name(0)} as a "
-        f"{TRAIN_MESH_SHAPE} (data, model) mesh, gloo; 2 x "
-        f"{TRAIN_MESH_TOKENS} tokens a step, {TRAIN_MESH_STEPS} steps")
-    ctx = mp.get_context("spawn")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="train_mesh_") as tmp:
-        work = pathlib.Path(tmp)
-        procs = [ctx.Process(target=mesh_rank,
-                             args=(r, world, tmp, "train_mesh"))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        _join_ranks(procs, work, TRAIN_MESH_LIMIT, tag)
-        ranks = [torch.load(work / f"rank{r}.pt") for r in range(world)]
-    t_ranks = time.perf_counter() - t0
-    # the same model and batch in one process
-    torch.cuda.reset_peak_memory_stats()
-    batch = train_mesh_batch(torch, cfg, dev)
-    opt_cfg = mods.AdamWConfig(**TRAIN_OPT)
+    kernels = {k: 2 * n * n_steps
+               for k, n in expected_launches(model).items()}
+    moe = 0
+    if cfg.family == "moe" and cfg.moe_impl == "shardmap":
+        moe = cfg.n_layers * n_steps
+    return kernels, moe
+
+
+def train_one_process(torch, mods, cfg, n_steps, dev, plant=None):
+    """The case's steps in this process on the same model, parameters and
+    batch (a shard_map MoE routed block by block, as each data rank
+    routes: ``moe_blocks``): losses, grad norms, step 1's gradients (none
+    when ``plant``, which negates its leaf's block in its step), the
+    parameters after the steps and ms a step."""
+    model = mods.build_model(cfg)
     names = [nm for nm, _ in _named_leaves(model.param_shapes())]
+    opt_cfg = mods.AdamWConfig(**TRAIN_OPT)
+    batch = train_mesh_batch(torch, cfg, dev)
+    params = model.init(0, device=dev)
+    state = mods.adamw.init(opt_cfg, params)
+    fn = mods.make_train_step(model, opt_cfg)
+    value_and_grad = mods.steps._value_and_grad
+    first, losses, norms, walls = [], [], [], []
 
-    def one_process(plant=None):
-        """The steps in this process: losses, grad norms, step 1's
-        gradients (none when ``plant``, which negates its leaf's block in
-        its step) and the parameters after the steps."""
-        params = mods.lm.LM(cfg).init(0, device=dev)
-        state = mods.adamw.init(opt_cfg, params)
-        fn = mods.make_train_step(model, opt_cfg)
-        value_and_grad = mods.steps._value_and_grad
-        first, losses, norms = [], [], []
+    def hook(*a, **kw):
+        loss, g = value_and_grad(*a, **kw)
+        if plant is None and not losses:
+            first.extend(x.detach().clone() for x in g)
+        elif plant is not None and len(losses) + 1 == plant[1]:
+            x = g[names.index(plant[0])][0]
+            x[..., :x.shape[-1] // 2].neg_()
+        return loss, g
 
-        def hook(*a, **kw):
-            loss, g = value_and_grad(*a, **kw)
-            if plant is None and not losses:
-                first.extend(x.detach().clone() for x in g)
-            elif plant is not None and len(losses) + 1 == plant[1]:
-                x = g[names.index(plant[0])][0]
-                x[..., :x.shape[-1] // 2].neg_()
-            return loss, g
-
-        mods.steps._value_and_grad = hook
-        try:
-            for _ in range(TRAIN_MESH_STEPS):
+    mods.steps._value_and_grad = hook
+    try:
+        with moe_blocks(torch, mods, cfg, TRAIN_MESH_SHAPE[0]):
+            for _ in range(n_steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 params, state, m = fn(params, state, batch)
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
-        finally:
-            mods.steps._value_and_grad = value_and_grad
-        return losses, norms, first, mods.leaves(params)
+                walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        mods.steps._value_and_grad = value_and_grad
+    return losses, norms, first, mods.leaves(params), walls
 
-    losses, norms, grads, final = one_process()
+
+def _train_mesh_gates(torch, mods, name, ranks, dev):
+    """Case ``name``'s ranks (their results, by rank) against the same
+    model and batch in one process on the card; raises on a gate that
+    fails, else returns the case's figures."""
+    tag = "train_mesh"
+    what = f"[{tag}] {name}"
+    cfg = train_mesh_cfg(mods, name)
+    n_steps = TRAIN_MESH_CASES[name][2]
+    model = mods.build_model(cfg)
+    names = [nm for nm, _ in _named_leaves(model.param_shapes())]
+    plant = TRAIN_MESH_PLANT if name == "dense" else None
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, grads, final, one_ms = train_one_process(
+        torch, mods, cfg, n_steps, dev)
     one_peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[{tag}] one process: losses {losses}, grad norms {norms}; peak "
-        f"{one_peak:.2f} GB")
-    specs = mods.steps.opt_state_specs(model.param_specs(), opt_cfg)
+    log(f"{what} one process: losses {losses}, grad norms {norms}; ms a "
+        f"step {[round(x, 1) for x in one_ms]}; peak {one_peak:.2f} GB")
+    specs = mods.steps.opt_state_specs(model.param_specs(),
+                                       mods.AdamWConfig(**TRAIN_OPT))
     mesh_shape = mods.MeshShape(("data", "model"), TRAIN_MESH_SHAPE)
     want_moments = mods.leaves(mods.steps.param_shardings(
         specs.m, model.param_shapes(), mesh_shape))
+    want_launches, want_moe = train_mesh_want(mods, cfg, n_steps)
     grad_worst, param_worst, beyond, total = [], 0.0, 0, 0
     for r, res in enumerate(ranks):
-        what = f"[{tag}] rank {r} {res['coord']}"
+        who = f"{what} rank {r} {res['coord']}"
         for got, want, kind in ((res["losses"], losses, "loss"),
                                 (res["grad_norms"], norms, "grad norm")):
             rel = max(abs(a / b - 1) for a, b in zip(got, want))
-            if not rel <= LOSS_TOL:
-                raise AssertionError(f"{what}: {kind} {got} against one "
+            if len(got) != n_steps or not rel <= LOSS_TOL:
+                raise AssertionError(f"{who}: {kind} {got} against one "
                                      f"process {want}: {rel:.3e}")
         for (bounds, block), g, nm in zip(res["grads"], grads, names):
             ref = g[tuple(slice(*b) for b in bounds)]
@@ -1370,81 +1510,207 @@ def phase_train_mesh(torch, mods, dev):
             param_worst = max(param_worst, float(diff.max()))
             beyond += int((diff > 1e-6).sum())
             total += diff.numel()
-        if res["step"] != TRAIN_MESH_STEPS:
-            raise AssertionError(f"{what}: step counter {res['step']}")
+        if res["step"] != n_steps:
+            raise AssertionError(f"{who}: step counter {res['step']}")
         for (local, placement, device, dtype), sh, p in zip(
                 res["moments"], want_moments * 2, final * 2):
             if (local != sh.shard_shape(tuple(p.shape))
                     or placement != str(sh.placements)
                     or not device.startswith(dev.type)):
-                raise AssertionError(f"{what}: a moment's block {local} "
+                raise AssertionError(f"{who}: a moment's block {local} "
                                      f"{placement} on {device}, want "
                                      f"{sh.shard_shape(tuple(p.shape))} "
                                      f"{sh.placements} on the card")
-        fa_rel = res["fa_err"] / max(res["fa_scale"], 1e-30)
-        log(f"{what}: first flash_attention call on its block "
-            f"{res['fa_block']}: max |out - attention_plain| "
-            f"{res['fa_err']:.3e} of max {res['fa_scale']:.3e} "
-            f"({fa_rel:.3e}, tolerance {FLOAT_TOL['float32']:g}); launches "
-            f"{json.dumps(res['launches'])}; ms a step {res['walls_ms']}; "
-            f"placed in {res['place_s']:.1f} s; peak "
-            f"{res['peak_gb']:.2f} GB")
-        if not fa_rel <= FLOAT_TOL["float32"]:
-            raise AssertionError(f"{what}: the kernel's block disagrees "
-                                 f"with attention_plain")
-        want_launches = 2 * TRAIN_MESH_LAYERS * TRAIN_MESH_STEPS
-        if res["launches"]["flash_attention"] != want_launches:
-            raise AssertionError(f"{what}: flash_attention launched "
-                                 f"{res['launches']['flash_attention']} "
-                                 f"times, want {want_launches}")
+        line = []
+        for kernel, n in want_launches.items():
+            if res["launches"][kernel] != n:
+                raise AssertionError(f"{who}: {kernel} launched "
+                                     f"{res['launches'][kernel]} times, "
+                                     f"want {n}")
+            k = res["kernels"].get(kernel)
+            if not n:
+                continue
+            rel = k["err"] / max(k["scale"], 1e-30)
+            line.append(f"{kernel} {n} times, its first call on the block "
+                        f"{k['block']} within {rel:.3e} of the plain "
+                        f"version")
+            if not rel <= FLOAT_TOL["float32"]:
+                raise AssertionError(f"{who}: {kernel}'s first call on its "
+                                     f"block disagrees with the plain "
+                                     f"version: {rel:.3e}")
+        if res["moe_all_reduces"] != want_moe:
+            raise AssertionError(f"{who}: the MoE all-reduced "
+                                 f"{res['moe_all_reduces']} times, want "
+                                 f"{want_moe}")
+        log(f"{who}: launched {'; '.join(line)} (tolerance "
+            f"{FLOAT_TOL['float32']:g}); MoE all-reduces "
+            f"{res['moe_all_reduces']}; ms a step "
+            f"{[round(x, 1) for x in res['walls_ms']]}; placed in "
+            f"{res['place_s']:.1f} s; peak {res['peak_gb']:.2f} GB allocated"
+            f" and {res['buffer_gb']:.2f} GB of collective buffers")
     grad_worst.sort(reverse=True)
-    log(f"[{tag}] step 1's gradient leaves over all ranks' blocks, max "
+    log(f"{what} step 1's gradient leaves over all ranks' blocks, max "
         f"|g - g_one| over max |g_one|, worst three: "
         f"{', '.join(f'{nm} {e:.3e}' for e, nm in grad_worst[:3])} "
         f"(tolerance {LEAF_TOL:g})")
-    # the parameter gate's reach: one block of a later step's gradient
-    # with the wrong sign, in the same one-process run
     del grads
-    *_, planted = one_process(TRAIN_MESH_PLANT)
-    plant_worst = max(float((a - b).abs().max())
-                      for a, b in zip(planted, final))
-    del planted
-    log(f"[{tag}] parameters after {TRAIN_MESH_STEPS} steps: max |p - "
-        f"p_one| {param_worst:.3e} (bound {TRAIN_MESH_PARAM_TOL:g}); "
-        f"{beyond} of {total} elements beyond 1e-6 "
-        f"({beyond / total:.3e}); with {TRAIN_MESH_PLANT[0]}'s step "
-        f"{TRAIN_MESH_PLANT[1]} gradient negated on one block of its first "
-        f"layer {plant_worst:.3e}; this process's peak "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    plant_worst = None
+    if plant is not None:
+        # the parameter gate's reach: one block of a later step's gradient
+        # with the wrong sign, in the same one-process run
+        *_, planted, _ = train_one_process(torch, mods, cfg, n_steps, dev,
+                                           plant)
+        plant_worst = max(float((a - b).abs().max())
+                          for a, b in zip(planted, final))
+        del planted
+    log(f"{what} parameters after {n_steps} steps: max |p - p_one| "
+        f"{param_worst:.3e} (bound {TRAIN_MESH_PARAM_TOL:g}); {beyond} of "
+        f"{total} elements beyond 1e-6 ({beyond / total:.3e})"
+        + (f"; with {plant[0]}'s step {plant[1]} gradient negated on one "
+           f"block of its first layer {plant_worst:.3e}" if plant else ""))
     if (not grad_worst[0][0] <= LEAF_TOL
             or not param_worst <= TRAIN_MESH_PARAM_TOL):
-        raise AssertionError(f"[{tag}] the sharded step's gradients or "
+        raise AssertionError(f"{what}: the sharded step's gradients or "
                              f"parameters differ from one process's")
-    if not plant_worst > TRAIN_MESH_PARAM_TOL:
-        raise AssertionError(f"[{tag}] the parameter gate cannot see a "
+    if plant is not None and not plant_worst > TRAIN_MESH_PARAM_TOL:
+        raise AssertionError(f"{what}: the parameter gate cannot see a "
                              f"wrong-sign gradient block")
     counts = [res["collectives"] for res in ranks]
     if any(c != counts[0] for c in counts) or not counts[0]["count"]:
-        raise AssertionError(f"[{tag}] the ranks' collectives differ or "
+        raise AssertionError(f"{what}: the ranks' collectives differ or "
                              f"are none: {counts}")
-    log(f"[{tag}] collectives a step a rank (launch/collectives.py, bytes "
-        f"a device): {json.dumps(counts[0])}")
+    log(f"{what} collectives of step 1 a rank (launch/collectives.py, "
+        f"bytes a device): {json.dumps(counts[0])}")
     for r, res in enumerate(ranks):
-        log(f"[{tag}] rank {r} collectives staged through host memory "
-            f"(calls, device bytes, host s): {json.dumps(res['staged'])}")
+        log(f"{what} rank {r} collectives staged through the group's "
+            f"buffers over the placing and the steps (calls, device bytes, "
+            f"host s): "
+            f"{json.dumps(res['staged'])}")
     step_ms = [statistics.median(res["walls_ms"][1:]) for res in ranks]
-    peak = [res["peak_gb"] for res in ranks]
+    out = {"launches": [{k: res["launches"][k] for k, n in
+                         want_launches.items() if n} for res in ranks],
+           "kernels": {k: ranks[0]["kernels"][k]
+                       for k, n in want_launches.items() if n},
+           "moe_all_reduces": want_moe, "collectives": counts[0],
+           "step_ms": step_ms, "one_ms": statistics.median(one_ms[1:]),
+           "peak_gb": [res["peak_gb"] for res in ranks],
+           "buffer_gb": [res["buffer_gb"] for res in ranks],
+           "one_peak_gb": one_peak, "param_worst": param_worst,
+           "plant_worst": plant_worst}
     del final
-    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_mesh(torch, mods, dev):
+    """Every family's train step over ranks: TRAIN_MESH_CASES on a
+    TRAIN_MESH_SHAPE (data, model) mesh of spawned ranks on the one card
+    (gloo, DTensor's collectives through buffers each group maps on the
+    card, ``parallel/peer_staged.py``), spawned once
+    for all cases: FSDP over "data", heads, mlp, experts' ff and vocab
+    over "model", ZeRO-1 moments, the batch over "data"; the parameters
+    drawn a leaf at a time by ``place_cell``, AdamW at TRAIN_OPT.  Each
+    case, once its ranks have written it, is held to the same model and
+    batch in one process on the card (a shard_map MoE routed block by
+    block, as each data rank routes), while the ranks wait: each step's
+    loss and grad norm within LOSS_TOL relative, step 1's gradient leaves
+    (the first timed step's own) within LEAF_TOL of each leaf's max |g|,
+    every parameter after the steps within TRAIN_MESH_PARAM_TOL, which one
+    planted wrong-sign gradient block (TRAIN_MESH_PLANT, in "dense") must
+    exceed; each rank's moments the blocks ``opt_state_specs`` gives, on
+    the card; each float kernel launched on every rank twice a step as
+    often as a prefill launches it (counts at 0 just before the steps),
+    its first call within FLOAT_TOL of its plain version on its block;
+    the shard_map MoE's all-reduce once a layer a step."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tag = "train_mesh"
+    t_phase = time.perf_counter()
+    require_free(torch, tag)
+    world = math.prod(TRAIN_MESH_SHAPE)
+    for name, (arch, cut, n_steps) in TRAIN_MESH_CASES.items():
+        cfg = train_mesh_cfg(mods, name)
+        n = sum(math.prod(t.shape) for t in
+                _leaves(mods.build_model(cfg).param_shapes()))
+        kernels, moe = train_mesh_want(mods, cfg, n_steps)
+        tokens = ("2 x 1500 frames and 2 x 64 tokens"
+                  if cfg.family == "encdec"
+                  else f"2 x {TRAIN_MESH_TOKENS} tokens")
+        log(f"[{tag}] {name}: {arch} at full width (d_model {cfg.d_model}, "
+            f"{_mesh_heads(cfg)}, d_ff {cfg.d_ff}, vocab {cfg.vocab}) cut to "
+            f"{cut}: {n:,} float32 parameters, {n * 16 / 1e9:.2f} GB with "
+            f"gradients and moments ({n * 16 / world / 1e9:.2f} GB a rank); "
+            f"{tokens} a step, {n_steps} steps; launches a rank by design "
+            f"{json.dumps({k: v for k, v in kernels.items() if v})}, MoE "
+            f"all-reduces {moe}")
+    log(f"[{tag}] {world} ranks on {torch.cuda.get_device_name(0)} as a "
+        f"{TRAIN_MESH_SHAPE} (data, model) mesh, gloo, spawned once")
+    ctx = mp.get_context("spawn")
+    go = [ctx.Event() for _ in TRAIN_MESH_CASES]
+    out = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_mesh_") as tmp:
+        work = pathlib.Path(tmp)
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, world, tmp, "train_mesh", go))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            for i, name in enumerate(TRAIN_MESH_CASES):
+                t_case = time.perf_counter()
+                notes = _await_case(procs, work, name,
+                                    time.monotonic() + TRAIN_MESH_LIMIT, tag)
+                t_ranks = time.perf_counter() - t_case
+                t1 = time.perf_counter()
+                # mapped, not read: the gates read each block once, from
+                # the page cache the ranks just wrote
+                ranks = [torch.load(work / f"rank{r}.{name}.pt", mmap=True)
+                         for r in range(world)]
+                t_load = time.perf_counter() - t1
+                written = [n["bytes"] for n in notes]
+                log(f"[{tag}] {name}: each rank wrote its gradient and "
+                    f"parameter blocks for the gates: "
+                    f"{[res['block_bytes'] for res in ranks]} B of blocks "
+                    f"in files of {written} B ({sum(written) / 1e9:.2f} GB "
+                    f"together), saved in "
+                    f"{[round(n['save_s'], 2) for n in notes]} s, mapped "
+                    f"here in {t_load:.2f} s")
+                out[name] = _train_mesh_gates(torch, mods, name, ranks, dev)
+                del ranks
+                for r in range(world):
+                    (work / f"rank{r}.{name}.pt").unlink()
+                release_memory(torch, tag)
+                seconds = time.perf_counter() - t_case
+                case = out[name]
+                case.update(ranks_s=t_ranks, io_bytes=sum(written),
+                            load_s=t_load, seconds=seconds)
+                held = case["peak_gb"] + case["buffer_gb"]
+                log(f"[{tag}] {name}: ms a step a rank (median of steps "
+                    f"2-{TRAIN_MESH_CASES[name][2]}) "
+                    f"{[round(x, 1) for x in case['step_ms']]}, one process "
+                    f"{case['one_ms']:.1f}; peak GB a rank "
+                    f"{[round(x, 2) for x in case['peak_gb']]} allocated and "
+                    f"{[round(x, 2) for x in case['buffer_gb']]} of buffers "
+                    f"({sum(held):.2f} together), one process "
+                    f"{case['one_peak_gb']:.2f}; case {seconds:.1f} s (ranks "
+                    f"{t_ranks:.1f} s)")
+                go[i].set()
+            for p in procs:
+                p.join(60)
+            bad = {r: p.exitcode for r, p in enumerate(procs)
+                   if p.exitcode != 0}
+            if bad:
+                raise AssertionError(f"[{tag}] ranks exited with codes "
+                                     f"{bad}")
+        except BaseException:
+            _rank_tails(procs, work, tag)
+            raise
     seconds = time.perf_counter() - t_phase
-    log(f"[{tag}] ms a step a rank (median of steps 2-"
-        f"{TRAIN_MESH_STEPS}): {step_ms}; peak GB a rank: {peak} "
-        f"({sum(peak):.2f} together); ranks {t_ranks:.1f} s; phase "
-        f"{seconds:.1f} s")
-    return {"launches": [res["launches"]["flash_attention"]
-                         for res in ranks],
-            "collectives": counts[0], "step_ms": step_ms, "peak_gb": peak,
-            "seconds": seconds}
+    log(f"[{tag}] ranks spawned to joined {time.perf_counter() - t0:.1f} s; "
+        f"phase {seconds:.1f} s")
+    return {"cases": out, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -1454,10 +1720,12 @@ def phase_train_mesh(torch, mods, dev):
 DECODE_MESH_SHAPE = (2, 2)  # (data, model)
 # name -> (arch, layers, batch, cache slots, prompt tokens, generated):
 # "serve" is decode_32k's layout (batch 4 of 128, a cache of 2048 slots of
-# 32,768), qwen1.5-4b at 8 of 40 layers (whole until the recurrent cases
-# came, 20 until the MoE and encoder-decoder ones: its steps a rank were
-# most of the phase, and the script's 1200 s limit is shared); "seq" long_500k's (batch 1, a cache of 64
-# slots of 524,288, 32 a data rank), gemma3-12b cut to one unit (5 local
+# 32,768), qwen1.5-4b at 4 of 40 layers (whole until the recurrent cases
+# came, 20 until the MoE and encoder-decoder ones, 8 until every family
+# trained in [train_mesh]: its steps a rank were most of the phase, and
+# the script's 1200 s limit is shared); "seq" long_500k's (batch 1, a
+# cache of 64 slots of 524,288, 32 a data rank), gemma3-12b cut to one
+# unit (5 local
 # layers and a global one): its 72 tokens cross from data rank 0's block
 # into rank 1's, wrap the local rings and clamp the global layer's write
 # at its last slot.  "serve" generates 4 tokens (16 picks over its batch),
@@ -1476,16 +1744,17 @@ DECODE_MESH_SHAPE = (2, 2)  # (data, model)
 # shard_map MoE routes each data rank's 2 tokens a step on their own (the
 # capacity from the block's tokens), one all-reduce over "model" a layer;
 # "encdec" whisper-large-v3 with its 32 encoder layers over 1500 frames
-# whole and 16 of its 32 decoder layers (whole, the script ran 1115 s of
-# phases on an H100 at 700 W, over the 1080 s it aims at) in the same
-# layout, its cross caches by batch and heads (zero, as the engine leaves
-# them; the prefill cell encodes frames drawn from a seed)
-DECODE_MESH_CASES = {"serve": ("qwen1.5-4b", 8, 4, 2048, 16, 4),
+# whole and 8 of its 32 decoder layers (whole, the script ran 1115 s of
+# phases on an H100 at 700 W, over the 1080 s it aimed at; 16 until every
+# family trained in [train_mesh], when it ran 1126.8 s, over 1110) in the
+# same layout, its cross caches by batch and heads (zero, as the engine
+# leaves them; the prefill cell encodes frames drawn from a seed)
+DECODE_MESH_CASES = {"serve": ("qwen1.5-4b", 4, 4, 2048, 16, 4),
                      "seq": ("gemma3-12b", 6, 1, 64, 40, 32),
                      "ssm": ("rwkv6-7b", 4, 4, 2048, 16, 4),
                      "hybrid": ("zamba2-7b", 6, 1, 64, 40, 32),
                      "moe": ("mixtral-8x7b", 2, 4, 2048, 16, 4),
-                     "encdec": ("whisper-large-v3", 16, 4, 2048, 16, 4)}
+                     "encdec": ("whisper-large-v3", 8, 4, 2048, 16, 4)}
 DECODE_MESH_LIMIT = 300.0  # seconds; a rank still running then is killed
 # every step's logits and every cache block against one process's, of
 # the max |value|: [train_mesh]'s bound for its blocks' products
@@ -1514,15 +1783,16 @@ def decode_mesh_batch(torch, cfg, prompts, dev):
 
 
 @contextlib.contextmanager
-def moe_blocks(torch, mods, cfg):
-    """In one process, a shard_map MoE config routed as on
-    DECODE_MESH_SHAPE: each MoE layer routes each data block of the batch
-    on its own (``apply_moe_spmd`` on the block, the capacity from its
-    tokens), as each data rank does; other configs as they are."""
+def moe_blocks(torch, mods, cfg, n):
+    """In one process, a shard_map MoE config routed as on a mesh of ``n``
+    data ranks: each MoE layer routes each of the batch's ``n`` blocks on
+    its own (``apply_moe_spmd`` on the block, the capacity from its
+    tokens; a batch ``n`` does not divide stays whole, as the data axes
+    drop), as each data rank does, aux the blocks' mean; other configs as
+    they are."""
     if cfg.family != "moe" or cfg.moe_impl != "shardmap":
         yield
         return
-    n = DECODE_MESH_SHAPE[0]
     whole = mods.lm.apply_moe
 
     def apply(cfg, p, x):
@@ -1538,10 +1808,10 @@ def moe_blocks(torch, mods, cfg):
         mods.lm.apply_moe = whole
 
 
-def _decode_mesh_rank_body(torch, dev):
+def _decode_mesh_rank_body(torch, dev, work):
     mods = load_modules()
     mesh = mods.make_device_mesh(DECODE_MESH_SHAPE, dev)
-    with mods.HostStaged() as staged:
+    with mods.PeerStaged() as staged:
         return {name: _decode_mesh_case(torch, mods, mesh, staged, name, dev)
                 for name in DECODE_MESH_CASES}
 
@@ -1695,29 +1965,10 @@ def _decode_mesh_case(torch, mods, mesh, staged, name, dev):
     pfn, pargs = mods.place_cell(
         cfg, mods.Shape("decode_mesh", plen, b, "prefill"), mesh,
         decode_mesh_batch(torch, cfg, prompts, dev))
-    first = {}
-
-    def record_first(kernel):
-        wrapper = _wrapper(mods, kernel)
-
-        def call(*args, **kw):
-            out = wrapper(*args, **kw)
-            if kernel not in first:
-                first[kernel] = ([a.clone() for a in args], kw, out.clone())
-            return out
-        return call
-
-    for kernel in FLOAT_KERNELS:
-        setattr(mods.blocks, FLOAT_KERNELS[kernel][1], record_first(kernel))
     _zero_kernel_counts(mods)
     t0 = time.perf_counter()
-    try:
-        with torch.no_grad():
-            prefill = pfn(*pargs).full_tensor().cpu()
-    finally:
-        for kernel in FLOAT_KERNELS:
-            setattr(mods.blocks, FLOAT_KERNELS[kernel][1],
-                    _wrapper(mods, kernel))
+    with torch.no_grad(), first_calls(mods) as first:
+        prefill = pfn(*pargs).full_tensor().cpu()
     t_prefill = time.perf_counter() - t0
     prefill_launches = _kernel_counts(mods)
     kernels = {}
@@ -1760,7 +2011,7 @@ def _one_process_decode(torch, mods, name, dev):
     params = model.init(0, device=dev)
     rec = DecodeRecorder(torch, mods, model)
     prefill = None
-    with moe_blocks(torch, mods, cfg):
+    with moe_blocks(torch, mods, cfg, DECODE_MESH_SHAPE[0]):
         generated = mods.DecodeEngine(model, params, mods.ServeConfig(
             max_seq=slots, batch=b), device=dev).generate(prompts, gen)
         if cfg.family in ("moe", "encdec"):
@@ -1780,7 +2031,8 @@ def _one_process_decode(torch, mods, name, dev):
 def phase_decode_mesh(torch, mods, dev):
     """The decode cell over ranks: DECODE_MESH_CASES on a
     DECODE_MESH_SHAPE (data, model) mesh of spawned ranks on the one card
-    (gloo, DTensor's collectives staged through host memory), each served
+    (gloo, DTensor's collectives through buffers each group maps on the
+    card, ``parallel/peer_staged.py``), each served
     by ``DecodeEngine.generate`` on parameters placed by ``place_cell``
     in ``build_cell``'s serve layout (no weight over "data"), its caches
     by ``cache_shardings``.  Held to the same model, weights and prompts
@@ -1820,21 +2072,8 @@ def phase_decode_mesh(torch, mods, dev):
         serve = all("data" not in str(sh.spec)
                     for sh in mods.leaves(in_sh[0]))
         k = mods.leaves(in_sh[1])[0]
-        heads = (f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
-                 f"{cfg.rwkv_head_dim}" if cfg.family == "ssm" else
-                 f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}")
-        if cfg.family == "hybrid":
-            heads += (f", {cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, "
-                      f"state {cfg.ssm_state}")
-        if cfg.family == "moe":
-            heads += (f", {cfg.n_experts} experts of d_ff "
-                      f"{cfg.expert_d_ff}, top {cfg.top_k}, moe_impl "
-                      f"{cfg.moe_impl} ({cfg.moe_strategy})")
-        if cfg.family == "encdec":
-            heads += (f", {cfg.n_enc_layers} encoder layers over "
-                      f"{cfg.enc_seq} frames")
         log(f"[{tag}] {name}: {arch} at full width (d_model "
-            f"{cfg.d_model}, {heads}, vocab {cfg.vocab}), {layers} of "
+            f"{cfg.d_model}, {_mesh_heads(cfg)}, vocab {cfg.vocab}), {layers} of "
             f"{mods.ARCHS[arch].n_layers} layers, {cfg.n_params():,} "
             f"float32 parameters; batch {b}, {slots} cache slots, a "
             f"{plen}-token prompt and {gen} generated; build_cell's layout: "
@@ -1989,8 +2228,8 @@ def phase_decode_mesh(torch, mods, dev):
         per = {k: [statistics.median(s.get(k, (0, 0, 0))[i]
                                      for s in r0["staged"])
                    for i in range(3)] for k in kinds}
-        log(f"{what}: staged through host memory a step on rank 0 (median "
-            f"calls, device bytes, host s): {json.dumps(per)}")
+        log(f"{what}: staged through the groups' buffers a step on rank 0 "
+            f"(median calls, device bytes, host s): {json.dumps(per)}")
         step_ms = [statistics.median(res["ms"]) for res in got]
         stages = [tuple(round(res[k], 2) for k in ("place_s", "decode_s",
                                                     "prefill_s"))
@@ -4137,19 +4376,28 @@ def band_mask(torch, sq, sk, causal, window, dev):
     return ok
 
 
-def fa_times(torch, mods, dev, cases, tag, seed):
-    """``flash_attention`` in bf16 at each of ``cases`` (FA_CASES rows;
-    CUDA events, median of 10) beside its bound (``fa_visible_pairs`` at
-    989 TFLOP/s against the bytes of q, k, v and the output at 3.35 TB/s)
-    and one ``scaled_dot_product_attention`` call on the same inputs: with
-    ``is_causal`` where a causal mask without a window aligns the same, else
-    with the boolean band mask (``band_mask``), held to the kernel's output
-    within the bf16 tolerance so that it computes the same function."""
+def fa_times(torch, mods, dev, cases, tag, seed, dtype=None):
+    """``flash_attention`` in ``dtype`` (bf16 unless given) at each of
+    ``cases`` (FA_CASES rows; CUDA events, median of 10) beside its bound
+    (``fa_visible_pairs`` at 989 TFLOP/s in bf16 on the tensor cores, at
+    67 TFLOP/s in float32 on the CUDA cores, against the bytes of q, k, v
+    and the output at 3.35 TB/s) and one ``scaled_dot_product_attention``
+    call on the same inputs (in float32 with TF32 off, as ``main`` sets
+    it): with ``is_causal`` where a causal mask without a window aligns the
+    same, else with the boolean band mask (``band_mask``), held to the
+    kernel's output within the dtype's tolerance so that it computes the
+    same function."""
     F = torch.nn.functional
+    dtype = dtype or torch.bfloat16
+    dname = str(dtype).split(".")[-1]
+    flops_per_s = (F32_CUDA_CORE_FLOPS_PER_S if dtype == torch.float32
+                   else BF16_FLOPS_PER_S)
+    if dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 attention timed with TF32 on")
     out = {}
     for i, case in enumerate(cases):
         label, b, hq, hkv, sq, sk, d, causal, window = case
-        (q, k, v), kw = fa_inputs(torch, case, torch.bfloat16, seed + i, dev)
+        (q, k, v), kw = fa_inputs(torch, case, dtype, seed + i, dev)
         ms = cuda_ms(torch, lambda: mods.fa_ops.flash_attention(q, k, v,
                                                                 **kw), 10)
         if causal and window is None and sq == sk:
@@ -4164,18 +4412,18 @@ def fa_times(torch, mods, dev, cases, tag, seed):
             q, k, v, enable_gqa=hq != hkv, **lib_kw)
         FloatAgreement().add(lib(), mods.fa_ops.flash_attention(q, k, v,
                                                                 **kw),
-                             FLOAT_TOL["bfloat16"],
+                             FLOAT_TOL[dname],
                              f"scaled_dot_product_attention ({how}) "
-                             f"against the kernel, {label}", tag=tag)
+                             f"against the kernel, {label} {dname}", tag=tag)
         lib_ms = cuda_ms(torch, lib, 10)
         flops = 4 * d * fa_visible_pairs(sq, sk, causal, window) * b * hq
-        nbytes = (2 * b * hq * sq + 2 * b * hkv * sk) * d * 2
-        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        nbytes = (2 * b * hq * sq + 2 * b * hkv * sk) * d * q.element_size()
+        t_ops, t_bytes = flops / flops_per_s, nbytes / HBM_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
         out[label] = dict(ms=ms, bound_ms=bound, library_ms=lib_ms,
                           bound_by="bytes" if t_bytes >= t_ops
                           else "operations")
-        log(f"[{tag}] flash_attention bf16 {label} ({b}, {hq}/{hkv}, "
+        log(f"[{tag}] flash_attention {dname} {label} ({b}, {hq}/{hkv}, "
             f"Sq {sq}, Sk {sk}, {d}) causal={causal} window {window}: "
             f"{ms:.6f} ms a call (cuda events), bound {bound:.6f} ms "
             f"({out[label]['bound_by']}: {flops} flop, {nbytes} B), "
@@ -4471,6 +4719,26 @@ def fa_visible_pairs(sq, sk, causal, window):
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def ssd_work(case, elem):
+    """(flop, bytes) of one SSD call at SSD_CASES row ``case`` with
+    ``elem``-byte x, dt, B, C and output (A in float32)."""
+    _, b, t, h, p, g, n = case
+    # per (b, t, h): decay * S + B (dt x) and C^T S over N x P, dt x
+    return ((5 * n * p + p) * b * t * h,
+            (2 * b * t * h * p + b * t * h + 2 * b * t * g * n) * elem
+            + 4 * h)
+
+
+def wkv_work(case, elem):
+    """(flop, bytes) of one WKV call at WKV_CASES row ``case`` with
+    ``elem``-byte r, k, v, w and output (u in float32)."""
+    _, b, h, t, dk, dv, _ = case
+    # per (b, h, t): k v^T, u (k v^T), S + that, times r, the sum over K,
+    # then w S + k v^T: 7 K V
+    return (7 * dk * dv * b * h * t,
+            (3 * b * h * t * dk + 2 * b * h * t * dv) * elem + 4 * h * dk)
+
+
 def phase_model_timings(torch, mods, dev, prefill_per_launch):
     """Each float kernel at its model's prefill shape in bf16 (CUDA
     events, median after warm-up), its bound, its plain version and the
@@ -4504,19 +4772,15 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
 
     case = SSD_CASES[0]
     x, dt, A, Bm, Cm = ssd_inputs(torch, case, torch.bfloat16, 8, dev)
-    _, b, t, h, p, g, n = case
     call = lambda: mods.ssd_ops.ssd(x, dt, A, Bm, Cm)
+    flops, nbytes = ssd_work(case, 2)
     out["mamba2_ssd"] = dict(
-        shape=f"(B, T, H, P, G, N) = ({b}, {t}, {h}, {p}, {g}, {n}) bf16",
+        shape=f"(B, T, H, P, G, N) = {tuple(case[1:])} bf16",
         event_ms=cuda_ms(torch, call, 20),
         device_ms=prefill_per_launch.get("mamba2_ssd"),
         plain_ms=cuda_ms(torch, lambda: mods.ssd_ops.ssd_plain(
             x, dt, A, Bm, Cm), 2, warmup=1),
-        library_ms=None,
-        # per (b, t, h): decay * S + B (dt x) and C^T S over N x P, dt x
-        flops=(5 * n * p + p) * b * t * h,
-        bytes=(2 * b * t * h * p + b * t * h + 2 * b * t * g * n) * 2
-        + 4 * h)
+        library_ms=None, flops=flops, bytes=nbytes)
     xf, dtf, Bf, Cf = (a.float() for a in (x, dt, Bm, Cm))
     f32_ms = cuda_ms(torch, lambda: mods.ssd_ops.ssd(xf, dtf, A, Bf, Cf), 10)
     log(f"[time] mamba2_ssd float32 at the same shape: {f32_ms:.4f} ms a "
@@ -4525,20 +4789,16 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
 
     case = WKV_CASES[0]
     r, kk, vv, w, u = wkv_inputs(torch, case, torch.bfloat16, 9, dev)
-    _, b, h, t, dk, dv, _ = case
     call = lambda: mods.wkv_ops.wkv6(r, kk, vv, w, u)
+    flops, nbytes = wkv_work(case, 2)
     out["rwkv6_wkv"] = dict(
-        shape=f"(B, H, T, K, V) = ({b}, {h}, {t}, {dk}, {dv}) bf16",
+        shape=f"(B, H, T, K, V) = {tuple(case[1:6])} bf16",
         event_ms=cuda_ms(torch, call, 20),
         device_ms=prefill_per_launch.get("rwkv6_wkv"),
         plain_ms=cuda_ms(torch, lambda: mods.wkv_ops.wkv6_plain(
             r, kk, vv, w, u), 2, warmup=1),
         # no single PyTorch call computes the recurrence
-        library_ms=None,
-        # per (b, h, t): k v^T, u (k v^T), S + that, times r, the sum over
-        # K, then w S + k v^T: 7 K V
-        flops=7 * dk * dv * b * h * t,
-        bytes=(3 * b * h * t * dk + 2 * b * h * t * dv) * 2 + 4 * h * dk)
+        library_ms=None, flops=flops, bytes=nbytes)
     f32 = [a.float() for a in (r, kk, vv, w)]
     f32_ms = cuda_ms(torch, lambda: mods.wkv_ops.wkv6(*f32, u), 10)
     log(f"[time] rwkv6_wkv float32 at the same shape: {f32_ms:.4f} ms a "
@@ -4568,6 +4828,56 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
             f"{r['ms'] / r['bound_ms']:.2f}x the bound), plain "
             f"{r['plain_ms']:.6f} ms, library {lib}")
     return out
+
+# float32, the type of training and of every mesh phase (the kernels'
+# ``*_kernel_f32`` paths, on the CUDA cores), at the shapes those paths
+# give the kernels in one process: attention (label, B, Hq, Hkv, Sq, Sk,
+# D, causal, window) as FA_CASES, the SSD as SSD_CASES, the WKV as
+# WKV_CASES
+F32_FA_SHAPES = [
+    ("zamba2-7b train", 2, 32, 32, 1024, 1024, 112, True, None),
+    ("qwen1.5-4b train", 2, 20, 20, 1024, 1024, 128, True, None),
+    ("whisper encoder", 2, 20, 20, 1500, 1500, 64, False, None),
+]
+F32_SSD_SHAPE = ("zamba2-7b train", 2, 1024, 112, 64, 1, 64)
+F32_WKV_SHAPE = ("rwkv6-7b train", 2, 64, 1024, 64, 64, "moderate")
+
+
+def phase_float32_times(torch, mods, dev):
+    """The float kernels in float32 in one process (CUDA events): each
+    F32_FA_SHAPES row by ``fa_times`` beside its bound and SDPA, and the
+    SSD at F32_SSD_SHAPE and the WKV at F32_WKV_SHAPE beside their bounds
+    (bytes at 3.35 TB/s against operations at 67 TFLOP/s, the CUDA
+    cores' float32 rate) and their plain versions."""
+    tag = "time_f32"
+    out = {"flash_attention": fa_times(torch, mods, dev, F32_FA_SHAPES, tag,
+                                       95, dtype=torch.float32)}
+    for name, case, make, work, seed in (
+            ("mamba2_ssd", F32_SSD_SHAPE, ssd_inputs, ssd_work, 96),
+            ("rwkv6_wkv", F32_WKV_SHAPE, wkv_inputs, wkv_work, 97)):
+        args = make(torch, case, torch.float32, seed, dev)
+        kernel, plain = _wrapper(mods, name), _plain(mods, name)
+        FloatAgreement().add(kernel(*args), plain(*args), FLOAT_TOL["float32"],
+                             f"{name} {case[0]} {tuple(case[1:])} float32",
+                             relative=True, tag=tag)
+        ms = cuda_ms(torch, lambda: kernel(*args), 20)
+        plain_ms = cuda_ms(torch, lambda: plain(*args), 2, warmup=1)
+        flops, nbytes = work(case, 4)
+        t_ops = flops / F32_CUDA_CORE_FLOPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        out[name] = {case[0]: dict(
+            ms=ms, bound_ms=bound, plain_ms=plain_ms, library_ms=None,
+            bound_by="bytes" if t_bytes >= t_ops else "operations")}
+        log(f"[{tag}] {name} float32 {case[0]} {tuple(case[1:])}: {ms:.6f} "
+            f"ms a call (cuda events), bound {bound:.6f} ms "
+            f"({out[name][case[0]]['bound_by']}: {flops} flop at 67 "
+            f"TFLOP/s {t_ops * 1e3:.6f} ms, {nbytes} B {t_bytes * 1e3:.6f} "
+            f"ms), {ms / bound:.2f}x the bound; plain {plain_ms:.3f} ms")
+        del args
+    torch.cuda.empty_cache()
+    return out
+
 
 # ---------------------------------------------------------------------------
 # [train], [train_rwkv6]: an ARCH at full width cut in depth, trained under
@@ -5155,9 +5465,10 @@ def release_memory(torch, tag):
 # the peak memory allocated of each large phase, measured on an H100 80GB
 # HBM3 at 700 W (PERF.md section 5) and rounded up: a card with less free
 # than that fails the phase up front and says so ("train_mesh" and
-# "decode_mesh": their four ranks' peaks together)
-PEAK_GB = {"train": 32.8, "train_rwkv6": 51.2, "train_mixtral": 77.1,
-           "train_whisper": 31.3, "kimi": 79.3, "train_mesh": 37.0,
+# "decode_mesh": the most of a case's four ranks' peaks together, their
+# collective buffers included, and its one-process run's)
+PEAK_GB = {"train": 32.8, "train_rwkv6": 35.4, "train_mixtral": 77.1,
+           "train_whisper": 31.3, "kimi": 79.3, "train_mesh": 57.4,
            "decode_mesh": 43.0}
 
 
@@ -5570,7 +5881,7 @@ def load_modules():
     from repro_torch.obs import FlightRecorder, flight_guard
     from repro_torch.optim import adamw
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.parallel.host_staged import HostStaged
+    from repro_torch.parallel.peer_staged import PeerStaged
     from repro_torch.parallel.sharding import MeshShape, use_mesh
     from repro_torch.reconfig import catchup
     from repro_torch.serve import loadgen
@@ -5602,7 +5913,7 @@ def load_modules():
         TrainConfig=TrainConfig, train=train, build=_build,
         dryrun=dryrun, roofline=roofline, use_mesh=use_mesh,
         steps=steps, place_cell=place_cell, make_device_mesh=make_device_mesh,
-        HostStaged=HostStaged, CollectiveCounter=CollectiveCounter,
+        PeerStaged=PeerStaged, CollectiveCounter=CollectiveCounter,
         MeshShape=MeshShape, drivers=load_drivers())
 
 
@@ -5674,6 +5985,7 @@ def main(argv=None) -> int:
         torch, mods, dev,
         {**prefill["per_launch_ms"], **rwkv_prefill["per_launch_ms"]}))
     zoo_times = fa_times(torch, mods, dev, ZOO_FA_SHAPES, "time", 90)
+    f32_times = phase_float32_times(torch, mods, dev)
     trained = phase_train(torch, mods, dev, TRAIN)
     trained_rwkv6 = phase_train(torch, mods, dev, TRAIN_RWKV6,
                                 split=trained["split"])
@@ -5746,12 +6058,19 @@ def main(argv=None) -> int:
         "whisper_prefill": zoo["whisper"]["flash_attention"],
         "whisper_decode_step": zoo["whisper_decode"],
         "mixtral_shardmap_prefill": parallel["flash_attention"]}
-    # [train_mesh]'s steps, on each rank's block
-    fa["train_mesh_launches"] = train_mesh["launches"]
-    # [decode_mesh]'s prefill cells on the mesh, on each rank's block:
-    # each float kernel's launches a rank by case, and rank 0's first call
-    # (its block, its error against the plain version, ms a call)
+    # [train_mesh]'s steps and [decode_mesh]'s prefill cells on the mesh,
+    # on each rank's block: each float kernel's launches a rank by case,
+    # and its first call (its block, its error against the plain version;
+    # [decode_mesh]'s rank 0 also ms a call)
     for k in kernels:
+        cases = {c: [r[k["name"]] for r in res["launches"]]
+                 for c, res in train_mesh["cases"].items()
+                 if k["name"] in res["launches"][0]}
+        if cases:
+            k["train_mesh_launches"] = cases
+            k["train_mesh_first_call"] = {
+                c: train_mesh["cases"][c]["kernels"][k["name"]]
+                for c in cases}
         cases = {c: [r[k["name"]] for r in per]
                  for c, per in decode_mesh["launches"].items()
                  if k["name"] in per[0]}
@@ -5786,6 +6105,11 @@ def main(argv=None) -> int:
         "bf16_prefill": kimi["bf16"]["launches"]["flash_attention"]}
     fa["kimi_bf16_ms"] = kimi["bf16"]["per_launch_ms"].get("flash_attention")
     fa["bf16_shape_ms"] = {**dense["times"], **zoo_times}
+    # float32, the train and mesh paths' type, at their shapes in one
+    # process: each beside its bound (and SDPA for attention)
+    for k in kernels:
+        if k["name"] in f32_times:
+            k["f32_shape_ms"] = f32_times[k["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

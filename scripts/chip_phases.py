@@ -5,7 +5,8 @@ Imports ``chip_smoke.py`` and ``src/`` of the tree given by ``--tree``
 (default: this script's own tree), builds the kernels (``[build]``) and
 runs the named phases in order, each as the whole script runs it, and
 prints what each returned and its seconds.  The phases that take only the
-card (``train_mesh``, ``decode_mesh``) are the ones it can run::
+card (``train_mesh``, ``decode_mesh``, ``float32_times``) are the ones it
+can run::
 
     python3 scripts/chip_phases.py decode_mesh
     python3 scripts/chip_phases.py --tree build/parent train_mesh
@@ -26,7 +27,8 @@ ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ap.add_argument("--tree", type=pathlib.Path,
                 default=pathlib.Path(__file__).resolve().parents[1],
                 help="root of the tree whose chip_smoke.py and src/ run")
-ap.add_argument("phases", nargs="+", choices=("train_mesh", "decode_mesh"))
+ap.add_argument("phases", nargs="+",
+                choices=("train_mesh", "decode_mesh", "float32_times"))
 # parsed where the module loads: spawned ranks import it again, with the
 # same arguments, and must find the same tree first on their path
 ARGS = ap.parse_args()

@@ -49,6 +49,12 @@ ENTRY_POINTS = {
     # r, k, v, w, u, y, batch, H, T, K, V, dtype, stream
     "rwkv6_wkv_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                          _I64, _I64, _P],
+    # the ranks of one card's shared buffers (parallel/peer_staged.py):
+    # nbytes, out pointer, out handle; handle, out pointer; pointer
+    "peer_buffer_alloc": [_I64, _P, _P],
+    "peer_buffer_open": [_P, _P],
+    "peer_buffer_close": [_P],
+    "peer_buffer_free": [_P],
 }
 
 # Element type codes the float kernels take (``enum DType`` in

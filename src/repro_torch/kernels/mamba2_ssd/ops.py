@@ -19,12 +19,16 @@ in float32), float32 inputs the sequential scan on the CUDA cores.  :func:`ssd_d
 is one step of the recurrence, plain PyTorch on every device, as the
 reference's ``ssd_decode_ref``.
 
-Its gradient is the reference's ``custom_vjp`` backward
-(``repro/kernels/mamba2_ssd/ops.py:14-29``): ``ssd`` is a
-``torch.autograd.Function`` whose backward recomputes :func:`ssd_plain`
-from the saved inputs (:func:`repro_torch.kernels._grad.plain_vjp`); there
-is no backward kernel.  That recompute is the sequential scan's graph: one
-``[B, H, N, P]`` float32 state a step is kept for the call's backward.
+Its gradient follows the reference's ``custom_vjp`` backward
+(``repro/kernels/mamba2_ssd/ops.py:14-29``), which recomputes the plain
+function from the saved inputs: ``ssd`` is a ``torch.autograd.Function``
+whose backward recomputes it (:func:`repro_torch.kernels._grad.plain_vjp`);
+there is no backward kernel.  It recomputes :func:`ssd_chunked`, the same
+function by the chunked dual form, rather than the scan: the scan's graph
+is seven small operations a step (about 25,000 launches a call at a
+1024-step train shape, a second of host time, and one ``[B, H, N, P]``
+state a step kept), the chunked form's a few dozen a chunk; their
+gradients agree within 2e-5 of their max (``tests/test_torch_ssd.py``).
 """
 
 from __future__ import annotations
@@ -59,6 +63,62 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not ys:
         return torch.empty_like(x)
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """a [..., L] -> s [..., L, L] with s[..., t, u] = a[u+1] + ... + a[t]
+    for u <= t (each sum over its own terms, so no difference of two long
+    running sums loses digits) and -inf above the diagonal."""
+    n = a.shape[-1]
+    below = torch.ones((n, n), dtype=torch.bool, device=a.device).tril(-1)
+    s = a[..., :, None].expand(*a.shape, n).masked_fill(~below, 0.0)
+    s = s.cumsum(-2)
+    return s.masked_fill(~below.logical_or(
+        torch.eye(n, dtype=torch.bool, device=a.device)), float("-inf"))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor,
+                chunk: int = 64) -> torch.Tensor:
+    """:func:`ssd_plain`'s function by the chunked dual form, in float32
+    (the kernel's bfloat16 algebra): within each chunk of ``chunk`` steps
+    y_t = sum over u <= t of exp(a_u+1 + ... + a_t) (C_t . B_u) dt_u x_u
+    plus C_t^T decayed from the state entering the chunk, and the state
+    carried from chunk to chunk.  Its graph has a few dozen operations a
+    chunk where the scan's has seven a step, so the kernels' backward
+    recomputes it (:class:`_SSD`)."""
+    b, t, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    nc = -(-t // chunk)
+    pad = nc * chunk - t             # steps with dt = 0: no decay, no input
+
+    def chunks(v):
+        v = torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2) + (0, pad))
+        return v.reshape(b, nc, chunk, *v.shape[2:])
+
+    xf, dtf = chunks(x.float()), chunks(dt.float())       # [b,c,l,h,(p)]
+    Bf = chunks(Bm.float().repeat_interleave(rep, dim=2))  # [b,c,l,h,n]
+    Cf = chunks(Cm.float().repeat_interleave(rep, dim=2))
+    a = (dtf * A.float()).permute(0, 1, 3, 2)              # [b,c,h,l]
+    seg = torch.exp(_segsum(a))                            # [b,c,h,t,u]
+    w = torch.einsum("bcthn,bcuhn->bchtu", Cf, Bf) * seg
+    xd = xf * dtf[..., None]                               # dt_u x_u
+    y = torch.einsum("bchtu,bcuhp->bcthp", w, xd)
+    # each chunk's state from zero, and the state entering each chunk
+    to_end = seg[:, :, :, -1, :]                           # [b,c,h,u]
+    S = torch.einsum("bcuhn,bcuhp->bchnp",
+                     Bf * to_end.permute(0, 1, 3, 2)[..., None], xd)
+    whole = to_end[..., 0] * torch.exp(a[..., 0])          # [b,c,h]
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = whole[:, c, :, None, None] * state + S[:, c]
+    from_start = torch.exp(a.cumsum(-1))                   # [b,c,h,t]
+    y = y + torch.einsum("bcthn,bcht,bchnp->bcthp", Cf, from_start,
+                         torch.stack(entering, 1))
+    return y.reshape(b, nc * chunk, h, p)[:, :t].to(x.dtype)
 
 
 def ssd_decode(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -149,8 +209,8 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        return plain_vjp(ssd_plain, ctx.saved_tensors, ctx.needs_input_grad,
-                         grad_out)
+        return plain_vjp(ssd_chunked, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad_out)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -158,7 +218,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Mamba2 SSD token mixing -> y [B,T,H,P] in x's dtype.  CPU:
     :func:`ssd_plain`; CUDA: the kernel (x, dt, Bm, Cm of one dtype,
     float32 or bfloat16; A is read as float32).  The gradient recomputes
-    :func:`ssd_plain` (A's sums over the batch)."""
+    :func:`ssd_chunked` (A's sums over the batch)."""
     _check(x, dt, A, Bm, Cm)
     return _SSD.apply(x, dt, A, Bm, Cm)
 

@@ -37,8 +37,8 @@ def make_device_mesh(shape: Union[MeshShape, Tuple[int, int]],
     """The live ``DeviceMesh`` of ``shape`` (a ``MeshShape``, with its axis
     names, or the (data, model) sizes) over every rank of the initialised
     process group, on ``device``'s type (``None`` means ``"cuda"``).  Over
-    a gloo group on the card, run DTensor's collectives under
-    ``repro_torch.parallel.host_staged.HostStaged``."""
+    a gloo group of ranks on one card, run DTensor's collectives under
+    ``repro_torch.parallel.peer_staged.PeerStaged``."""
     if not dist.is_initialized():
         raise RuntimeError("make_device_mesh needs an initialised process "
                            "group (torch.distributed.init_process_group)")

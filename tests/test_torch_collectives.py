@@ -3,7 +3,8 @@ known redistributions over 4 gloo ranks, held to the reference's
 ``collective_bytes`` of the same redistributes jitted over 4 XLA host
 devices (``tests/torch_collectives_ref.py``, a fresh subprocess), the step
 at a 1 x 1 mesh, and the dry run's ``--collectives`` at 16 x 16;
-``parallel/host_staged.py``'s staging on the same redistributions; the
+``parallel/host_staged.py``'s and ``parallel/peer_staged.py``'s staging
+on the same redistributions; the
 DTensor helpers of ``parallel/sharding.py`` on plain tensors.
 
 Ranks are spawned by ``tests/torch_ranks.py`` (bodies in
@@ -28,6 +29,7 @@ from repro_torch.configs.shapes import SHAPES
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.collectives import KEYS, collective_kind
 from repro_torch.models.registry import build_model
+from repro_torch.parallel import peer_staged
 from repro_torch.parallel.sharding import (
     MeshShape, NamedSharding, replicate_like, shard, spec_map,
 )
@@ -101,6 +103,29 @@ def test_host_staged_collectives_give_the_same_values(redistributed, case):
         assert sum(got["staged"].values()) >= 1
         assert all(k.startswith("_c10d_functional")
                    or k.startswith("_dtensor") for k in got["staged"])
+
+
+@pytest.mark.parametrize("case", sorted(set(REDISTRIBUTES)
+                                        - {"c10d_all_reduce"}))
+def test_peer_staged_collectives_give_the_same_values(redistributed, case):
+    """The same redistributes through ``parallel/peer_staged.py``'s
+    buffers (files mapped shared, for CPU tensors) give the same values,
+    each through the peer path."""
+    for rank in redistributed:
+        got = rank[f"peer/{case}"]
+        assert got["right"]
+        assert sum(got["staged"].values()) >= 1
+        assert set(got["staged"]) <= set(peer_staged._PEER)
+
+
+def test_peer_buffers_follow_inputs_that_grow_and_shrink(redistributed):
+    """A group's buffers grow past an input that outgrows them (the peers
+    map each new generation), serve smaller inputs after, and carry an
+    int64 and a 0-d sum bit for bit."""
+    for rank in redistributed:
+        got = rank["peer/growing"]
+        assert len(got["right"]) == 16 and all(got["right"])
+        assert set(got["staged"]) == set(peer_staged._PEER)
 
 
 @pytest.mark.parametrize("name,kind", [

@@ -54,7 +54,6 @@ Tolerances (float32), PR 29's:
   gradients agree as they are.
 """
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -71,7 +70,7 @@ from repro.configs.archs import SMOKE as REF_SMOKE
 from repro.models.registry import build_model as ref_build_model
 from repro_torch.configs.archs import SMOKE
 from repro_torch.launch import steps
-from repro_torch.models import blocks, lm
+from repro_torch.models import blocks
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.registry import build_model
 from repro_torch.parallel.sharding import MeshShape
@@ -80,6 +79,7 @@ from repro_torch.tree import leaves
 
 import torch_mesh_ranks
 import torch_ranks
+from torch_mesh_ranks import blockwise
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF_TIMEOUT = 300
@@ -152,30 +152,6 @@ def _perturbed(arch):
         ref.init(jax.random.PRNGKey(0))[0])
     return (jax.tree.leaves(tree),
             params_from_reference(SMOKE[arch], tree, device="cpu"))
-
-
-@contextlib.contextmanager
-def blockwise(n, auxes=None):
-    """The shard_map path's semantics in one process: each MoE layer
-    routes each of ``n`` batch blocks on its own (``apply_moe_spmd`` on
-    the block, its capacity from the block's tokens; a batch ``n`` does
-    not divide stays whole, as the data axes drop), aux the blocks' mean;
-    each layer's block auxes appended to ``auxes``."""
-    whole = lm.apply_moe
-
-    def apply(cfg, p, x):
-        k = n if x.shape[0] % n == 0 else 1
-        ys, aux = zip(*[blocks.apply_moe_spmd(cfg, p, c)
-                        for c in x.chunk(k)])
-        if auxes is not None:
-            auxes.append([float(a) for a in aux])
-        return torch.cat(ys), torch.stack(aux).mean()
-
-    lm.apply_moe = apply
-    try:
-        yield
-    finally:
-        lm.apply_moe = whole
 
 
 def _one_blocks(variant, mesh):

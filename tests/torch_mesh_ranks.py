@@ -1,7 +1,8 @@
 """Rank bodies of the port's sharded serve path, multi-rank MoE
 gradients, sharded train step, sharded decode cell, the recurrent, MoE
-and encoder-decoder families' cells and the collective counter, for
-``tests/torch_ranks.py``'s ``run_ranks`` (imports no JAX).
+and encoder-decoder families' cells and train steps and the collective
+counter, for ``tests/torch_ranks.py``'s ``run_ranks`` (imports no JAX),
+and :func:`blockwise`, the shard_map MoE's routing in one process.
 
 :data:`WORKLOADS` and :func:`run_workload` are shared with the reference's
 side, ``tests/torch_serve_mesh_ref.py``, which drives the same clusters
@@ -562,13 +563,103 @@ def cells_mesh_rank(rank, world, case_path):
     return out
 
 
+@contextlib.contextmanager
+def blockwise(n, auxes=None):
+    """The shard_map MoE's semantics in one process: each MoE layer
+    routes each of ``n`` batch blocks on its own (``apply_moe_spmd`` on
+    the block, its capacity from the block's tokens; a batch ``n`` does
+    not divide stays whole, as the data axes drop), aux the blocks' mean;
+    each layer's block auxes appended to ``auxes``."""
+    from repro_torch.models import blocks, lm
+
+    whole = lm.apply_moe
+
+    def apply(cfg, p, x):
+        k = n if x.shape[0] % n == 0 else 1
+        ys, aux = zip(*[blocks.apply_moe_spmd(cfg, p, c)
+                        for c in x.chunk(k)])
+        if auxes is not None:
+            auxes.append([float(a.detach()) for a in aux])
+        return torch.cat(ys), torch.stack(aux).mean()
+
+    lm.apply_moe = apply
+    try:
+        yield
+    finally:
+        lm.apply_moe = whole
+
+
+def train_families_rank(rank, world, case_path):
+    """For each arch of ``case["cells"]`` (a config, whole parameters,
+    each step's batch: tokens [steps, B, S] and an encoder-decoder's
+    frames [steps, B, Se, d]): the train cell placed by
+    ``launch/steps.place_cell`` on a (data, model) mesh of
+    ``case["mesh"]`` and one ``make_train_step`` AdamW step at
+    ``case["opt"]`` on each batch, under ``PeerStaged`` for CPU tensors
+    (the card's path: every collective through its table, the functional
+    ones through buffers the group maps) with step 1's collectives
+    counted: each step's loss and grad norm, what was staged, every
+    moment's layout; rank 0 keeps the whole parameters after the steps."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import steps
+    from repro_torch.launch.collectives import CollectiveCounter
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.peer_staged import PeerStaged
+    from repro_torch.parallel.sharding import distribute
+    from repro_torch.tree import leaves
+
+    torch.set_num_threads(1)
+    case = torch.load(case_path)
+    mesh = make_device_mesh(tuple(case["mesh"]), "cpu")
+    out = {}
+    for arch, c in case["cells"].items():
+        cfg = ModelConfig(**c["cfg"])
+        batches = c["batches"]
+        b, s = batches["tokens"].shape[1:]
+        first = {k: v[0] for k, v in batches.items()}
+        fn, (p, o, _) = steps.place_cell(
+            cfg, Shape("train", s, b, "train"), mesh, first,
+            params=c["params"], opt_cfg=adamw.AdamWConfig(**case["opt"]))
+        b_shard = steps.batch_shardings(
+            {k: (tuple(v.shape), v.dtype) for k, v in first.items()}, mesh)
+        res = {"coord": tuple(mesh.get_coordinate()), "losses": [],
+               "grad_norms": []}
+        with PeerStaged("cpu") as staged:
+            for i in range(batches["tokens"].shape[0]):
+                batch = distribute({k: v[i] for k, v in batches.items()},
+                                   b_shard, mesh)
+                if i == 0:
+                    with CollectiveCounter() as counter:
+                        p, o, m = fn(p, o, batch)
+                    res["collectives"] = counter.result()
+                else:
+                    p, o, m = fn(p, o, batch)
+                res["losses"].append(_full(m["loss"]))
+                res["grad_norms"].append(_full(m["grad_norm"]))
+        res["staged"] = dict(staged.ops)
+        res["step"] = _full(o.step)
+        res["moments"] = [(tuple(t.to_local().shape), str(t.placements),
+                           t.to_local().device.type, str(t.dtype))
+                          for t in leaves(o.m) + leaves(o.v)]
+        whole = [_full(t) for t in leaves(p)]
+        res["params"] = whole if rank == 0 else None
+        out[arch] = res
+    return out
+
+
 def redistribute_rank(rank, world):
     """The collective counter over three redistributes of a float32
     [8, 16] DTensor on a 1-D mesh of ``world`` ranks (Shard(0) ->
     Replicate, Partial -> Replicate, Partial -> Shard(0)) and over one
     ``torch.distributed.all_reduce`` of it: each case's dict and whether
     the values came out right; then the three again under ``HostStaged``
-    for this device type, with what it staged."""
+    for this device type, and under ``PeerStaged`` for it, with what each
+    staged; then, under one ``PeerStaged``, Partial-to-Shard and
+    Shard-to-Replicate redistributes of float32 inputs that grow past the
+    group's buffers, shrink and grow again, and an int64 and a 0-d float32
+    sum: whether each came out right."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import (
         DTensor, Partial, Replicate, Shard, distribute_tensor,
@@ -576,6 +667,7 @@ def redistribute_rank(rank, world):
 
     from repro_torch.launch.collectives import CollectiveCounter
     from repro_torch.parallel.host_staged import HostStaged
+    from repro_torch.parallel.peer_staged import PeerStaged
 
     mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
     whole = torch.arange(128, dtype=torch.float32).reshape(8, 16)
@@ -614,6 +706,39 @@ def redistribute_rank(rank, world):
             got = y.full_tensor()
         out[f"staged/{name}"] = {"staged": dict(staged.ops),
                                  "right": bool(torch.equal(got, want))}
+    for name, (x, target, want) in cases().items():
+        with PeerStaged("cpu") as staged:
+            y = x.redistribute(mesh, target)
+            got = y.full_tensor()
+        out[f"peer/{name}"] = {"staged": dict(staged.ops),
+                               "right": bool(torch.equal(got, want))}
+    # inputs that outgrow the group's buffers (new generations mapped),
+    # shrink and grow again, in float32, int64 and a 0-d sum
+    right = []
+    with PeerStaged("cpu") as staged:
+        for rows in (1, 3, 400_000, 2, 700_000, 0, 5):
+            parts = [torch.randn((rows * world, 3), generator=torch.Generator()
+                                 .manual_seed(10 * rows + r))
+                     for r in range(world)]
+            a = parts[rank]
+            whole = DTensor.from_local(a, mesh, [Partial()], run_check=False)
+            sums = parts[0].clone()     # added in rank order, as the peers
+            for part in parts[1:]:
+                sums += part
+            right.append(torch.equal(
+                whole.redistribute(mesh, [Shard(0)]).to_local(),
+                sums.chunk(world)[rank]))
+            right.append(torch.equal(
+                distribute_tensor(sums, mesh, [Shard(0)],
+                                  src_data_rank=None).full_tensor(), sums))
+        n = torch.tensor([rank + 1], dtype=torch.int64)
+        right.append(int(DTensor.from_local(n, mesh, [Partial()],
+                                            run_check=False)
+                         .full_tensor()) == world * (world + 1) // 2)
+        s = DTensor.from_local(torch.tensor(float(rank)), mesh, [Partial()],
+                               run_check=False)
+        right.append(float(s.full_tensor()) == sum(range(world)))
+    out["peer/growing"] = {"staged": dict(staged.ops), "right": right}
     return out
 
 

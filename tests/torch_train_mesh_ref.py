@@ -3,7 +3,8 @@
 Run as a fresh process with 4 XLA host devices (the flag must precede the
 first ``jax`` import)::
 
-    PYTHONPATH=src python tests/torch_train_mesh_ref.py CASE.npz OUT.npz
+    PYTHONPATH=src python tests/torch_train_mesh_ref.py CASE.npz OUT.npz \
+        [CASE2.npz OUT2.npz ...]
 
 CASE holds a smoke config's name (``arch``; qwen1.5-4b where it is
 absent), its parameters as the leaves of its ``init`` tree (``p0``,
@@ -12,12 +13,13 @@ absent), its parameters as the leaves of its ``init`` tree (``p0``,
 where present, the encoder-decoder's frames of each step (``frames``,
 [steps, B, Se, d]), the MoE path (``impl``, the reference's
 ``--moe-impl`` override) and ``grads_only`` (the loss and gradients
-alone: no step is compiled or run).  On a 2 x 2 ("data", "model") mesh
-with Auto axes (JAX 0.9 makes Explicit ones by default, which the
-reference's ``shard`` refuses), this jits ``train_loss``'s value and
-gradient and ``launch.steps.make_train_step`` with ``param_shardings``
-as their in-shardings, and writes the loss and gradient leaves at the given
-parameters (``loss0``, ``g0``, ...), each step's loss and grad norm, the
+alone: no step is compiled or run) or ``steps_only`` (the steps alone).
+On a 2 x 2 ("data", "model") mesh with Auto axes (JAX 0.9 makes Explicit
+ones by default, which the reference's ``shard`` refuses), this jits
+``train_loss``'s value and gradient and ``launch.steps.make_train_step``
+with ``param_shardings`` as their in-shardings, and writes the loss and
+gradient leaves at the given parameters (``loss0``, ``g0``, ...), each
+step's loss and grad norm, the
 parameter leaves after the last step (``q0``, ...), and the reference's
 ``collective_bytes`` of the jitted step's compiled HLO as JSON
 (``collectives``), its layer loop scaled as its dry run scales it.
@@ -82,12 +84,14 @@ def main(case_path: str, out_path: str) -> None:
     with use_mesh(mesh):
         params = jax.device_put(params, p_sh)
         state = jax.device_put(state, o_sh)
-        grad = jax.jit(jax.value_and_grad(
-            lambda p, b: model.train_loss(p, b)), in_shardings=(p_sh, b_sh))
-        loss0, g0 = grad(params, batch(0))
-        out["loss0"] = np.asarray(loss0)
-        for i, g in enumerate(jax.tree.leaves(g0)):
-            out[f"g{i}"] = np.asarray(g)
+        if "steps_only" not in case:
+            grad = jax.jit(jax.value_and_grad(
+                lambda p, b: model.train_loss(p, b)),
+                in_shardings=(p_sh, b_sh))
+            loss0, g0 = grad(params, batch(0))
+            out["loss0"] = np.asarray(loss0)
+            for i, g in enumerate(jax.tree.leaves(g0)):
+                out[f"g{i}"] = np.asarray(g)
         if "grads_only" in case:
             np.savez(out_path, **out)
             return
@@ -98,6 +102,9 @@ def main(case_path: str, out_path: str) -> None:
             hlo, loop_trip=getattr(model, "repeats", model.cfg.n_layers)))
         losses, norms = [], []
         for i in range(len(tokens)):
+            # a step may hand a leaf back in another layout (rwkv6's bonus)
+            params, state = (jax.device_put(params, p_sh),
+                             jax.device_put(state, o_sh))
             params, state, m = step(params, state, batch(i))
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
@@ -109,4 +116,5 @@ def main(case_path: str, out_path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    for case_path, out_path in zip(sys.argv[1::2], sys.argv[2::2]):
+        main(case_path, out_path)
