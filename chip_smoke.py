@@ -313,14 +313,14 @@ Phases (any failure exits nonzero and prints no result):
     memory, each kernel's forward against its backward recompute in
     device time, and the busy share of one profiled step.
 21. **rwkv6-7b trained** (``[train_rwkv6]``, ``phase_train`` again): full
-    width cut to 2 of 32 layers (973,705,216 float32 parameters),
+    width cut to 1 of 32 layers (755,290,112 float32 parameters),
     65536-token vocabulary, 2 x 1024 tokens a step.  Gate 1 as phase 20's
     (2 WKV launches, no attention or SSD); gate 2: the loss and every
     parameter leaf's gradient of ``train_loss`` through the kernel
     against the same with ``wkv6_plain`` swapped in (loss within 1e-5
-    relative, each leaf within 1e-4 of its max |g|; 2 launches a forward,
-    4 with the remat recompute); gate 3 as phase 20's (checkpoints of
-    11.7 GB) with 4 WKV launches a step.
+    relative, each leaf within 1e-4 of its max |g|; 1 launch a forward,
+    2 with the remat recompute); gate 3 as phase 20's with 2 WKV launches
+    a step.
 22. **The zoo's train steps** (``[train_zoo]``): mixtral-8x7b at 2 of 32
     layers (2 x 1024 tokens) and whisper-large-v3 whole (2 x 1500 frames,
     2 x 64 tokens), float32: the loss and every leaf's gradient through
@@ -3283,9 +3283,12 @@ def phase_issuer_waves(torch, mods, rep, dev, n_staged=19, waves=200):
 
 # H100 SXM peaks used for the float kernels' bounds (NVIDIA data sheet):
 # dense bf16 tensor-core rate, the float32 rate of the CUDA cores, and the
-# HBM3 rate above.
+# HBM3 rate above; a float32 product taken as three TF32 tensor-core
+# products (3xTF32: lo * hi, hi * lo, hi * hi, flash_attention's float32
+# path) at a third of the dense TF32 rate of 495 TFLOP/s.
 BF16_FLOPS_PER_S = 989e12
 F32_CUDA_CORE_FLOPS_PER_S = 67e12
+F32_3XTF32_FLOPS_PER_S = 495e12 / 3
 
 # kernel vs plain tolerance over unit-normal inputs.  Attention: every
 # element within atol + rtol * |plain| with atol = rtol = the figure, as
@@ -3385,6 +3388,7 @@ class FloatAgreement:
             f"{' relative to max|plain|' if relative else ' + ' + format(tol, 'g') + ' |plain|'})")
         if not err <= tol:
             raise AssertionError(f"{what}: error {err:.3e} above {tol:g}")
+        return rel_err
 
 
 def _dtype(torch, name):
@@ -3434,7 +3438,12 @@ def wkv_inputs(torch, case, dtype, seed, dev):
 
 
 def phase_model_kernels(torch, mods, dev):
+    """Each float kernel against its plain version at its cases in
+    float32 and bf16; ``agree["flash_attention"].float32_worst`` is the
+    worst float32 reading of the attention cases, relative to max
+    |plain|."""
     agree = {name: FloatAgreement() for name in FLOAT_KERNELS}
+    f32_worst = 0.0
     for i, case in enumerate(FA_CASES):
         for dname in ("float32", "bfloat16"):
             args, kw = fa_inputs(torch, case, _dtype(torch, dname), 300 + i,
@@ -3442,11 +3451,16 @@ def phase_model_kernels(torch, mods, dev):
             got = mods.fa_ops.flash_attention(*args, **kw)
             want = mods.fa_ops.attention_plain(*args, **kw)
             torch.cuda.synchronize()
-            agree["flash_attention"].add(
+            rel = agree["flash_attention"].add(
                 got, want, FLOAT_TOL[dname],
                 f"flash_attention {case[0]} {tuple(case[1:7])} "
                 f"causal={case[7]} window={case[8]} {dname}")
+            if dname == "float32":
+                f32_worst = max(f32_worst, rel)
             del args, got, want
+    agree["flash_attention"].float32_worst = f32_worst
+    log(f"[kernels] flash_attention float32 (3xTF32): worst reading "
+        f"{f32_worst:.3e} of max|plain| over the {len(FA_CASES)} cases")
     for i, case in enumerate(SSD_CASES):
         for dname in ("float32", "bfloat16"):
             args = ssd_inputs(torch, case, _dtype(torch, dname), 400 + i, dev)
@@ -3742,7 +3756,8 @@ def phase_engine(torch, mods, dev, tag, model, params, steps):
 def _kernel_group(key: str) -> str:
     """A profiler row's group: every CUDA kernel of a float kernel's wrapper
     carries ``<name>_kernel`` in its name (``flash_attention_kernel_mma``,
-    ``flash_attention_kernel_f32``, ...), whatever else a design launches."""
+    ``flash_attention_kernel_tf32``, ...), whatever else a design
+    launches."""
     for name in FLOAT_KERNELS:
         if f"{name}_kernel" in key:
             return f"{name}_kernel"
@@ -4380,19 +4395,20 @@ def fa_times(torch, mods, dev, cases, tag, seed, dtype=None):
     """``flash_attention`` in ``dtype`` (bf16 unless given) at each of
     ``cases`` (FA_CASES rows; CUDA events, median of 10) beside its bound
     (``fa_visible_pairs`` at 989 TFLOP/s in bf16 on the tensor cores, at
-    67 TFLOP/s in float32 on the CUDA cores, against the bytes of q, k, v
-    and the output at 3.35 TB/s) and one ``scaled_dot_product_attention``
-    call on the same inputs (in float32 with TF32 off, as ``main`` sets
-    it): with ``is_causal`` where a causal mask without a window aligns the
-    same, else with the boolean band mask (``band_mask``), held to the
-    kernel's output within the dtype's tolerance so that it computes the
-    same function."""
+    495/3 TFLOP/s in float32 as 3xTF32 on the tensor cores, against the
+    bytes of q, k, v and the output at 3.35 TB/s; in float32 also the
+    operations at the CUDA cores' 67 TFLOP/s, ``bound_cuda_core_ms``) and
+    one ``scaled_dot_product_attention`` call on the same inputs (in
+    float32 with TF32 off, as ``main`` sets it): with ``is_causal`` where a
+    causal mask without a window aligns the same, else with the boolean
+    band mask (``band_mask``), held to the kernel's output within the
+    dtype's tolerance so that it computes the same function."""
     F = torch.nn.functional
     dtype = dtype or torch.bfloat16
     dname = str(dtype).split(".")[-1]
-    flops_per_s = (F32_CUDA_CORE_FLOPS_PER_S if dtype == torch.float32
-                   else BF16_FLOPS_PER_S)
-    if dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+    f32 = dtype == torch.float32
+    flops_per_s = F32_3XTF32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
+    if f32 and torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("float32 attention timed with TF32 on")
     out = {}
     for i, case in enumerate(cases):
@@ -4423,11 +4439,19 @@ def fa_times(torch, mods, dev, cases, tag, seed, dtype=None):
         out[label] = dict(ms=ms, bound_ms=bound, library_ms=lib_ms,
                           bound_by="bytes" if t_bytes >= t_ops
                           else "operations")
+        extra = ""
+        if f32:
+            cc = max(flops / F32_CUDA_CORE_FLOPS_PER_S, t_bytes) * 1e3
+            out[label]["bound_cuda_core_ms"] = cc
+            extra = (f"; at the CUDA cores' 67 TFLOP/s {cc:.6f} ms "
+                     f"({ms / cc:.2f}x)")
         log(f"[{tag}] flash_attention {dname} {label} ({b}, {hq}/{hkv}, "
             f"Sq {sq}, Sk {sk}, {d}) causal={causal} window {window}: "
             f"{ms:.6f} ms a call (cuda events), bound {bound:.6f} ms "
-            f"({out[label]['bound_by']}: {flops} flop, {nbytes} B), "
-            f"{ms / bound:.2f}x the bound; SDPA ({how}) {lib_ms:.6f} ms")
+            f"({out[label]['bound_by']}{' at 3xTF32' if f32 else ''}: "
+            f"{flops} flop, {nbytes} B), {ms / bound:.2f}x the bound"
+            f"{extra}; SDPA ({how}) {lib_ms:.6f} ms, the kernel "
+            f"{ms / lib_ms:.2f}x SDPA")
         del q, k, v, lib_kw
     torch.cuda.empty_cache()
     return out
@@ -4829,8 +4853,9 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
             f"{r['plain_ms']:.6f} ms, library {lib}")
     return out
 
-# float32, the type of training and of every mesh phase (the kernels'
-# ``*_kernel_f32`` paths, on the CUDA cores), at the shapes those paths
+# float32, the type of training and of every mesh phase (attention's
+# 3xTF32 path on the tensor cores, the SSD's and the WKV's
+# ``*_kernel_f32`` paths on the CUDA cores), at the shapes those paths
 # give the kernels in one process: attention (label, B, Hq, Hkv, Sq, Sk,
 # D, causal, window) as FA_CASES, the SSD as SSD_CASES, the WKV as
 # WKV_CASES
@@ -4838,6 +4863,7 @@ F32_FA_SHAPES = [
     ("zamba2-7b train", 2, 32, 32, 1024, 1024, 112, True, None),
     ("qwen1.5-4b train", 2, 20, 20, 1024, 1024, 128, True, None),
     ("whisper encoder", 2, 20, 20, 1500, 1500, 64, False, None),
+    ("whisper cross, decode", 2, 20, 20, 1, 1500, 64, False, None),
 ]
 F32_SSD_SHAPE = ("zamba2-7b train", 2, 1024, 112, 64, 1, 64)
 F32_WKV_SHAPE = ("rwkv6-7b train", 2, 64, 1024, 64, 64, "moderate")
@@ -4845,8 +4871,9 @@ F32_WKV_SHAPE = ("rwkv6-7b train", 2, 64, 1024, 64, 64, "moderate")
 
 def phase_float32_times(torch, mods, dev):
     """The float kernels in float32 in one process (CUDA events): each
-    F32_FA_SHAPES row by ``fa_times`` beside its bound and SDPA, and the
-    SSD at F32_SSD_SHAPE and the WKV at F32_WKV_SHAPE beside their bounds
+    F32_FA_SHAPES row by ``fa_times`` beside its two bounds (3xTF32 and
+    the CUDA cores) and SDPA, and the SSD at F32_SSD_SHAPE and the WKV at
+    F32_WKV_SHAPE beside their bounds
     (bytes at 3.35 TB/s against operations at 67 TFLOP/s, the CUDA
     cores' float32 rate) and their plain versions."""
     tag = "time_f32"
@@ -4906,13 +4933,15 @@ TRAIN_DATA = dict(seq_len=1024, batch=2, batches_per_shard=2)
 # zamba2: one unit, six Mamba2 layers + the shared block (902,732,256
 # float32 parameters); a checkpoint is 10.8 GB
 TRAIN = TrainSpec("train", ZAMBA, 6, dict(TRAIN_DATA, vocab=32000), "rows")
-# rwkv6-7b at 2 of 32 layers (973,705,216 float32 parameters, 15.6 GB
-# with gradients and both moments; at 4 layers 22.6 GB, and 51.1 GB at the
-# restore's peak, which holds three copies of the state, so 6 layers would
-# fit the card): the script's time limit sets the cut (4 layers until the
-# MoE and encoder-decoder cases of [decode_mesh] came, at 3.4-3.9 s a step
-# and 26 s a checkpoint, 96-152 s a phase on an H100 at 700 W)
-TRAIN_RWKV6 = TrainSpec("train_rwkv6", RWKV, 2, dict(TRAIN_DATA, vocab=65536),
+# rwkv6-7b at 1 of 32 layers (755,290,112 float32 parameters, 12.1 GB with
+# gradients and both moments, 27.5 GB at the restore's peak, which holds
+# three copies of the state): the script's time limit sets the cut (at 2
+# layers, 973,705,216 float32 parameters, 15.6 GB with gradients and both
+# moments, 2.1 s a step and 17-19 s a checkpoint, 91.5 s a phase on a slow
+# host; at 4 layers 22.6 GB, 51.1 GB at the restore's peak, which holds
+# three copies of the state, 3.4-3.9 s a step and 26 s a checkpoint, 96-152
+# s a phase; H100 at 700 W)
+TRAIN_RWKV6 = TrainSpec("train_rwkv6", RWKV, 1, dict(TRAIN_DATA, vocab=65536),
                         "model")
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
 # gate 3: run 1 trains steps 1-4 and run 2 resumes there for 5-8; a
@@ -5467,7 +5496,7 @@ def release_memory(torch, tag):
 # than that fails the phase up front and says so ("train_mesh" and
 # "decode_mesh": the most of a case's four ranks' peaks together, their
 # collective buffers included, and its one-process run's)
-PEAK_GB = {"train": 32.8, "train_rwkv6": 35.4, "train_mixtral": 77.1,
+PEAK_GB = {"train": 32.8, "train_rwkv6": 27.6, "train_mixtral": 77.1,
            "train_whisper": 31.3, "kimi": 79.3, "train_mesh": 57.4,
            "decode_mesh": 43.0}
 
@@ -6105,6 +6134,7 @@ def main(argv=None) -> int:
         "bf16_prefill": kimi["bf16"]["launches"]["flash_attention"]}
     fa["kimi_bf16_ms"] = kimi["bf16"]["per_launch_ms"].get("flash_attention")
     fa["bf16_shape_ms"] = {**dense["times"], **zoo_times}
+    fa["float32_max_rel_err"] = float_ok["flash_attention"].float32_worst
     # float32, the train and mesh paths' type, at their shapes in one
     # process: each beside its bound (and SDPA for attention)
     for k in kernels:

@@ -10,10 +10,14 @@ can run::
 
     python3 scripts/chip_phases.py decode_mesh
     python3 scripts/chip_phases.py --tree build/parent train_mesh
+    python3 scripts/chip_phases.py --src build/parent/src float32_times
 
 To compare two trees on one card, unpack the other one under ``build/``
 (``git archive``) and call this script for each in turns (base, this,
-this, base) within one machine's session.  Needs a CUDA card.
+this, base) within one machine's session: ``--tree`` runs the other
+tree's phases on its own package, ``--src`` this tree's phases (the same
+shapes and gates) on the other tree's package and kernels.  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -27,13 +31,17 @@ ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ap.add_argument("--tree", type=pathlib.Path,
                 default=pathlib.Path(__file__).resolve().parents[1],
                 help="root of the tree whose chip_smoke.py and src/ run")
+ap.add_argument("--src", type=pathlib.Path, default=None,
+                help="the package tree (src/) whose kernels run; default "
+                     "the --tree's own")
 ap.add_argument("phases", nargs="+",
                 choices=("train_mesh", "decode_mesh", "float32_times"))
 # parsed where the module loads: spawned ranks import it again, with the
 # same arguments, and must find the same tree first on their path
 ARGS = ap.parse_args()
 TREE = ARGS.tree.resolve()
-sys.path[:0] = [str(TREE), str(TREE / "src")]
+SRC = (ARGS.src or TREE / "src").resolve()
+sys.path[:0] = [str(TREE), str(SRC)]
 
 import chip_smoke  # noqa: E402
 
@@ -49,7 +57,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(TREE, sys.version.split()[0], torch.__version__,
+    print(TREE, SRC, sys.version.split()[0], torch.__version__,
           torch.version.cuda, chip_smoke.nvidia_smi_line(), flush=True)
     chip_smoke.phase_build(mods.build)
     for phase in ARGS.phases:

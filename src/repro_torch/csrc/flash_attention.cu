@@ -57,12 +57,41 @@
 //     bytes spilled); D <= 256 in 8 warps of 16 rows (BQ = 128) with 32-key
 //     tiles, 135,168 B.
 //
-// float32: flash_attention_kernel_f32, on the float32 CUDA cores (TF32
-//   would miss the float32 tolerance of 1e-4): a block of 4 warps owns 32
-//   query rows, 8 a warp; the query tile and each 32-key K and V tile are
-//   staged in shared memory as float32, rows padded to a multiple of 4
-//   floats; lane j owns key j of a tile for the scores, and the output row
-//   is kept in registers, lane i owning dims i, i+32, ... (NI of them).
+// float32: flash_attention_kernel_tf32, on the tensor cores in 3xTF32.
+//   One TF32 product keeps 11 significant bits, which misses the float32
+//   tolerance of 1e-4; three keep about 22: each operand x is split into
+//   hi = tf32(x) and lo = tf32(x - hi) (split_tf32, mma_sm90.cuh), and a
+//   product is hi * hi plus the small terms lo * hi and hi * lo, each a
+//   mma.sync.m16n8k8 with tf32 operands and float32 accumulators.
+//   * grid = (B * Hq, ceil(Sq / BQ)), WARPS warps of 16 query rows, the
+//     causal query tiles heaviest first, GQA folding and the band's key
+//     tiles as the bf16 path.
+//   * Shared memory, rows DP + 4 floats apart (DP = D rounded up to 8):
+//     Q pre-scaled in float32 (q * scale, as attention_plain), re-read by
+//     ldmatrix and split at each k-step; each key tile of K and V staged
+//     by cp.async (plain loads when D % 4 != 0), then split once for all
+//     the warps into its hi parts (in place) and lo parts beside them.
+//     One stage: two blocks an SM hide one block's loads behind the
+//     other's products better than a second stage that halves the
+//     blocks; __launch_bounds__ holds the registers to the two blocks.  ldmatrix on rows of four floats
+//     gives the tf32 A and B fragments; the row stride keeps the 8 rows
+//     of a fragment load on distinct banks.
+//   * S = Q K^T: the hi * hi products in one accumulator, the small terms
+//     in another, added once a tile (the tensor cores' float32 additions
+//     truncate; a long chain of them drifts).  The online softmax runs on
+//     the accumulator fragment (two shuffles a row, exp2f with log2(e)
+//     folded into one FMA); P stays float32 and is split in registers as
+//     the A operand of P V, its keys permuted within each 8-key group
+//     (C fragment column 2c -> k-index c, 2c + 1 -> c + 4), so V's B
+//     fragment reads rows 2c and 2c + 1; the running sum adds the
+//     unsplit P, as attention_plain's denominator does.
+//   * O = alpha O + P V: each output n-tile's sum over the tile's keys in
+//     a fresh accumulator (lo * hi, hi * lo, hi * hi a k-step), added to
+//     O by one FMA with the softmax's rescale.
+//   * No atomics, a fixed order of every sum: equal inputs give equal
+//     bits.  Tile sizes per D bucket (WARPS, BK): D <= 96 (8, 32), 112
+//     (8, 16), 128 (4, 32), 256 (8, 16, one block an SM); 89,088 B of
+//     shared memory at D = 112, 101,376 at 128.
 //
 // Measured (chip_smoke.py; profiler device time a call in zamba2-7b's bf16
 // prefill at (1, 32, 4096, 112) causal, NVIDIA H100 80GB HBM3, 700 W):
@@ -410,228 +439,346 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32: tensor cores, 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 4;
-constexpr int kRows = 8;                 // query rows per warp
-constexpr int kBQ = kWarps * kRows;      // query rows per block
-constexpr int kBK = 32;                  // keys per tile (one per lane)
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-struct Geometry {
-  int d4;    // D rounded up to a multiple of 4 (Q row stride)
-  int ks;    // K row stride: d4, or d4 + 4 when d4 / 4 is even
-  int vs;    // V row stride: 32 * NI
+template <int KD, int WARPS, int BK>
+struct Tf32Tile {
+  static constexpr int DP = 8 * KD;        // padded head dim
+  static constexpr int LD = DP + 4;        // shared row stride (floats)
+  static constexpr int BQ = 16 * WARPS;    // query rows per block
+  static constexpr int NT = BK / 8;        // score n-tiles = P V k-steps
+  static constexpr int kThreads = 32 * WARPS;
+  // Q; K and V (their hi parts after the split); K's and V's lo parts
+  static constexpr size_t kSmem = sizeof(float) * LD * (BQ + 4 * BK);
+  static_assert(BK % 16 == 0, "K fragments come 16 keys an ldmatrix");
 };
 
-__host__ __device__ inline Geometry geometry(int d, int ni) {
-  Geometry g;
-  g.d4 = (d + 3) / 4 * 4;
-  g.ks = ((g.d4 / 4) % 2 == 0) ? g.d4 + 4 : g.d4;
-  g.vs = 32 * ni;
-  return g;
-}
-
-__host__ __device__ inline size_t smem_bytes(int d, int ni) {
-  Geometry g = geometry(d, ni);
-  return sizeof(float) *
-         (size_t(kBQ) * g.d4 + size_t(kBK) * g.ks + size_t(kBK) * g.vs);
-}
-
-__device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const float* src, int rows,
-                                          int row0, int nrows, int d,
-                                          int width) {
-  // dst[r * stride + c] = src[(row0 + r) * d + c] for r < rows, c < width;
-  // zero past nrows (ragged sequence end) and past d (dim padding)
-  for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
-    int r = i / width, c = i - r * width;
-    int row = row0 + r;
-    float v = 0.f;
-    if (row < nrows && c < d) v = src[int64_t(row) * d + c];
-    dst[r * stride + c] = v;
+// rows [row0, row0 + ROWS) of a row-major [nrows, d] float32 matrix into
+// dst[ROWS][LD], zero past nrows and from d to DP.  vec: 16-byte cp.async
+// (d % 4 == 0 and aligned rows), else plain loads.
+template <int ROWS, int DP, int LD, int THREADS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int row0, int nrows, int d,
+                                           bool vec) {
+  if (vec) {
+    constexpr int CH = DP / 4;             // 16-byte chunks a row
+    for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+      const int r = i / CH, c = (i - r * CH) * 4;
+      float* dp = dst + r * LD + c;
+      if (c < d) {
+        const bool ok = row0 + r < nrows;
+        cp_async_16(dp, ok ? src + int64_t(row0 + r) * d + c : src,
+                    ok ? 16 : 0);
+      } else {
+        *reinterpret_cast<float4*>(dp) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
+      const int r = i / DP, c = i - r * DP;
+      float val = 0.f;
+      if (row0 + r < nrows && c < d) val = src[int64_t(row0 + r) * d + c];
+      dst[r * LD + c] = val;
+    }
   }
 }
 
-template <int NI>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_attention_kernel_f32(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           float* __restrict__ out, int hq, int group,
-                           int sq, int sk, int d, int causal,
-                           int64_t window, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const Geometry g = geometry(d, NI);
-  float* Qs = smem;                       // [kBQ][d4]
-  float* Ks = Qs + kBQ * g.d4;            // [kBK][ks]
-  float* Vs = Ks + kBK * g.ks;            // [kBK][vs]
+// rows [0, ROWS) of x[ROWS][LD] split in place into their tf32 hi parts,
+// the lo parts into lo[ROWS][LD]
+template <int ROWS, int DP, int LD, int THREADS>
+__device__ __forceinline__ void split_rows(float* x, float* lo) {
+  constexpr int CH = DP / 4;
+  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+    const int o = i / CH * LD + (i % CH) * 4;
+    float4 v = *reinterpret_cast<float4*>(x + o), h, l;
+    uint32_t a, b;
+    split_tf32(v.x, a, b); h.x = __uint_as_float(a); l.x = __uint_as_float(b);
+    split_tf32(v.y, a, b); h.y = __uint_as_float(a); l.y = __uint_as_float(b);
+    split_tf32(v.z, a, b); h.z = __uint_as_float(a); l.z = __uint_as_float(b);
+    split_tf32(v.w, a, b); h.w = __uint_as_float(a); l.w = __uint_as_float(b);
+    *reinterpret_cast<float4*>(x + o) = h;
+    *reinterpret_cast<float4*>(lo + o) = l;
+  }
+}
+
+// acc += a * b in 3xTF32: lo * hi, then hi * lo, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32_1688(acc, al, bh0, bh1);
+  mma_tf32_1688(acc, ah, bl0, bl1);
+  mma_tf32_1688(acc, ah, bh0, bh1);
+}
+
+// MINB: the blocks an SM that the registers must allow (the shared memory
+// allows them)
+template <int KD, int WARPS, int BK, int MINB>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_attention_kernel_tf32(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ out, int hq, int group,
+                            int sq, int sk, int d, int causal,
+                            int64_t window, float scale, int vec) {
+  using Tl = Tf32Tile<KD, WARPS, BK>;
+  constexpr int DP = Tl::DP, LD = Tl::LD, BQ = Tl::BQ, NT = Tl::NT;
+  constexpr int TH = Tl::kThreads;
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  float* Qs = reinterpret_cast<float*>(fa_smem);   // [BQ][LD]
+  float* Kh = Qs + BQ * LD;                        // [BK][LD] each
+  float* Vh = Kh + BK * LD;
+  float* Kl = Vh + BK * LD;
+  float* Vl = Kl + BK * LD;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.x;              // b * hq + h
+  const int g = lane >> 2, c = lane & 3;
+  const int bh = blockIdx.x;                       // b * hq + h
   const int b = bh / hq, h = bh - b * hq;
-  const int hkv = hq / group;
-  const int64_t kv_bh = int64_t(b) * hkv + h / group;
-  const int q0 = blockIdx.y * kBQ;
-  const int q_offset = sk - sq;           // queries end the key timeline
-
+  const int64_t kv_bh = int64_t(b) * (hq / group) + h / group;
+  const int q_tile = causal ? int(gridDim.y - 1 - blockIdx.y)
+                            : int(blockIdx.y);
+  const int q0 = q_tile * BQ;
+  const int q_offset = sk - sq;                    // queries end the timeline
   const float* qp = q + int64_t(bh) * sq * d;
   const float* kp = k + kv_bh * sk * d;
   const float* vp = v + kv_bh * sk * d;
   float* op = out + int64_t(bh) * sq * d;
 
-  load_tile(Qs, g.d4, qp, kBQ, q0, sq, d, g.d4);
-
   // key-tile range intersecting the block's band (kernel.py:44-50)
-  const int q_lo = q0 + q_offset;
-  const int q_hi = min(q0 + kBQ, sq) - 1 + q_offset;
-  const int n_tiles = (sk + kBK - 1) / kBK;
+  const int n_tiles = (sk + BK - 1) / BK;
+  const int blk_hi = min(q0 + BQ, sq) - 1 + q_offset;
   int hi = n_tiles;
-  if (causal) hi = q_hi < 0 ? 0 : min(q_hi / kBK + 1, n_tiles);
+  if (causal) hi = blk_hi < 0 ? 0 : min(blk_hi / BK + 1, n_tiles);
   int lo = 0;
   if (window >= 0) {
-    int64_t first = int64_t(q_lo) - window + 1;  // first visible key
-    lo = first <= 0 ? 0
-         : (first / kBK < n_tiles ? int(first / kBK) : n_tiles);
+    const int64_t first = int64_t(q0 + q_offset) - window + 1;
+    lo = first <= 0 ? 0 : int(min(first / BK, int64_t(n_tiles)));
   }
 
-  float m[kRows], l[kRows], acc[kRows][NI];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NI; ++i) acc[r][i] = 0.f;
+  // the warp's 16 rows and their positions on the key timeline
+  const int wq0 = q0 + 16 * warp;
+  const bool w_live = wq0 < sq;
+  const int w_lo = wq0 + q_offset;
+  const int w_hi = min(wq0 + 15, sq - 1) + q_offset;
+
+  // q * scale in float32 (attention_plain's pre-scale), zero past sq and d
+  for (int i = threadIdx.x; i < BQ * DP; i += TH) {
+    const int r = i / DP, col = i - r * DP;
+    float x = 0.f;
+    if (q0 + r < sq && col < d) x = qp[int64_t(q0 + r) * d + col] * scale;
+    Qs[r * LD + col] = x;
   }
 
-  for (int tile = lo; tile < hi; ++tile) {
-    const int k0 = tile * kBK;
-    __syncthreads();                      // previous tile fully consumed
-    load_tile(Ks, g.ks, kp, kBK, k0, sk, d, g.d4);
-    load_tile(Vs, g.vs, vp, kBK, k0, sk, d, g.vs);
+  // ldmatrix row addresses of the lane: Q (A, 16 rows x 8 dims), K (two
+  // n-tiles: 16 keys x 8 dims as four 8 x 4 tiles)
+  const float* q_row = Qs + (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                       LD + (lane >> 4) * 4;
+  const int k_row = (lane & 7) + ((lane >> 4) << 3);
+  const int k_col = ((lane >> 3) & 1) * 4;
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int t = lo; t < hi; ++t) {
+    const int k0 = t * BK;
+    stage_rows<BK, DP, LD, TH>(Kh, kp, k0, sk, d, vec);
+    stage_rows<BK, DP, LD, TH>(Vh, vp, k0, sk, d, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    split_rows<BK, DP, LD, TH>(Kh, Kl);    // once for all the warps
+    split_rows<BK, DP, LD, TH>(Vh, Vl);
     __syncthreads();
 
-    // scores of this lane's key against the warp's rows
-    float s[kRows];
+    bool visible = w_live;
+    if (causal) visible = visible && k0 <= w_hi;
+    if (window >= 0)
+      visible = visible && int64_t(k0 + BK - 1) > int64_t(w_lo) - window;
+    if (visible) {
+      // S = (q * scale) K^T, 3xTF32: the hi * hi products in s, the small
+      // terms (lo * hi, hi * lo) apart in sl, added once at the end
+      float s[NT][4], sl[NT][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(Ks + lane * g.ks);
-    const float4* qrows =
-        reinterpret_cast<const float4*>(Qs + warp * kRows * g.d4);
-    const int n4 = g.d4 / 4;
-    for (int c = 0; c < n4; ++c) {
-      const float4 kv = krow[c];
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = qrows[r * n4 + c];
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
+        for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t raw[4], ah[4], al[4];
+        ldmatrix_x4(raw, q_row + 8 * kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(raw[e]), ah[e], al[e]);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t kh[4], kl[4];
+          const int ko = (8 * j + k_row) * LD + 8 * kk + k_col;
+          ldmatrix_x4(kh, Kh + ko);
+          ldmatrix_x4(kl, Kl + ko);
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            mma_tf32_1688(sl[j + p], al, kh[2 * p], kh[2 * p + 1]);
+            mma_tf32_1688(sl[j + p], ah, kl[2 * p], kl[2 * p + 1]);
+            mma_tf32_1688(s[j + p], ah, kh[2 * p], kh[2 * p + 1]);
+          }
+        }
       }
-    }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += sl[j][e];
 
-    // mask + online softmax update, one row at a time
-    const int kpos = k0 + lane;
-    float p[kRows];
+      const bool edge =
+          k0 + BK > sk || (causal && k0 + BK - 1 > w_lo) ||
+          (window >= 0 && int64_t(k0) <= int64_t(w_hi) - window);
+      if (edge) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = q0 + warp * kRows + r + q_offset;
-      bool ok = kpos < sk;
-      if (causal) ok = ok && kpos <= qpos;
-      if (window >= 0) ok = ok && int64_t(kpos) > int64_t(qpos) - window;
-      const float sv = ok ? s[r] * scale : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(sv));
-      float alpha, pv;
-      if (m_new == -INFINITY) {           // nothing visible yet
-        alpha = 1.f;
-        pv = 0.f;
-      } else {
-        alpha = expf(m[r] - m_new);
-        pv = ok ? expf(sv - m_new) : 0.f;
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + 2 * c + (e & 1);
+            const int qpos = wq0 + g + 8 * (e >> 1) + q_offset;
+            bool ok = kpos < sk;
+            if (causal) ok = ok && kpos <= qpos;
+            if (window >= 0)
+              ok = ok && int64_t(kpos) > int64_t(qpos) - window;
+            if (!ok) s[j][e] = -INFINITY;
+          }
       }
-      l[r] = l[r] * alpha + warp_sum(pv);
-      m[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < NI; ++i) acc[r][i] *= alpha;
-      p[r] = pv;
-    }
 
-    // acc[r][i] += sum_j p[r](lane j) * V[j][lane + 32 i]
-    const int kmax = min(kBK, sk - k0);
-    for (int j = 0; j < kmax; ++j) {
-      float vv[NI];
+      // online softmax on the fragment: rows g (e = 0, 1), g + 8 (2, 3);
+      // P split into hi and lo as the A operand of P V.  P's C fragment
+      // of n-tile j is the A fragment of k-step j with its keys permuted
+      // (k-index c <- key 2c, c + 4 <- key 2c + 1), so V's B fragment
+      // takes rows 2c and 2c + 1.
+      float mx[2] = {m[0], m[1]}, msc[2], alpha[2];
 #pragma unroll
-      for (int i = 0; i < NI; ++i) vv[i] = Vs[j * g.vs + lane + 32 * i];
+      for (int j = 0; j < NT; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, p[r], j);
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        msc[r] = (mx[r] == -INFINITY ? 0.f : mx[r]) * kLog2e;
+        alpha[r] = exp2f(fmaf(m[r], kLog2e, -msc[r]));
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+      uint32_t ph[NT][4], pl[NT][4];
 #pragma unroll
-        for (int i = 0; i < NI; ++i) acc[r][i] = fmaf(pj, vv[i], acc[r][i]);
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = exp2f(fmaf(s[j][e], kLog2e, -msc[e >> 1]));
+          l[e >> 1] += s[j][e];
+        }
+        split_tf32(s[j][0], ph[j][0], pl[j][0]);
+        split_tf32(s[j][2], ph[j][1], pl[j][1]);
+        split_tf32(s[j][1], ph[j][2], pl[j][2]);
+        split_tf32(s[j][3], ph[j][3], pl[j][3]);
+      }
+
+      // O = alpha O + P V, 3xTF32: each output n-tile's sum over the tile's
+      // keys in a fresh accumulator (a short chain of mma), added to O by
+      // one rounded FMA
+      const int vo = 2 * c * LD + g;
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+        float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int o0 = vo + 8 * j * LD + 8 * n, o1 = o0 + LD;
+          mma_3xtf32(pv, ph[j], pl[j], __float_as_uint(Vh[o0]),
+                     __float_as_uint(Vh[o1]), __float_as_uint(Vl[o0]),
+                     __float_as_uint(Vl[o1]));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[e]);
       }
     }
+    __syncthreads();                     // the tile's buffers free
   }
 
+  if (!w_live) return;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = q0 + warp * kRows + r;
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float inv = 1.f / lr;
+    const int row = wq0 + g + 8 * r;
     if (row >= sq) continue;
-    const float inv = 1.f / l[r];
+    float* orow = op + int64_t(row) * d;
 #pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int c = lane + 32 * i;
-      if (c < d) op[int64_t(row) * d + c] = acc[r][i] * inv;
+    for (int n = 0; n < KD; ++n) {
+      const int col = 8 * n + 2 * c;
+      const float v0 = acc[n][2 * r] * inv;
+      const float v1 = acc[n][2 * r + 1] * inv;
+      if ((d & 1) == 0 && col + 1 < d) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+      } else {
+        if (col < d) orow[col] = v0;
+        if (col + 1 < d) orow[col + 1] = v1;
+      }
     }
   }
 }
 
-template <int NI>
-int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int64_t b, int64_t hq, int64_t hkv, int64_t sq, int64_t sk,
-               int64_t d, int64_t causal, int64_t window, float scale,
-               cudaStream_t stream) {
-  const size_t smem = smem_bytes(int(d), NI);
-  auto kernel = flash_attention_kernel_f32<NI>;
+template <int KD, int WARPS, int BK, int MINB>
+int launch_tf32(const void* q, const void* k, const void* v, void* out,
+                int64_t b, int64_t hq, int64_t hkv, int64_t sq, int64_t sk,
+                int64_t d, int64_t causal, int64_t window, float scale,
+                cudaStream_t stream) {
+  using Tl = Tf32Tile<KD, WARPS, BK>;
+  const int64_t n_qt = (sq + Tl::BQ - 1) / Tl::BQ;
+  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_attention_kernel_tf32<KD, WARPS, BK, MINB>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tl::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(unsigned(b * hq), unsigned((sq + kBQ - 1) / kBQ));
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+  };
+  const int vec = d % 4 == 0 && aligned(k) && aligned(v);
+  dim3 grid(unsigned(b * hq), unsigned(n_qt));
+  kernel<<<grid, Tl::kThreads, Tl::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), int(hq),
-      int(hq / hkv), int(sq), int(sk), int(d), int(causal), window, scale);
+      int(hq / hkv), int(sq), int(sk), int(d), int(causal), window, scale,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_f32(const void* q, const void* k, const void* v, void* out,
-                 int64_t b, int64_t hq, int64_t hkv, int64_t sq, int64_t sk,
-                 int64_t d, int64_t causal, int64_t window, float scale,
-                 cudaStream_t stream) {
-  if ((sq + kBQ - 1) / kBQ > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t d4 = (d + 3) / 4 * 4;
-  if (d4 <= 32)
-    return launch_f32<1>(q, k, v, out, b, hq, hkv, sq, sk, d, causal,
-                         window, scale, stream);
-  if (d4 <= 64)
-    return launch_f32<2>(q, k, v, out, b, hq, hkv, sq, sk, d, causal,
-                         window, scale, stream);
-  if (d4 <= 128)
-    return launch_f32<4>(q, k, v, out, b, hq, hkv, sq, sk, d, causal,
-                         window, scale, stream);
-  return launch_f32<8>(q, k, v, out, b, hq, hkv, sq, sk, d, causal, window,
-                       scale, stream);
+int dispatch_tf32(const void* q, const void* k, const void* v, void* out,
+                  int64_t b, int64_t hq, int64_t hkv, int64_t sq, int64_t sk,
+                  int64_t d, int64_t causal, int64_t window, float scale,
+                  cudaStream_t s) {
+  if (d <= 32)
+    return launch_tf32<4, 8, 32, 2>(q, k, v, out, b, hq, hkv, sq, sk, d,
+                                    causal, window, scale, s);
+  if (d <= 64)
+    return launch_tf32<8, 8, 32, 2>(q, k, v, out, b, hq, hkv, sq, sk, d,
+                                    causal, window, scale, s);
+  if (d <= 96)
+    return launch_tf32<12, 8, 32, 2>(q, k, v, out, b, hq, hkv, sq, sk, d,
+                                     causal, window, scale, s);
+  if (d <= 112)
+    return launch_tf32<14, 8, 16, 2>(q, k, v, out, b, hq, hkv, sq, sk, d,
+                                     causal, window, scale, s);
+  if (d <= 128)
+    return launch_tf32<16, 4, 32, 2>(q, k, v, out, b, hq, hkv, sq, sk, d,
+                                     causal, window, scale, s);
+  return launch_tf32<32, 8, 16, 1>(q, k, v, out, b, hq, hkv, sq, sk, d,
+                                   causal, window, scale, s);
 }
 
 }  // namespace
@@ -650,8 +797,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return dispatch_f32(q, k, v, out, b, hq, hkv, sq, sk, d, causal, window,
-                        scale, s);
+    return dispatch_tf32(q, k, v, out, b, hq, hkv, sq, sk, d, causal, window,
+                         scale, s);
   if (dtype == DT_BF16)
     return dispatch_mma(q, k, v, out, b, hq, hkv, sq, sk, d, causal, window,
                         scale, s);

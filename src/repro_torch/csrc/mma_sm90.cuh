@@ -1,9 +1,13 @@
 // mma_sm90.cuh: the tensor-core and asynchronous-copy building blocks of
-// the bf16 kernels (flash_attention.cu, mamba2_ssd.cu, rwkv6_wkv.cu), as
-// inline PTX for sm_90a.
+// the bf16 kernels (flash_attention.cu, mamba2_ssd.cu, rwkv6_wkv.cu) and
+// of flash_attention's float32 path, as inline PTX for sm_90a.
 //
 //   * mma_bf16_16816: one warp-wide mma.sync.m16n8k16, bf16 operands,
 //     float32 accumulators (row-major A, column-major B).
+//   * mma_tf32_1688: one warp-wide mma.sync.m16n8k8, tf32 operands,
+//     float32 accumulators; split_tf32 cuts a float32 into a tf32 high
+//     part and a tf32 remainder, so that three such products (lo * hi,
+//     hi * lo, hi * hi) keep a float32 product to about 2^-22 (3xTF32).
 //   * ldmatrix_x4 / ldmatrix_x4_trans: four 8x8 bf16 tiles from shared
 //     memory into fragments; lane i gives the row address of tile i / 8.
 //   * cp_async_16: a 16-byte global -> shared copy that bypasses the
@@ -23,6 +27,15 @@
 // so the C fragments of two neighbouring n-tiles are, packed to bf16, the
 // A fragment of one k-step: a product's result feeds the next product
 // without leaving the registers.
+//
+// mma.m16n8k8 with tf32 operands (one 32-bit register an element):
+//   A (16x8):  a0 = (g, c), a1 = (g+8, c), a2 = (g, c+4), a3 = (g+8, c+4)
+//   B (8x8):   b0 = (k c, n g), b1 = (k c+4, n g)
+//   C (16x8):  as above, c0, c1 = (g, 2c..2c+1), c2, c3 = (g+8, 2c..2c+1)
+// ldmatrix .b16 on rows of four floats gives lane (g, c) the float (g, c)
+// of each 8x4 tile, which is the A and the B layout; a C fragment is an A
+// fragment only with the columns of each 8-column group permuted
+// (2c -> c, 2c+1 -> c+4), which the caller undoes on the other operand.
 
 #pragma once
 
@@ -44,6 +57,31 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (to nearest, ties away from zero: half a tf32 ulp
+// added to the magnitude, the low 13 bits cleared), as cvt.rna.tf32.f32
+// rounds a finite x, in two integer operations
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + e, |e| <= 2^-22 |x|: hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact in float32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],

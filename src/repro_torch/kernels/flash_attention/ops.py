@@ -8,9 +8,11 @@ the device of its inputs: CPU tensors take :func:`attention_plain`
 kernel of ``csrc/flash_attention.cu`` or raise.  The kernel takes any
 ``Sq`` and ``Sk`` (the TPU launcher's ``% 128`` tiling contract does not
 apply), head dims up to 256, float32 and bfloat16, and accumulates in
-float32: bfloat16 on the tensor cores (``mma.sync``), rounding the
+float32, both on the tensor cores (``mma.sync``): bfloat16 rounding the
 probabilities to bfloat16 before the value product as
-:func:`attention_plain` does; float32 on the CUDA cores.
+:func:`attention_plain` does; float32 as 3xTF32, each operand split into
+a TF32 high part and a TF32 remainder and each product taken as three
+TF32 products, which keeps float32's accuracy.
 
 Its gradient is the reference's ``custom_vjp`` backward
 (``repro/kernels/flash_attention/ops.py:25-43``): ``flash_attention`` is a

@@ -19,6 +19,7 @@ from repro.optim import adamw as ref_adamw
 from repro_torch.checkpoint import store
 from repro_torch.optim import adamw
 from repro_torch.tree import leaves, unflatten
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-6
 SHAPES = {"w": (6, 5), "units": ({"a": (4,), "b": (3, 2, 7)}, {"c": (9,)}),

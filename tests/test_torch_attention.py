@@ -15,6 +15,7 @@ from repro.kernels.flash_attention.ref import (
     attention_ref, decode_attention_ref,
 )
 from repro_torch.kernels.flash_attention import ops
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -110,3 +111,116 @@ def test_bad_shapes_raise(shapes):
     q, k, v = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v)
+
+
+# --- the float32 kernel's arithmetic (3xTF32 on mma.sync), emulated ---------
+#
+# csrc/flash_attention.cu's float32 path splits every operand x into
+# hi = tf32(x) and lo = tf32(x - hi) (rounded as cvt.rna.tf32.f32 does)
+# and takes each product from hi * hi and the small terms lo * hi and
+# hi * lo, 8 deep a tensor-core step, under an online softmax over key
+# tiles of the kernel's sizes (32 keys at D <= 96, else 16): S = Q K^T with
+# the hi * hi products and the small terms in two accumulators, added at
+# the end; each output column block's P V over a key tile in a fresh
+# accumulator (lo * hi, hi * lo, hi * hi a step), added to the rescaled
+# output by one FMA.  The kernel runs only on a card; here its arithmetic
+# runs in numpy, each mma modelled as one float32 rounding of the
+# accumulator plus its 8 exact products.
+
+# of max |attention_plain|: the cases below read 2.5e-7..1.2e-6, and
+# 2.7e-4..5.3e-4 with one pass (hi * hi alone)
+TF32_BOUND = 5e-6
+LOG2E = np.float32(1.4426950408889634)
+
+
+def tf32(x):
+    """cvt.rna.tf32.f32: add 0x1000 to the float32 magnitude's bits, clear
+    the low 13 (to nearest, ties away from zero)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_tf32(x):
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def mma_chain(acc, pairs):
+    """acc [..., M, N] += x @ y for each (x [..., M, K], y [..., K, N]) of
+    ``pairs``, 8 deep a step, one mma a step and pair, in that order."""
+    for k0 in range(0, pairs[0][0].shape[-1], 8):
+        for x, y in pairs:
+            prod = x[..., k0:k0 + 8].astype(np.float64) @ \
+                y[..., k0:k0 + 8, :].astype(np.float64)
+            acc = (acc.astype(np.float64) + prod).astype(np.float32)
+    return acc
+
+
+def attention_3xtf32(q, k, v, causal, window, passes=3):
+    """The float32 kernel's attention, q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D];
+    ``passes`` 1 drops the small terms (a one-pass TF32 kernel)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    bk = 32 if d <= 96 else 16
+    dp = -(-d // 8) * 8
+    pad = [(0, 0)] * 3 + [(0, dp - d)]
+    qh, ql = split_tf32(np.pad(q * np.float32(1.0 / d ** 0.5), pad))
+    kf = np.pad(np.repeat(k, hq // hkv, axis=1), pad)
+    vf = np.pad(np.repeat(v, hq // hkv, axis=1), pad)
+    qpos = np.arange(sq)[:, None] + (sk - sq)
+    m = np.full((b, hq, sq, 1), -np.inf, np.float32)
+    l = np.zeros((b, hq, sq, 1), np.float32)
+    acc = np.zeros((b, hq, sq, dp), np.float32)
+    for k0 in range(0, sk, bk):
+        (kh, kl), (vh, vl) = (split_tf32(x[:, :, k0:k0 + bk])
+                              for x in (kf, vf))
+        kh, kl = kh.swapaxes(-1, -2), kl.swapaxes(-1, -2)
+        zero = np.zeros((b, hq, sq, kh.shape[-1]), np.float32)
+        s = mma_chain(zero, [(qh, kh)])
+        if passes == 3:
+            s = s + mma_chain(zero, [(ql, kh), (qh, kl)])
+        kpos = np.arange(k0, k0 + kh.shape[-1])[None, :]
+        ok = np.ones((sq, kh.shape[-1]), bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        s = np.where(ok, s, np.float32(-np.inf))
+        mx = np.maximum(m, s.max(-1, keepdims=True))
+        msc = np.where(mx == -np.inf, np.float32(0), mx) * LOG2E
+        with np.errstate(invalid="ignore"):
+            alpha = np.exp2((m.astype(np.float64) * LOG2E - msc)
+                            .astype(np.float32)).astype(np.float32)
+            p = np.exp2((s.astype(np.float64) * LOG2E - msc)
+                        .astype(np.float32)).astype(np.float32)
+        m = mx
+        l = l * alpha + p.sum(-1, keepdims=True, dtype=np.float32)
+        ph, pl = split_tf32(p)
+        pairs = [(pl, vh), (ph, vl), (ph, vh)] if passes == 3 else [(ph, vh)]
+        pv = mma_chain(np.zeros_like(acc), pairs)
+        acc = (acc.astype(np.float64) * alpha + pv).astype(np.float32)
+    return (acc / l)[..., :d]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window", [
+    (1, 4, 4, 96, 96, 96, True, None),        # phi3's head dim
+    (1, 4, 2, 100, 100, 112, True, None),     # GQA, ragged key tiles
+    (2, 4, 2, 37, 131, 112, True, 50),        # Sq < Sk under a window
+    (1, 4, 1, 128, 128, 128, True, None),     # MQA
+    (1, 2, 2, 64, 200, 112, False, None),     # non-causal, Sq < Sk
+    (1, 2, 2, 96, 96, 256, True, None),       # gemma3's head dim
+    (1, 4, 2, 128, 128, 64, True, 16),        # window within a key tile
+    (1, 2, 2, 1, 777, 128, True, None),       # one query, a long prefix
+])
+def test_3xtf32_arithmetic_is_float32_accurate(b, hq, hkv, sq, sk, d,
+                                               causal, window):
+    q, k, v = rand_qkv(5, b, hq, hkv, sq, sk, d)
+    want = ops.attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal=causal, window=window).numpy()
+    top = np.abs(want).max()
+    err3 = np.abs(attention_3xtf32(q, k, v, causal, window) - want).max()
+    err1 = np.abs(attention_3xtf32(q, k, v, causal, window, passes=1)
+                  - want).max()
+    assert err3 <= TF32_BOUND * top, (err3 / top, TF32_BOUND)
+    # the planted one-pass kernel (lo terms dropped) fails the same gate
+    assert err1 > TF32_BOUND * top, (err1 / top, TF32_BOUND)

@@ -30,6 +30,7 @@ from repro_torch.core.sim import Cluster, NetConfig, completion_tuples, \
     workload
 from repro_torch.serve.paxos import BatchedMachine, cluster_engine, \
     stacks_from_numpy
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CPU = functools.partial(BatchedMachine, device="cpu")
 CFG = dict(n_machines=3, sessions_per_machine=2)

@@ -36,6 +36,7 @@ from repro_torch.parallel.sharding import (
 
 import torch_mesh_ranks
 import torch_ranks
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DRY_TIMEOUT = 300
@@ -164,7 +165,7 @@ def test_one_rank_mesh_runs_no_collective(tmp_path):
 
 def test_dryrun_counts_the_train_cells_collectives(tmp_path):
     out = tmp_path / "dry.json"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "qwen1.5-4b", "--shape", "train_4k", "--mesh", "16x16",
@@ -211,7 +212,7 @@ def smoke_dryrun(tmp_path_factory):
     smoke configs, the shapes cut to :data:`SMALL`, on a 2 x 2 mesh of a
     fake world of 4, in a fresh subprocess."""
     out = tmp_path_factory.mktemp("smoke_dry") / "dry.json"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     code = (
         "import json, sys\n"
         "from repro_torch.configs.archs import SMOKE\n"
@@ -264,7 +265,7 @@ def test_dryrun_counts_the_decode_cells_collectives(tmp_path):
     collectives; the decode cells with no reduce-scatter (no
     gradient)."""
     out = tmp_path / "dry.json"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     cells = [("qwen1.5-4b", "decode_32k"), ("qwen1.5-4b", "long_500k"),
              ("gemma3-12b", "decode_32k"), ("gemma3-12b", "long_500k"),
              ("rwkv6-7b", "decode_32k"), ("zamba2-7b", "decode_32k"),

@@ -9,6 +9,7 @@ from repro_torch.coord.registry import PaxosRegistry
 from repro_torch.core import checkers
 from repro_torch.core.node import ProtocolConfig
 from repro_torch.core.sim import Cluster, NetConfig
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _script(reg):

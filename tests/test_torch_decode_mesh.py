@@ -60,6 +60,7 @@ from repro_torch.tree import leaves
 
 import torch_mesh_ranks
 import torch_ranks
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF_TIMEOUT = 300

@@ -22,6 +22,7 @@ from repro_torch.configs.archs import ARCHS
 from repro_torch.models.lm import LM
 from repro_torch.tree import leaves
 from test_torch_lm import LOGIT_TOL, _close, _models, _tokens
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 DENSE = ["gemma3-12b", "phi3-mini-3.8b", "qwen1.5-4b", "qwen2.5-32b"]
 BATCH, SEQ = 2, 80

@@ -29,6 +29,7 @@ from repro_torch.core import checkers, sim
 from repro_torch.core.node import Machine
 from repro_torch.obs import FlightRecorder
 from repro_torch.serve import loadgen as lg
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -170,7 +171,8 @@ def test_inject_failure_is_caught_dumped_and_reported(tmp_path, capsys):
          "--device", "cpu", "--inject-failure", "--dump-dir",
          str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1"))
     assert proc.returncode != 0
     assert "SafetyViolation" in proc.stderr
     assert "batched smoke OK" not in proc.stdout

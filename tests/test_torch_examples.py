@@ -42,6 +42,7 @@ from repro_torch.core import sim
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.registry import build_model
 from repro_torch.train.loop import TrainConfig, train
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PREFILL_TOL = 1e-3

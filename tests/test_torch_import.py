@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"

@@ -19,6 +19,7 @@ from repro_torch.core.proposer import ABD_PAUSED, AbdPhase, Decision, Phase
 from repro_torch.core.types import KVState, MsgKind, Rep
 from repro_torch.kernels import _build
 from repro_torch.kernels.paxos_propose import ops as propose_ops
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
     / "csrc"

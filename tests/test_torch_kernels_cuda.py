@@ -42,6 +42,7 @@ def _randn(rng, shape, dtype, dev):
     (2, 4, 4, 129, 129, 256, dict(causal=True, window=40)),
     (1, 4, 1, 77, 77, 64, dict(causal=False)),
     (1, 3, 3, 1, 33, 20, dict(causal=True)),
+    (1, 2, 2, 37, 50, 30, dict(causal=True)),   # D % 4 != 0: plain loads
     (1, 8, 8, 129, 129, 112, dict(causal=True, window=70)),  # window edge
     (1, 4, 4, 512, 512, 112, dict(causal=True)),              # zamba2's
 ])

@@ -32,6 +32,7 @@ from repro_torch.models.convert import params_from_reference
 from repro_torch.models.lm import LM
 from repro_torch.models.registry import build_model, input_specs
 from repro_torch.serve.engine import DecodeEngine, ServeConfig
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 BLOCK_TOL = 2e-5
 LOGIT_TOL = 1e-4

@@ -11,6 +11,7 @@ from repro.core.node import ReqKind as RefReqKind
 from repro.serve import loadgen as ref
 from repro_torch.core.node import ReqKind
 from repro_torch.serve import loadgen as port
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 SEEDS = [0, 1, 7]
 

@@ -32,6 +32,7 @@ from test_torch_lm import (
     BLOCK_TOL, LOGIT_TOL, _cfg, _close, _jnp, _models, _ref_init, _tokens,
     _torch, _x,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 MOE = ["mixtral-8x7b", "kimi-k2-1t-a32b"]
 

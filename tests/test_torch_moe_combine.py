@@ -28,6 +28,7 @@ import torch
 from repro_torch.configs.archs import SMOKE
 from repro_torch.models import blocks
 from repro_torch.models.common import Init
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 MOE = ["mixtral-8x7b", "kimi-k2-1t-a32b"]
 # the bf16 block: max |port - reference| over max |reference|, the float

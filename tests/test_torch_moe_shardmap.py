@@ -37,6 +37,7 @@ from repro_torch.models.convert import params_from_reference
 from repro_torch.parallel.sharding import MeshShape, use_mesh
 
 import torch_ranks
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF_TIMEOUT = 300

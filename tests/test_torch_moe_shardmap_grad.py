@@ -42,6 +42,7 @@ from repro_torch.models.convert import params_from_reference
 
 import torch_mesh_ranks
 import torch_ranks
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF_TIMEOUT = 300

@@ -33,6 +33,7 @@ from repro_torch.obs import (
     load_records, render_summary, summarize,
 )
 from repro_torch.serve.paxos import BatchedMachine
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 KIND_TO_PATHS = {"RMW": ("all_aboard_fast", "cp_slow"),
                  "READ": ("abd_read",), "WRITE": ("abd_write",)}

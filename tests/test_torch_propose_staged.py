@@ -31,6 +31,7 @@ from repro_torch.core.sim import Cluster, NetConfig, completion_tuples, \
     workload
 from repro_torch.kernels.paxos_propose import ops
 from repro_torch.serve.paxos import BatchedMachine, cluster_engine
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 N_TAB = len(pv.ProposerTable._fields)
 

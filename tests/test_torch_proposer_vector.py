@@ -20,6 +20,7 @@ from repro.kernels.paxos_propose import ops as ref_ops
 from repro_torch.core import proposer_vector as pv
 from repro_torch.core.proposer import Decision
 from repro_torch.kernels.paxos_propose import ops
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 INT32_MAX = np.iinfo(np.int32).max
 

@@ -36,6 +36,7 @@ from repro_torch.core.node import Machine, ProtocolConfig
 from repro_torch.core.types import TS, KVState
 from repro_torch.reconfig import catchup
 from repro_torch.serve.paxos import BatchedMachine
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CPU_BATCHED = functools.partial(BatchedMachine, device="cpu")
 

@@ -38,6 +38,7 @@ from repro_torch.core import vector
 from repro_torch.core.node import ProtocolConfig
 from repro_torch.core.sim import Cluster, NetConfig, workload
 from repro_torch.core.types import Msg, MsgKind, RmwId, TS
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CPU = {"device": "cpu"}
 REF = {"use_kernel": False}

@@ -24,6 +24,7 @@ from repro.core.sim import workload as ref_workload
 from repro_torch.core import replay
 from repro_torch.core.node import ProtocolConfig
 from repro_torch.core.sim import Cluster, NetConfig, workload
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CPU = {"device": "cpu"}
 # >= 20 seeded faulty traces; odd seeds deploy the §9 all-aboard fast path

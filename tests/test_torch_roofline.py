@@ -24,6 +24,7 @@ from repro_torch.configs.shapes import SHAPES, cells
 from repro_torch.launch import dryrun, roofline
 from repro_torch.models.registry import build_model
 from repro_torch.tree import leaves
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF_TIMEOUT = 300

@@ -31,6 +31,7 @@ from repro_torch.core.node import Machine, ProtocolConfig
 from repro_torch.core.sim import Cluster, NetConfig, completion_tuples, \
     workload
 from repro_torch.serve.paxos import BatchedMachine
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 # seed -> (all_aboard, crash/restart mid-batch, shards)
 CASES = {0: (False, False, 1), 1: (True, False, 1), 2: (False, True, 1),

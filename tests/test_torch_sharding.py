@@ -30,6 +30,7 @@ from repro_torch.launch import steps
 from repro_torch.models.registry import build_model
 from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import MeshShape, NamedSharding
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF_TIMEOUT = 300

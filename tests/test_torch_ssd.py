@@ -12,6 +12,7 @@ import torch
 
 from repro.kernels.mamba2_ssd.ref import ssd_decode_ref, ssd_ref
 from repro_torch.kernels.mamba2_ssd import ops
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 2e-5
 

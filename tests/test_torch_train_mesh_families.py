@@ -74,6 +74,7 @@ from repro_torch.tree import leaves
 import torch_mesh_ranks
 import torch_ranks
 from torch_mesh_ranks import blockwise
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the reference's four configs take about 60 s alone, and the group its

@@ -49,6 +49,7 @@ from test_torch_train import (
     GRAD_TOL, LOSS_TOL, PARAM_TOL, RESUME_TOL, STEP_OPT, _models,
     _port_leaves, _tokens,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ZOO = ["rwkv6-7b", "mixtral-8x7b", "kimi-k2-1t-a32b", "whisper-large-v3"]
 WHISPER = "whisper-large-v3"

@@ -22,6 +22,7 @@ from repro.kernels.paxos_apply import ops as ref_ops
 from repro_torch.core import vector
 from repro_torch.kernels.paxos_apply import ops
 from test_vector_engine import N_SESS, build_batch, random_kv, random_msg
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def random_planes(seed, n, noop_frac=0.2):

@@ -34,6 +34,7 @@ from test_torch_lm import (
     BLOCK_TOL, LOGIT_TOL, _cfg, _close, _jnp, _models, _ref_init, _tokens,
     _torch, _x,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 WHISPER = "whisper-large-v3"
 

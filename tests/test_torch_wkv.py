@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels.rwkv6_wkv.ref import wkv6_decode_ref, wkv6_ref
 from repro_torch.kernels.rwkv6_wkv import ops
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 2e-5
 

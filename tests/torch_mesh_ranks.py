@@ -204,7 +204,6 @@ def train_mesh_rank(rank, world, case_path):
     from repro_torch.parallel.sharding import distribute
     from repro_torch.tree import leaves, tree_map
 
-    torch.set_num_threads(1)
     case = torch.load(case_path)
     cfg = ModelConfig(**case["cfg"])
     model = build_model(cfg)
@@ -385,7 +384,6 @@ def decode_mesh_case(c, shape):
 def decode_mesh_rank(rank, world, case_path):
     """:func:`decode_mesh_case` for each case of ``case["cases"]`` and
     each (data, model) mesh of the case."""
-    torch.set_num_threads(1)
     case = torch.load(case_path)
     return {f"{name}/{shape[0]}x{shape[1]}": decode_mesh_case(c, shape)
             for name, c in case["cases"].items() for shape in c["meshes"]}
@@ -410,7 +408,6 @@ def recurrent_mesh_rank(rank, world, case_path):
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.registry import build_model
 
-    torch.set_num_threads(1)
     case = torch.load(case_path)
     out = {f"{name}/{shape[0]}x{shape[1]}": decode_mesh_case(c, shape)
            for name, c in case["decode"].items() for shape in c["meshes"]}
@@ -517,7 +514,6 @@ def cells_mesh_rank(rank, world, case_path):
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.registry import build_model
 
-    torch.set_num_threads(1)
     case = torch.load(case_path)
     out = {f"{name}/{shape[0]}x{shape[1]}": decode_mesh_case(c, shape)
            for name, c in case["decode"].items() for shape in c["meshes"]}
@@ -610,7 +606,6 @@ def train_families_rank(rank, world, case_path):
     from repro_torch.parallel.sharding import distribute
     from repro_torch.tree import leaves
 
-    torch.set_num_threads(1)
     case = torch.load(case_path)
     mesh = make_device_mesh(tuple(case["mesh"]), "cpu")
     out = {}

@@ -5,6 +5,7 @@ tests of the port's collectives (imports no JAX).
 each joining a gloo group through a ``FileStore`` in a scratch directory,
 and joins them under one hard time limit: a rank still alive at the limit
 is killed and the call fails, so a hung collective cannot hold a test run.
+Each rank runs with one intra-op thread.
 Arguments go as plain values (paths), and each rank writes its results
 with ``torch.save`` for the parent to read, so no tensor crosses processes
 through shared memory.
@@ -27,6 +28,7 @@ RANK_TIMEOUT = 120.0
 
 
 def _entry(target, rank, world, workdir, args):
+    torch.set_num_threads(1)          # the group shares the machine's cores
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
                             rank=rank, world_size=world)
     try:
