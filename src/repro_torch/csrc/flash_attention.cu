@@ -484,35 +484,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
-// rows [0, ROWS) of x[ROWS][LD] split in place into their tf32 hi parts,
-// the lo parts into lo[ROWS][LD]
-template <int ROWS, int DP, int LD, int THREADS>
-__device__ __forceinline__ void split_rows(float* x, float* lo) {
-  constexpr int CH = DP / 4;
-  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
-    const int o = i / CH * LD + (i % CH) * 4;
-    float4 v = *reinterpret_cast<float4*>(x + o), h, l;
-    uint32_t a, b;
-    split_tf32(v.x, a, b); h.x = __uint_as_float(a); l.x = __uint_as_float(b);
-    split_tf32(v.y, a, b); h.y = __uint_as_float(a); l.y = __uint_as_float(b);
-    split_tf32(v.z, a, b); h.z = __uint_as_float(a); l.z = __uint_as_float(b);
-    split_tf32(v.w, a, b); h.w = __uint_as_float(a); l.w = __uint_as_float(b);
-    *reinterpret_cast<float4*>(x + o) = h;
-    *reinterpret_cast<float4*>(lo + o) = l;
-  }
-}
-
-// acc += a * b in 3xTF32: lo * hi, then hi * lo, then hi * hi
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  mma_tf32_1688(acc, al, bh0, bh1);
-  mma_tf32_1688(acc, ah, bl0, bl1);
-  mma_tf32_1688(acc, ah, bh0, bh1);
-}
-
 // MINB: the blocks an SM that the registers must allow (the shared memory
 // allows them)
 template <int KD, int WARPS, int BK, int MINB>

@@ -16,7 +16,9 @@
 // Bound: bytes.  The function reads x, dt, B and C once and writes y once:
 // at zamba2's prefill shape (4096 tokens, 112 heads, P = 64, N = 64, G = 1,
 // bf16) 119.4 MB, 0.036 ms at 3.35 TB/s, against 7.5 GFLOP of the
-// sequential form (8 us at the bf16 tensor-core peak).
+// sequential form (8 us at the bf16 tensor-core peak); in float32 at its
+// train shape (2 x 1024 tokens) the same 119.4 MB, against 4.7 GFLOP at
+// 3xTF32's 495/3 TFLOP/s, 0.029 ms.
 //
 // Two paths, picked by the element type:
 //
@@ -61,15 +63,48 @@
 //     parameter); dynamic shared memory 79,872 B at N = 64 (two blocks an
 //     SM; ptxas: 125 registers, no spills), 133,120 B at N = 128.
 //
-// float32: mamba2_ssd_kernel_f32, sequential in T on the float32 CUDA cores
-//   (TF32 would miss the float32 tolerance of 1e-4): a block of 256 threads
-//   owns 32 columns p of one (batch, head)'s state, thread (pl, ng) keeping
-//   the states n = ng, ng + 8, ... of column pl in registers; chunks of 32
-//   steps are staged in shared memory as float32.
+// float32: mamba2_ssd_kernel_tf32, the same chunked dual form on the
+//   tensor cores in 3xTF32.  One TF32 product keeps 11 significant bits,
+//   which misses the float32 tolerance of 1e-4; three keep about 22: each
+//   operand x is split into hi = tf32(x) and lo = tf32(x - hi)
+//   (split_tf32, mma_sm90.cuh), and a product is hi * hi plus the small
+//   terms lo * hi and hi * lo, each a mma.sync.m16n8k8 with tf32 operands
+//   and float32 accumulators.
+//   * Chunks of L = 32 steps (one a lane for the scan of dt); grid =
+//     (ceil(P / 64), H, B); a block of 4 warps walks its chunks in order,
+//     warp w owning the state columns p = 16 w .. + 15 as S^T [16 x N] in
+//     registers: the carry's C fragments, which with each 8-column group
+//     permuted (k-index c <- column 2c, c + 4 <- 2c + 1) are the A
+//     fragments of C S, so the state never goes through shared memory.
+//   * A chunk: x, B and C of the next chunk by cp.async (double-buffered,
+//     whole rows without the source-size operand and rows past T zeroed by
+//     plain stores: the zero-filling form made the kernel 15-17 % slower;
+//     plain loads where P or N is not a multiple of 4); B and C split once
+//     for all the warps,
+//     in place (hi) with their lo parts beside them; M = (C B^T) .* seg in
+//     six 16 x 8 tiles over the 4 warps, split into shared memory; then
+//     each warp's y^T = (dt x)^T M^T + exp(la) .* (S^T C^T), its A operand
+//     (dt x)^T made and split in registers from x, into shared memory, and
+//     its carry S^T' = exp(la_L) S^T + (dt x exp(la_L - la))^T B, the
+//     chunk's sum in a fresh accumulator added by one FMA.  The next
+//     chunk stores y as float4 rows: a warp's own scattered stores of y
+//     held up the copies behind them.
+//   * C B^T and C S keep hi * hi in one accumulator and the small terms in
+//     another (the tensor cores' float32 additions truncate; a long chain
+//     drifts); C B^T and the product with M also split their k-steps into
+//     even and odd accumulators, chains half as deep.
+//   * Every operand read is conflict-free: float2 pairs (2c, 2c + 1) of a
+//     row g, or rows c and c + 4, by the row strides of Tf32Smem.
+//     Dynamic shared memory 92,672 B at N = 64 (two blocks an SM; ptxas:
+//     255 registers, no spills), 141,824 B at N = 128 (one).
+//   * No atomics, a fixed order of every sum: equal inputs give equal bits.
 //
 // Measured (chip_smoke.py; profiler device time a call in zamba2-7b's bf16
 // prefill at (1, 4096, 112, 64, G=1, N=64), NVIDIA H100 80GB HBM3, 700 W):
-// 0.241494 ms, 494 GB/s, 6.8x the byte bound (PERF.md).
+// 0.241494 ms, 494 GB/s, 6.8x the byte bound.  Float32 at zamba2-7b's train
+// shape (2, 1024, 112, 64, 1, 64), CUDA events, runs of 10 calls back to
+// back: 0.160677-0.165283 ms, 4.5x the byte bound; the sequential kernel it
+// replaced took 0.578771-0.607720 in the same runs (PERF.md).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -462,119 +497,416 @@ int dispatch_chunked(const void* x, const void* dt, const void* A,
 }
 
 // ---------------------------------------------------------------------------
-// float32: sequential on the CUDA cores
+// float32: the chunked dual form on the tensor cores, 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int kCols = 32;                // state columns p per block
-constexpr int kGroups = 8;               // threads sharing a column (split n)
-constexpr int kThreads = kCols * kGroups;
-constexpr int kChunk = 32;               // time steps staged at once
+constexpr int kTL = 32;                  // chunk length: one step a lane
+constexpr int kTPB = 64;                 // state columns p a block
+constexpr int kTWarps = kTPB / 16;       // a warp a 16-column p-tile
+constexpr int kTThreads = 32 * kTWarps;
+constexpr int kScanWarp = 3;             // one C B^T tile: it has the time
+static_assert(kTL == 32, "scan_dt gives each lane one step");
 
-template <int KN>
-__global__ void __launch_bounds__(kThreads)
-mamba2_ssd_kernel_f32(const float* __restrict__ x,
-                      const float* __restrict__ dt,
-                      const float* __restrict__ A,
-                      const float* __restrict__ Bm,
-                      const float* __restrict__ Cm, float* __restrict__ y,
-                      int t_len, int h_heads, int p_dim, int g_groups,
-                      int n_state) {
-  constexpr int NP = kGroups * KN;        // padded state size
-  __shared__ float xs[kChunk][kCols];
-  __shared__ float ys[kChunk][kCols];
-  __shared__ float dts[kChunk];
-  __shared__ float Bs[kChunk][NP];
-  __shared__ float Cs[kChunk][NP];
+template <int NK>
+struct Tf32Smem {
+  static constexpr int NP = 16 * NK;     // padded state size
+  // row strides (floats), each so that the lanes of a fragment load fall
+  // on distinct banks: B and C are read as float2 pairs (2c, 2c + 1) of a
+  // row g or as rows c and c + 4, x as rows c and c + 4 (stride = 8 (mod
+  // 16)); (C B^T) .* seg (M) as columns c and c + 4 of a row g (= 4 (mod
+  // 32)); y is written as rows 2c and 2c + 1 (= 4 (mod 8))
+  static constexpr int LDB = NP + 8;
+  static constexpr int LDX = kTPB + 8;
+  static constexpr int LDM = kTL + 4;
+  static constexpr int LDY = kTPB + 4;
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * kTL * LDX     // x, two stages
+                       + 4 * kTL * LDB   // B and C, two stages (hi in place)
+                       + 2 * kTL * LDB   // B lo, C lo
+                       + kTL * LDY       // y on its way out
+                       + 2 * kTL * LDM   // (C B^T) .* seg: hi, lo
+                       + 2 * 4 * kTL);   // per stage: dt, la, exp(la),
+                                         // exp(la_L - la)
+};
 
-  const int tid = threadIdx.x;
-  const int pl = tid / kGroups, ng = tid % kGroups;
-  const int p0 = blockIdx.x * kCols;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int grp = h / (h_heads / g_groups);
-  const float a = A[h];
-
-  float S[KN];
+// rows [t0, t0 + kTL) of a [T, *]-strided float32 matrix, `cols` real
+// columns, into dst[kTL][LD], WIDTH columns (a multiple of 4), zero past T
+// and past cols.  vec: 16-byte cp.async (cols a multiple of 4, aligned
+// rows; the zeros by plain stores), else plain loads.
+template <int WIDTH, int LD>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          int64_t row_stride, int t0,
+                                          int t_len, int cols, bool vec) {
+  constexpr int CH = WIDTH / 4;
+  static_assert(kTL * CH % kTThreads == 0, "whole rounds of 16 bytes");
+  if (vec) {
 #pragma unroll
-  for (int k = 0; k < KN; ++k) S[k] = 0.f;
-
-  for (int t0 = 0; t0 < t_len; t0 += kChunk) {
-    const int tc = min(kChunk, t_len - t0);
-    __syncthreads();                      // previous chunk fully consumed
-    for (int i = tid; i < kChunk * kCols; i += kThreads) {
-      const int tt = i / kCols, c = i % kCols;
-      float v = 0.f;
-      if (tt < tc && p0 + c < p_dim)
-        v = x[((int64_t(b) * t_len + t0 + tt) * h_heads + h) * p_dim + p0 +
-              c];
-      xs[tt][c] = v;
+    for (int k = 0; k < kTL * CH / kTThreads; ++k) {
+      const int i = threadIdx.x + k * kTThreads;
+      const int r = i / CH, c = (i % CH) * 4;
+      float* dp = dst + r * LD + c;
+      if (c < cols && t0 + r < t_len)
+        cp_async_16_full(dp, src + (t0 + r) * row_stride + c);
+      else
+        *reinterpret_cast<float4*>(dp) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    for (int i = tid; i < kChunk; i += kThreads)
-      dts[i] = i < tc ? dt[(int64_t(b) * t_len + t0 + i) * h_heads + h]
-                      : 0.f;
-    for (int i = tid; i < kChunk * NP; i += kThreads) {
-      const int tt = i / NP, n = i % NP;
-      float bv = 0.f, cv = 0.f;
-      if (tt < tc && n < n_state) {
-        const int64_t off =
-            ((int64_t(b) * t_len + t0 + tt) * g_groups + grp) * n_state + n;
-        bv = Bm[off];
-        cv = Cm[off];
-      }
-      Bs[tt][n] = bv;
-      Cs[tt][n] = cv;
-    }
-    __syncthreads();
-
-    for (int tt = 0; tt < tc; ++tt) {
-      const float dtv = dts[tt];
-      const float decay = expf(dtv * a);
-      const float xdt = dtv * xs[tt][pl];
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < KN; ++k) {
-        const int n = ng + kGroups * k;
-        S[k] = decay * S[k] + Bs[tt][n] * xdt;
-        acc = fmaf(Cs[tt][n], S[k], acc);
-      }
-      // sum over the column's 8 threads (consecutive lanes)
-      acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      if (ng == 0) ys[tt][pl] = acc;
-    }
-    __syncthreads();
-    for (int i = tid; i < tc * kCols; i += kThreads) {
-      const int tt = i / kCols, c = i % kCols;
-      if (p0 + c < p_dim)
-        y[((int64_t(b) * t_len + t0 + tt) * h_heads + h) * p_dim + p0 + c] =
-            ys[tt][c];
+  } else {
+    for (int i = threadIdx.x; i < kTL * WIDTH; i += kTThreads) {
+      const int r = i / WIDTH, c = i % WIDTH;
+      float val = 0.f;
+      if (t0 + r < t_len && c < cols) val = src[(t0 + r) * row_stride + c];
+      dst[r * LD + c] = val;
     }
   }
 }
 
-template <int KN>
-int launch_f32(const void* x, const void* dt, const void* A, const void* Bm,
-               const void* Cm, void* y, int64_t b, int64_t t, int64_t h,
-               int64_t p, int64_t g, int64_t n, cudaStream_t stream) {
-  dim3 grid(unsigned((p + kCols - 1) / kCols), unsigned(h), unsigned(b));
-  mamba2_ssd_kernel_f32<KN><<<grid, kThreads, 0, stream>>>(
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ uint32_t u32(float v) { return __float_as_uint(v); }
+
+// the A fragment (16 columns p x 8 steps s) of (d x)^T, split: x0 points at
+// x[s = c][p = g] of a tile of rows LDX apart, d0 and d1 scale the steps c
+// and c + 4
+template <int LDX>
+__device__ __forceinline__ void x_frag(const float* x0, float d0, float d1,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(d0 * x0[0], hi[0], lo[0]);
+  split_tf32(d0 * x0[8], hi[1], lo[1]);
+  split_tf32(d1 * x0[4 * LDX], hi[2], lo[2]);
+  split_tf32(d1 * x0[4 * LDX + 8], hi[3], lo[3]);
+}
+
+// MINB: the blocks an SM that the registers must allow (the shared memory
+// allows them)
+template <int NK, int MINB>
+__global__ void __launch_bounds__(kTThreads, MINB)
+mamba2_ssd_kernel_tf32(const float* __restrict__ x,
+                       const float* __restrict__ dt,
+                       const float* __restrict__ A,
+                       const float* __restrict__ Bm,
+                       const float* __restrict__ Cm, float* __restrict__ y,
+                       int t_len, int h_heads, int p_dim, int g_groups,
+                       int n_state, int x_vec, int bc_vec, int y_vec) {
+  using Sm = Tf32Smem<NK>;
+  constexpr int NP = Sm::NP, LDB = Sm::LDB, LDX = Sm::LDX, LDM = Sm::LDM,
+                LDY = Sm::LDY;
+  constexpr int KN = NP / 8;             // k-steps (n-tiles) over the state
+  constexpr int KL = kTL / 8;            // k-steps (n-tiles) over the chunk
+  constexpr int NG = KN < 8 ? KN : 8;    // the carry's n-tiles at a time
+  extern __shared__ __align__(16) unsigned char tf_smem[];
+  float* xs0 = reinterpret_cast<float*>(tf_smem);    // [2][L][LDX]
+  float* stage0 = xs0 + 2 * kTL * LDX;               // [2][B, C][L][LDB]
+  float* Bl = stage0 + 4 * kTL * LDB;                // [L][LDB]
+  float* Cl = Bl + kTL * LDB;
+  float* Ys = Cl + kTL * LDB;                        // [L][LDY]
+  float* Mh = Ys + kTL * LDY;                        // [L][LDM]
+  float* Ml = Mh + kTL * LDM;
+  float* fst = Ml + kTL * LDM;                       // [2][4][L]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, cq = lane & 3;
+  const int p0 = blockIdx.x * kTPB;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int grp = h / (h_heads / g_groups);
+  const float a2 = A[h] * kLog2e;        // log2 units: exp(x) = exp2(x log2 e)
+  const int64_t x_stride = int64_t(h_heads) * p_dim;
+  const int64_t bc_stride = int64_t(g_groups) * n_state;
+  const float* xb = x + (int64_t(b) * t_len * h_heads + h) * p_dim + p0;
+  const float* dtb = dt + int64_t(b) * t_len * h_heads + h;
+  const float* Bb = Bm + (int64_t(b) * t_len * g_groups + grp) * n_state;
+  const float* Cb = Cm + (int64_t(b) * t_len * g_groups + grp) * n_state;
+  float* yb = y + (int64_t(b) * t_len * h_heads + h) * p_dim + p0;
+  const int p_cols = min(kTPB, p_dim - p0);
+  const int n_chunks = (t_len + kTL - 1) / kTL;
+
+  auto xs = [&](int st) { return xs0 + st * kTL * LDX; };
+  auto Bs = [&](int st) { return stage0 + st * 2 * kTL * LDB; };
+  auto Cs = [&](int st) { return Bs(st) + kTL * LDB; };
+  // per stage: dt, la (log2 units), exp(la), exp(la_L - la)
+  auto fs = [&](int st, int which) { return fst + (st * 4 + which) * kTL; };
+  auto issue = [&](int c, int st) {
+    stage_f32<kTPB, LDX>(xs(st), xb, x_stride, c * kTL, t_len, p_cols,
+                         x_vec);
+    stage_f32<NP, LDB>(Bs(st), Bb, bc_stride, c * kTL, t_len, n_state,
+                       bc_vec);
+    stage_f32<NP, LDB>(Cs(st), Cb, bc_stride, c * kTL, t_len, n_state,
+                       bc_vec);
+    cp_async_commit();
+  };
+  // chunk c's y, which the warps left in Ys, as float4 rows where P allows
+  auto store_y = [&](int c, int i) {
+    const int r = i / (kTPB / 4), cc = (i % (kTPB / 4)) * 4;
+    const int t = c * kTL + r;
+    if (t >= t_len || cc >= p_cols) return;
+    const float4 v = *reinterpret_cast<const float4*>(Ys + r * LDY + cc);
+    float* dst = yb + int64_t(t) * x_stride + cc;
+    if (y_vec) {
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      dst[0] = v.x;
+      if (cc + 1 < p_cols) dst[1] = v.y;
+      if (cc + 2 < p_cols) dst[2] = v.z;
+      if (cc + 3 < p_cols) dst[3] = v.w;
+    }
+  };
+  // warp kScanWarp: step `lane` of chunk c's dt, zero past T
+  auto load_dt = [&](int c) {
+    const int t = c * kTL + lane;
+    return t < t_len ? dtb[int64_t(t) * h_heads] : 0.f;
+  };
+  // warp kScanWarp: la = cumsum(dt A) (a shuffle scan) and its exps into
+  // stage st
+  auto scan_dt = [&](int st, float d) {
+    float la = d * a2;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, la, o);
+      if (lane >= o) la += u;
+    }
+    const float total = __shfl_sync(0xffffffffu, la, 31);
+    fs(st, 0)[lane] = d;
+    fs(st, 1)[lane] = la;
+    fs(st, 2)[lane] = fast_exp2(la);
+    fs(st, 3)[lane] = fast_exp2(total - la);
+  };
+
+  // prologue: chunk 0 in flight, its la scanned, S = 0
+  issue(0, 0);
+  if (warp == kScanWarp) scan_dt(0, load_dt(0));
+
+  // the warp's p-tile of S^T: rows p = pw + g (+ 8), columns n of n-tile
+  // k: a C fragment, and with each 8-column group permuted the A fragment
+  // of the k-step k of C S
+  const int pw = 16 * warp;
+  float S[KN][4];
+#pragma unroll
+  for (int k = 0; k < KN; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) S[k][e] = 0.f;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int st = c & 1;
+    cp_async_wait<0>();                  // chunk c has landed
+    __syncthreads();                     // and chunk c - 1's reads are done
+    float nd = 0.f;
+    if (c + 1 < n_chunks) {
+      issue(c + 1, st ^ 1);
+      if (warp == kScanWarp) nd = load_dt(c + 1);
+    }
+    const float* xc = xs(st);
+    float* Bh = Bs(st);
+    float* Ch = Cs(st);
+    const float* dts = fs(st, 0);
+    const float* las = fs(st, 1);
+    const float* ela = fs(st, 2);
+    const float* wts = fs(st, 3);
+
+    // ---- B and C split once, for all the warps: in place (hi), their lo
+    // parts beside them; chunk c - 1's y out ----
+    split_rows<kTL, NP, LDB, kTThreads>(Bh, Bl);
+    split_rows<kTL, NP, LDB, kTThreads>(Ch, Cl);
+    static_assert(kTL * kTPB / 4 % kTThreads == 0, "whole rounds of float4");
+    if (c > 0) {
+#pragma unroll
+      for (int k = 0; k < kTL * kTPB / 4 / kTThreads; ++k)
+        store_y(c - 1, threadIdx.x + k * kTThreads);
+    }
+    __syncthreads();
+
+    // ---- M = (C B^T) .* seg over the keys s <= t, in six 16 x 8 tiles
+    // (rows 16 rt .., keys 8 j ..): warp 0 (0, 0), (0, 1); 1 (1, 0),
+    // (1, 1); 2 (1, 2); 3 (1, 3).  The state's k-steps read the pairs of
+    // columns (2c, 2c + 1) of C's and B's rows; hi * hi apart from the
+    // small terms.  M is written split, rows t, columns s ----
+    {
+      const int rt = warp == 0 ? 0 : 1;
+      const int j0 = warp < 2 ? 0 : warp;
+      const int nj = warp < 2 ? 2 : 1;
+      // [tile][k-step parity]: chains half as deep
+      float sc[2][2][4], scl[2][2][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[q][k][e] = scl[q][k][e] = 0.f;
+      const int ca = (16 * rt + g) * LDB + 2 * cq;
+#pragma unroll
+      for (int kk = 0; kk < KN; ++kk) {
+        const float2 h0 = ld2(Ch + ca + 8 * kk);
+        const float2 h1 = ld2(Ch + ca + 8 * LDB + 8 * kk);
+        const float2 l0 = ld2(Cl + ca + 8 * kk);
+        const float2 l1 = ld2(Cl + ca + 8 * LDB + 8 * kk);
+        const uint32_t ah[4] = {u32(h0.x), u32(h1.x), u32(h0.y), u32(h1.y)};
+        const uint32_t al[4] = {u32(l0.x), u32(l1.x), u32(l0.y), u32(l1.y)};
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (q < nj) {
+            const int o = (8 * (j0 + q) + g) * LDB + 8 * kk + 2 * cq;
+            const float2 bh = ld2(Bh + o), bl = ld2(Bl + o);
+            mma_tf32_1688(scl[q][kk & 1], al, u32(bh.x), u32(bh.y));
+            mma_tf32_1688(scl[q][kk & 1], ah, u32(bl.x), u32(bl.y));
+            mma_tf32_1688(sc[q][kk & 1], ah, u32(bh.x), u32(bh.y));
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (q < nj) {
+          float cb[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            cb[e] = (sc[q][0][e] + sc[q][1][e]) + (scl[q][0][e] + scl[q][1][e]);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int t = 16 * rt + g + 8 * r, s = 8 * (j0 + q) + 2 * cq;
+            const float lt = las[t];
+            const float v0 =
+                s <= t ? cb[2 * r] * fast_exp2(lt - las[s]) : 0.f;
+            const float v1 =
+                s + 1 <= t ? cb[2 * r + 1] * fast_exp2(lt - las[s + 1]) : 0.f;
+            uint32_t h0, l0, h1, l1;
+            split_tf32(v0, h0, l0);
+            split_tf32(v1, h1, l1);
+            *reinterpret_cast<float2*>(Mh + t * LDM + s) =
+                make_float2(__uint_as_float(h0), __uint_as_float(h1));
+            *reinterpret_cast<float2*>(Ml + t * LDM + s) =
+                make_float2(__uint_as_float(l0), __uint_as_float(l1));
+          }
+        }
+      }
+      if (warp == kScanWarp && c + 1 < n_chunks) scan_dt(st ^ 1, nd);
+    }
+    __syncthreads();
+
+    // ---- y^T of the warp's p-tile, t-tiles tb (rows t = 8 tb ..) ----
+    // C S: A = S^T from the registers (k-step k's pairs of columns as
+    // k-indices cq, cq + 4), B = C^T read as pairs (2c, 2c + 1) of C's rows
+    float yi[KL][4], yil[KL][4], yo[KL][2][4];   // yo: [.][key step parity]
+#pragma unroll
+    for (int tb = 0; tb < KL; ++tb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        yi[tb][e] = yil[tb][e] = yo[tb][0][e] = yo[tb][1][e] = 0.f;
+#pragma unroll
+    for (int k = 0; k < KN; ++k) {
+      uint32_t ah[4], al[4];
+      split_tf32(S[k][0], ah[0], al[0]);
+      split_tf32(S[k][2], ah[1], al[1]);
+      split_tf32(S[k][1], ah[2], al[2]);
+      split_tf32(S[k][3], ah[3], al[3]);
+#pragma unroll
+      for (int tb = 0; tb < KL; ++tb) {
+        const int o = (8 * tb + g) * LDB + 8 * k + 2 * cq;
+        const float2 bh = ld2(Ch + o), bl = ld2(Cl + o);
+        mma_tf32_1688(yil[tb], al, u32(bh.x), u32(bh.y));
+        mma_tf32_1688(yil[tb], ah, u32(bl.x), u32(bl.y));
+        mma_tf32_1688(yi[tb], ah, u32(bh.x), u32(bh.y));
+      }
+    }
+    // ((C B^T) .* seg) (dt x): A = (dt x)^T of the warp's columns, made
+    // and split here from rows c and c + 4 of x, B = M^T read as columns c
+    // and c + 4 of M's rows, keys s <= t
+#pragma unroll
+    for (int ks = 0; ks < KL; ++ks) {
+      uint32_t ah[4], al[4];
+      x_frag<LDX>(xc + (8 * ks + cq) * LDX + pw + g, dts[8 * ks + cq],
+             dts[8 * ks + cq + 4], ah, al);
+#pragma unroll
+      for (int tb = ks; tb < KL; ++tb) {
+        const int m = (8 * tb + g) * LDM + 8 * ks + cq;
+        mma_3xtf32(yo[tb][ks & 1], ah, al, u32(Mh[m]), u32(Mh[m + 4]),
+                   u32(Ml[m]), u32(Ml[m + 4]));
+      }
+    }
+    // y = ((C B^T) .* seg) (dt x) + exp(la) .* (C S): the fragment's rows
+    // are columns p, its columns steps t; into Ys, which the next split
+    // phase stores
+#pragma unroll
+    for (int tb = 0; tb < KL; ++tb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tl = 8 * tb + 2 * cq + (e & 1);
+        Ys[tl * LDY + pw + g + 8 * (e >> 1)] =
+            fmaf(ela[tl], yi[tb][e] + yil[tb][e],
+                 yo[tb][0][e] + yo[tb][1][e]);
+      }
+
+    // ---- carry: S^T' = exp(la_L) S^T + (dt x exp(la_L - la))^T B, NG
+    // n-tiles at a time, each sum in a fresh accumulator added by one FMA
+    // (A made from rows c and c + 4 of x, B read as rows c and c + 4 of
+    // B) ----
+    const float decay = ela[kTL - 1];
+#pragma unroll
+    for (int k0 = 0; k0 < KN; k0 += NG) {
+      float f[NG][4];
+#pragma unroll
+      for (int q = 0; q < NG; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[q][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KL; ++ks) {
+        const int s = 8 * ks + cq;
+        uint32_t ah[4], al[4];
+        x_frag<LDX>(xc + s * LDX + pw + g, dts[s] * wts[s],
+               dts[s + 4] * wts[s + 4], ah, al);
+#pragma unroll
+        for (int q = 0; q < NG; ++q) {
+          const int n = (8 * ks + cq) * LDB + 8 * (k0 + q) + g;
+          mma_3xtf32(f[q], ah, al, u32(Bh[n]), u32(Bh[n + 4 * LDB]),
+                     u32(Bl[n]), u32(Bl[n + 4 * LDB]));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < NG; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          S[k0 + q][e] = fmaf(S[k0 + q][e], decay, f[q][e]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kTL * kTPB / 4 / kTThreads; ++k)
+    store_y(n_chunks - 1, threadIdx.x + k * kTThreads);
+}
+
+template <int NK, int MINB>
+int launch_tf32(const void* x, const void* dt, const void* A, const void* Bm,
+                const void* Cm, void* y, int64_t b, int64_t t, int64_t h,
+                int64_t p, int64_t g, int64_t n, cudaStream_t stream) {
+  auto kernel = mamba2_ssd_kernel_tf32<NK, MINB>;
+  const size_t smem = Tf32Smem<NK>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto aligned = [](const void* ptr) {
+    return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+  };
+  const int x_vec = p % 4 == 0 && aligned(x);
+  const int bc_vec = n % 4 == 0 && aligned(Bm) && aligned(Cm);
+  const int y_vec = p % 4 == 0 && aligned(y);
+  dim3 grid(unsigned((p + kTPB - 1) / kTPB), unsigned(h), unsigned(b));
+  kernel<<<grid, kTThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(Bm),
       static_cast<const float*>(Cm), static_cast<float*>(y), int(t), int(h),
-      int(p), int(g), int(n));
+      int(p), int(g), int(n), x_vec, bc_vec, y_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_f32(const void* x, const void* dt, const void* A, const void* Bm,
-                 const void* Cm, void* y, int64_t b, int64_t t, int64_t h,
-                 int64_t p, int64_t g, int64_t n, cudaStream_t stream) {
-  if (n <= kGroups * 2)
-    return launch_f32<2>(x, dt, A, Bm, Cm, y, b, t, h, p, g, n, stream);
-  if (n <= kGroups * 4)
-    return launch_f32<4>(x, dt, A, Bm, Cm, y, b, t, h, p, g, n, stream);
-  if (n <= kGroups * 8)
-    return launch_f32<8>(x, dt, A, Bm, Cm, y, b, t, h, p, g, n, stream);
-  return launch_f32<16>(x, dt, A, Bm, Cm, y, b, t, h, p, g, n, stream);
+int dispatch_tf32(const void* x, const void* dt, const void* A,
+                  const void* Bm, const void* Cm, void* y, int64_t b,
+                  int64_t t, int64_t h, int64_t p, int64_t g, int64_t n,
+                  cudaStream_t stream) {
+  if (n <= 16)
+    return launch_tf32<1, 2>(x, dt, A, Bm, Cm, y, b, t, h, p, g, n, stream);
+  if (n <= 32)
+    return launch_tf32<2, 2>(x, dt, A, Bm, Cm, y, b, t, h, p, g, n, stream);
+  if (n <= 64)
+    return launch_tf32<4, 2>(x, dt, A, Bm, Cm, y, b, t, h, p, g, n, stream);
+  return launch_tf32<8, 1>(x, dt, A, Bm, Cm, y, b, t, h, p, g, n, stream);
 }
 
 }  // namespace
@@ -592,7 +924,7 @@ extern "C" int mamba2_ssd_launch(const void* x, const void* dt,
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return dispatch_f32(x, dt, A, Bm, Cm, y, b, t, h, p, g, n, s);
+    return dispatch_tf32(x, dt, A, Bm, Cm, y, b, t, h, p, g, n, s);
   if (dtype == DT_BF16)
     return dispatch_chunked(x, dt, A, Bm, Cm, y, b, t, h, p, g, n, s);
   return static_cast<int>(cudaErrorInvalidValue);

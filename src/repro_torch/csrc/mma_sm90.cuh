@@ -1,18 +1,21 @@
 // mma_sm90.cuh: the tensor-core and asynchronous-copy building blocks of
 // the bf16 kernels (flash_attention.cu, mamba2_ssd.cu, rwkv6_wkv.cu) and
-// of flash_attention's float32 path, as inline PTX for sm_90a.
+// of flash_attention's and mamba2_ssd's float32 paths, as inline PTX for
+// sm_90a.
 //
 //   * mma_bf16_16816: one warp-wide mma.sync.m16n8k16, bf16 operands,
 //     float32 accumulators (row-major A, column-major B).
 //   * mma_tf32_1688: one warp-wide mma.sync.m16n8k8, tf32 operands,
 //     float32 accumulators; split_tf32 cuts a float32 into a tf32 high
 //     part and a tf32 remainder, so that three such products (lo * hi,
-//     hi * lo, hi * hi) keep a float32 product to about 2^-22 (3xTF32).
+//     hi * lo, hi * hi: mma_3xtf32) keep a float32 product to about 2^-22
+//     (3xTF32); split_rows splits a shared tile once for all the warps.
 //   * ldmatrix_x4 / ldmatrix_x4_trans: four 8x8 bf16 tiles from shared
 //     memory into fragments; lane i gives the row address of tile i / 8.
 //   * cp_async_16: a 16-byte global -> shared copy that bypasses the
 //     registers (cp.async.cg); src_bytes < 16 zero-fills the rest, so a
-//     row past the end of a tensor lands as zeros.
+//     row past the end of a tensor lands as zeros.  cp_async_16_full: the
+//     same copy without that operand.
 //   * fast_exp2: 2^x on the special-function unit.
 //   * pack_bf16x2: two floats rounded to bf16 into one 32-bit register,
 //     the lower address in the low half (the mma operand order).
@@ -84,6 +87,44 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// split_tf32 of four floats, the parts as floats
+__device__ __forceinline__ void split_tf32x4(float4 v, float4& h, float4& l) {
+  uint32_t a, b;
+  split_tf32(v.x, a, b); h.x = __uint_as_float(a); l.x = __uint_as_float(b);
+  split_tf32(v.y, a, b); h.y = __uint_as_float(a); l.y = __uint_as_float(b);
+  split_tf32(v.z, a, b); h.z = __uint_as_float(a); l.z = __uint_as_float(b);
+  split_tf32(v.w, a, b); h.w = __uint_as_float(a); l.w = __uint_as_float(b);
+}
+
+// rows [0, ROWS) of x[ROWS][LD] (DP columns, a multiple of 4, 16-byte
+// aligned rows) split in place into their tf32 hi parts, the lo parts into
+// lo[ROWS][LD], by THREADS threads
+template <int ROWS, int DP, int LD, int THREADS>
+__device__ __forceinline__ void split_rows(float* x, float* lo) {
+  constexpr int CH = DP / 4;
+#pragma unroll
+  for (int k = 0; k < (ROWS * CH + THREADS - 1) / THREADS; ++k) {
+    const int i = threadIdx.x + k * THREADS;
+    if (ROWS * CH % THREADS != 0 && i >= ROWS * CH) break;
+    const int o = i / CH * LD + (i % CH) * 4;
+    float4 h, l;
+    split_tf32x4(*reinterpret_cast<float4*>(x + o), h, l);
+    *reinterpret_cast<float4*>(x + o) = h;
+    *reinterpret_cast<float4*>(lo + o) = l;
+  }
+}
+
+// acc += a * b in 3xTF32: lo * hi, then hi * lo, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32_1688(acc, al, bh0, bh1);
+  mma_tf32_1688(acc, ah, bl0, bl1);
+  mma_tf32_1688(acc, ah, bh0, bh1);
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
                                             const void* row) {
   asm volatile(
@@ -105,6 +146,15 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                                             int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+
+// the same copy of 16 bytes that are all there, without the source-size
+// operand: staging with cp_async_16's zero fill, its size chosen at run
+// time, made mamba2_ssd's float32 kernel 15-17 % slower (PERF.md), though
+// the instruction alone issues no slower (scripts/tf32_probe.py)
+__device__ __forceinline__ void cp_async_16_full(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -13,9 +13,10 @@ B and C are shared across head groups: head h reads group ``h // (H/G)``.
 the kernel of ``csrc/mamba2_ssd.cu`` or raise; fake tensors (the dry
 run's, which hold no data) give the output's shape and dtype and run no
 scan.  The kernel takes any T (the TPU launcher's ``t % chunk`` contract
-does not apply): bfloat16 inputs run
-the chunked dual form on the tensor cores (chunks of 64 steps, the state
-in float32), float32 inputs the sequential scan on the CUDA cores.  :func:`ssd_decode`
+does not apply) and runs the chunked dual form on the tensor cores, the
+state in float32: bfloat16 inputs in chunks of 64 steps on bf16 products,
+float32 inputs in chunks of 32 steps with every product in 3xTF32 (each
+operand split into two TF32 parts, three products).  :func:`ssd_decode`
 is one step of the recurrence, plain PyTorch on every device, as the
 reference's ``ssd_decode_ref``.
 

@@ -16,6 +16,7 @@ from repro.kernels.flash_attention.ref import (
 )
 from repro_torch.kernels.flash_attention import ops
 from torch_threads import one_thread  # noqa: F401 (autouse)
+from torch_tf32 import mma_chain, split_tf32
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -124,36 +125,13 @@ def test_bad_shapes_raise(shapes):
 # the end; each output column block's P V over a key tile in a fresh
 # accumulator (lo * hi, hi * lo, hi * hi a step), added to the rescaled
 # output by one FMA.  The kernel runs only on a card; here its arithmetic
-# runs in numpy, each mma modelled as one float32 rounding of the
-# accumulator plus its 8 exact products.
+# runs in numpy (``tests/torch_tf32.py``), each mma modelled as one float32
+# rounding of the accumulator plus its 8 exact products.
 
 # of max |attention_plain|: the cases below read 2.5e-7..1.2e-6, and
 # 2.7e-4..5.3e-4 with one pass (hi * hi alone)
 TF32_BOUND = 5e-6
 LOG2E = np.float32(1.4426950408889634)
-
-
-def tf32(x):
-    """cvt.rna.tf32.f32: add 0x1000 to the float32 magnitude's bits, clear
-    the low 13 (to nearest, ties away from zero)."""
-    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def split_tf32(x):
-    hi = tf32(x)
-    return hi, tf32(x - hi)
-
-
-def mma_chain(acc, pairs):
-    """acc [..., M, N] += x @ y for each (x [..., M, K], y [..., K, N]) of
-    ``pairs``, 8 deep a step, one mma a step and pair, in that order."""
-    for k0 in range(0, pairs[0][0].shape[-1], 8):
-        for x, y in pairs:
-            prod = x[..., k0:k0 + 8].astype(np.float64) @ \
-                y[..., k0:k0 + 8, :].astype(np.float64)
-            acc = (acc.astype(np.float64) + prod).astype(np.float32)
-    return acc
 
 
 def attention_3xtf32(q, k, v, causal, window, passes=3):

@@ -69,6 +69,8 @@ def test_flash_attention_matches_plain(card, dtype, b, hq, hkv, sq, sk, d,
     (1, 4097, 4, 64, 1, 64),
     (1, 300, 4, 64, 2, 128),    # the largest state
     (1, 256, 8, 64, 1, 64),     # zamba2's
+    (2, 1024, 112, 64, 1, 64),  # zamba2-7b's train step, B = 2
+    (1, 65, 4, 37, 2, 30),      # P, N % 4 != 0: plain loads, odd P
 ])
 def test_ssd_matches_plain(card, dtype, b, t, h, p, g, n):
     rng = np.random.default_rng(1)

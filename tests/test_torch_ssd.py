@@ -5,6 +5,7 @@ Inputs come from numpy with a seed.  The kernel runs only on a card
 (``tests/test_torch_kernels_cuda.py``).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import torch
 
 from repro.kernels.mamba2_ssd.ref import ssd_decode_ref, ssd_ref
 from repro_torch.kernels.mamba2_ssd import ops
+from torch_tf32 import mma_chain, split_tf32
 from torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 2e-5
@@ -141,3 +143,125 @@ def test_bad_shapes_raise():
         ops.ssd(x, dt[:, :4], A, Bm, Cm)
     with pytest.raises(ValueError):                  # 3 heads, 2 groups
         ops.ssd(x, dt, A, torch.cat([Bm, Bm], 2), torch.cat([Cm, Cm], 2))
+
+
+# --- the float32 kernel's arithmetic (3xTF32 on mma.sync), emulated ---------
+#
+# csrc/mamba2_ssd.cu's float32 path computes the chunked dual form in
+# chunks of 32 steps: la = cumsum(dt A log2 e) from the chunk's start by the
+# warp's shuffle scan (a tree of float32 sums), seg = exp2(la_t - la_s);
+# every product in 3xTF32, 8 deep a step (tests/torch_tf32.py), in the
+# kernel's term order: C B^T and C S_in with the hi * hi products apart
+# from the small terms, added at the end, and C B^T and ((C B^T) .* seg)
+# (dt x) with their even and odd k-steps apart; the carry's B^T (dt x
+# exp2(la_L - la)) in a fresh accumulator, added to the decayed state by
+# one FMA; the state carried in float32 and split for C S_in.  The kernel
+# runs only on a card; here its arithmetic runs in numpy.
+
+# of max |ssd_plain| and of max |ssd_ref|: the cases below read
+# 9.3e-8..3.2e-6, and 1.6e-4..5.0e-3 with one pass (hi * hi alone)
+TF32_BOUND = 1e-5
+CHUNK = 32
+LOG2E = np.float32(1.4426950408889634)
+# compiled once a shape: both input kinds of a case share it
+ssd_ref_jit = jax.jit(ssd_ref)
+
+
+def warp_scan(v):
+    """Inclusive sums along the last axis (32 lanes) in the order of
+    __shfl_up_sync's tree, each sum a float32 rounding."""
+    v = v.copy()
+    for o in (1, 2, 4, 8, 16):
+        v[..., o:] = v[..., o:] + v[..., :-o]
+    return v
+
+
+def ssd_3xtf32(x, dt, A, Bm, Cm, passes=3):
+    """The float32 kernel's SSD on numpy inputs x [B,T,H,P], dt [B,T,H],
+    A [H], Bm/Cm [B,T,G,N]; ``passes`` 1 keeps hi * hi alone."""
+    b, t, h, p = x.shape
+    g, n = Bm.shape[2:]
+    npad = -(-n // 16) * 16
+    nc = -(-t // CHUNK)
+    tpad = nc * CHUNK - t
+
+    def chunks(v, last=0):     # [B, T, H, K] -> [B, H, nc, L, K]
+        v = np.pad(v, [(0, 0), (0, tpad), (0, 0), (0, last)])
+        return np.moveaxis(v.reshape(b, nc, CHUNK, *v.shape[2:]), 3, 1)
+
+    xs, ds = chunks(x), chunks(dt[..., None])[..., 0]
+    Bs = np.repeat(chunks(Bm, npad - n), h // g, axis=1)
+    Cs = np.repeat(chunks(Cm, npad - n), h // g, axis=1)
+    a2 = (A * LOG2E).astype(np.float32)[None, :, None, None]
+    la = warp_scan((ds * a2).astype(np.float32))       # [B, H, nc, L]
+    ela = np.exp2(la)
+    w = np.exp2(la[..., -1:] - la)
+    tri = np.tri(CHUNK, dtype=bool)
+    with np.errstate(over="ignore"):
+        seg = np.where(tri, np.exp2(la[..., :, None] - la[..., None, :]),
+                       np.float32(0))
+    S = np.zeros((b, h, npad, p), np.float32)
+    y = np.zeros((b, h, nc, CHUNK, p), np.float32)
+
+    def product(acc, a, b, small, parity=None):
+        """acc += a @ b, the small terms in the order ``small`` of
+        ("lo", "hi") pairs naming a's and b's parts, then hi * hi."""
+        (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+        part = {"hi": (ah, bh), "lo": (al, bl)}
+        pairs = [(part[i][0], part[j][1]) for i, j in small] \
+            if passes == 3 else []
+        return mma_chain(acc, pairs + [(ah, bh)], parity)
+
+    def parities(fn):          # the even and the odd k-steps apart, added
+        return fn(0) + fn(1)
+
+    for c in range(nc):
+        x_c, d_c, B_c, C_c = xs[:, :, c], ds[:, :, c], Bs[:, :, c], Cs[:, :, c]
+        xd = d_c[..., None] * x_c
+        xw = (d_c * w[:, :, c])[..., None] * x_c
+        (Ch, Cl), (Bh, Bl), (Sh, Sl) = (split_tf32(v) for v in (C_c, B_c, S))
+        BhT, BlT = Bh.swapaxes(-1, -2), Bl.swapaxes(-1, -2)
+        zero = np.zeros((b, h, CHUNK, CHUNK), np.float32)
+        # C B^T (by k-step parity) and C S_in: hi * hi apart from the
+        # small terms
+        cb = parities(lambda k: mma_chain(zero, [(Ch, BhT)], k))
+        cs = mma_chain(np.zeros_like(x_c), [(Ch, Sh)])
+        if passes == 3:
+            cb = cb + parities(
+                lambda k: mma_chain(zero, [(Cl, BhT), (Ch, BlT)], k))
+            cs = cs + mma_chain(np.zeros_like(x_c), [(Ch, Sl), (Cl, Sh)])
+        # the kernel takes y^T = (dt x)^T M^T (by key-step parity) and S^T'
+        # from (dt x w)^T B: their small terms lo * hi of (dt x), then
+        # hi * lo
+        m_c = cb * seg[:, :, c]
+        yo = parities(lambda k: product(np.zeros_like(x_c), m_c, xd,
+                                        [("hi", "lo"), ("lo", "hi")], k))
+        y[:, :, c] = (ela[:, :, c, :, None].astype(np.float64) * cs
+                      + yo).astype(np.float32)
+        f = product(np.zeros_like(S), B_c.swapaxes(-1, -2), xw,
+                    [("hi", "lo"), ("lo", "hi")])
+        S = (S.astype(np.float64) * ela[:, :, c, -1, None, None]
+             + f).astype(np.float32)
+    return np.moveaxis(y.reshape(b, h, nc * CHUNK, p), 1, 2)[:, :t]
+
+
+@pytest.mark.parametrize("inputs", ["strong decays", "unit normal"])
+@pytest.mark.parametrize("n", [16, 64, 128])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("t", [1, 37, 65, 130])
+def test_3xtf32_arithmetic_is_float32_accurate(inputs, n, g, t):
+    """The float32 kernel's arithmetic within TF32_BOUND of max |y| of
+    ssd_plain and of ssd_ref; the same arithmetic in one pass (the lo terms
+    dropped) misses it."""
+    if inputs == "strong decays":
+        args = _strong_decays(t, g, h=4, n=n)
+    else:
+        args = rand_ssd(8, 2, t, 4, 8, g, n)
+    plain = ops.ssd_plain(*(torch.from_numpy(a) for a in args)).numpy()
+    ref = np.asarray(ssd_ref_jit(*(jnp.asarray(a) for a in args)))
+    got3, got1 = ssd_3xtf32(*args), ssd_3xtf32(*args, passes=1)
+    for want in (plain, ref):
+        top = np.abs(want).max()
+        err3, err1 = np.abs(got3 - want).max(), np.abs(got1 - want).max()
+        assert err3 <= TF32_BOUND * top, (err3 / top, TF32_BOUND)
+        assert err1 > TF32_BOUND * top, (err1 / top, TF32_BOUND)
