@@ -3445,9 +3445,8 @@ def wkv_inputs(torch, case, dtype, seed, dev):
 
 def phase_model_kernels(torch, mods, dev):
     """Each float kernel against its plain version at its cases in
-    float32 and bf16; ``agree["flash_attention"].float32_worst`` is the
-    worst float32 reading of the attention cases, relative to max
-    |plain|."""
+    float32 and bf16; ``agree[name].float32_worst`` is the worst float32
+    reading of a kernel's cases, relative to max |plain|."""
     agree = {name: FloatAgreement() for name in FLOAT_KERNELS}
     f32_worst = 0.0
     for i, case in enumerate(FA_CASES):
@@ -3484,17 +3483,23 @@ def phase_model_kernels(torch, mods, dev):
     agree["mamba2_ssd"].float32_worst = f32_worst
     log(f"[kernels] mamba2_ssd float32 (3xTF32): worst reading "
         f"{f32_worst:.3e} of max|plain| over the {len(SSD_CASES)} cases")
+    f32_worst = 0.0
     for i, case in enumerate(WKV_CASES):
         for dname in ("float32", "bfloat16"):
             args = wkv_inputs(torch, case, _dtype(torch, dname), 500 + i, dev)
             got = mods.wkv_ops.wkv6(*args)
             want = mods.wkv_ops.wkv6_plain(*args)
             torch.cuda.synchronize()
-            agree["rwkv6_wkv"].add(
+            rel = agree["rwkv6_wkv"].add(
                 got, want, FLOAT_TOL[dname],
                 f"rwkv6_wkv {case[0]} (B, H, T, K, V) = {tuple(case[1:6])} "
                 f"{case[6]} decays {dname}", relative=True)
+            if dname == "float32":
+                f32_worst = max(f32_worst, rel)
             del args, got, want
+    agree["rwkv6_wkv"].float32_worst = f32_worst
+    log(f"[kernels] rwkv6_wkv float32 (3xTF32): worst reading "
+        f"{f32_worst:.3e} of max|plain| over the {len(WKV_CASES)} cases")
     torch.cuda.empty_cache()
     return agree
 
@@ -4837,11 +4842,12 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
         library_ms=None, flops=flops, bytes=nbytes)
     f32 = [a.float() for a in (r, kk, vv, w)]
     f32_ms = cuda_ms(torch, lambda: mods.wkv_ops.wkv6(*f32, u), 10)
-    log(f"[time] rwkv6_wkv float32 at the same shape: {f32_ms:.4f} ms a "
-        f"wrapper call (cuda events); the sequential form on the float32 "
-        f"CUDA cores needs at least "
-        f"{out['rwkv6_wkv']['flops'] / F32_CUDA_CORE_FLOPS_PER_S * 1e3:.4f}"
-        f" ms (67 TFLOP/s)")
+    f32_flops, f32_bytes = wkv_work(case, 4)
+    log(f"[time] rwkv6_wkv float32 (3xTF32) at the same shape: "
+        f"{f32_ms:.4f} ms a wrapper call (cuda events); bound: operations "
+        f"at 3xTF32's 495/3 TFLOP/s "
+        f"{f32_flops / F32_3XTF32_FLOPS_PER_S * 1e3:.4f} ms, bytes "
+        f"{f32_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
     del r, kk, vv, w, u, f32
 
     for name, r in out.items():
@@ -4865,13 +4871,14 @@ def phase_model_timings(torch, mods, dev, prefill_per_launch):
             f"{r['plain_ms']:.6f} ms, library {lib}")
     return out
 
-# float32, the type of training and of every mesh phase (attention's and
-# the SSD's 3xTF32 paths on the tensor cores, the WKV's ``*_kernel_f32``
-# path on the CUDA cores), at the shapes those paths give the kernels:
-# attention (label, B, Hq, Hkv, Sq, Sk, D, causal, window) as FA_CASES, the
-# SSD as SSD_CASES (zamba2-7b's train step, its float32 prefill in
-# [zamba2], and a rank's head block in [train_mesh]'s and [decode_mesh]'s
-# "hybrid" cases), the WKV as WKV_CASES
+# float32, the type of training and of every mesh phase (every float
+# kernel's 3xTF32 path on the tensor cores), at the shapes those paths
+# give the kernels: attention (label, B, Hq, Hkv, Sq, Sk, D, causal,
+# window) as FA_CASES, the SSD as SSD_CASES (zamba2-7b's train step, its
+# float32 prefill in [zamba2], and a rank's head block in [train_mesh]'s
+# and [decode_mesh]'s "hybrid" cases), the WKV as WKV_CASES (rwkv6-7b's
+# train step, its float32 prefill in [rwkv6], and a rank's block in
+# [train_mesh]'s and [decode_mesh]'s "ssm" cases)
 F32_FA_SHAPES = [
     ("zamba2-7b train", 2, 32, 32, 1024, 1024, 112, True, None),
     ("qwen1.5-4b train", 2, 20, 20, 1024, 1024, 128, True, None),
@@ -4884,7 +4891,12 @@ F32_SSD_SHAPES = [
     ("train_mesh hybrid rank", 1, 1024, 56, 64, 1, 64),
     ("decode_mesh hybrid rank", 1, 40, 56, 64, 1, 64),
 ]
-F32_WKV_SHAPE = ("rwkv6-7b train", 2, 64, 1024, 64, 64, "moderate")
+F32_WKV_SHAPES = [
+    ("rwkv6-7b train", 2, 64, 1024, 64, 64, "moderate"),
+    ("rwkv6-7b prefill", PROMPT_BATCH, 64, PROMPT_LEN, 64, 64, "moderate"),
+    ("train_mesh ssm rank", 1, 32, 1024, 64, 64, "moderate"),
+    ("decode_mesh ssm rank", 2, 32, 16, 64, 64, "moderate"),
+]
 
 
 def phase_float32_times(torch, mods, dev):
@@ -4892,18 +4904,17 @@ def phase_float32_times(torch, mods, dev):
     F32_FA_SHAPES row by ``fa_times`` beside its two bounds (3xTF32 and
     the CUDA cores) and SDPA; each F32_SSD_SHAPES row beside its bound
     (bytes at 3.35 TB/s against operations at 3xTF32's 495/3 TFLOP/s), the
-    CUDA cores' bound (67 TFLOP/s) and its plain version; the WKV at
-    F32_WKV_SHAPE beside its bound (bytes against operations at 67
-    TFLOP/s, its kernel's CUDA cores) and its plain version."""
+    CUDA cores' bound (67 TFLOP/s) and its plain version; each
+    F32_WKV_SHAPES row likewise."""
     tag = "time_f32"
     out = {"flash_attention": fa_times(torch, mods, dev, F32_FA_SHAPES, tag,
                                        95, dtype=torch.float32)}
-    rows = [("mamba2_ssd", case, ssd_inputs, ssd_work, 96 + i,
-             F32_3XTF32_FLOPS_PER_S, "3xTF32's 495/3")
+    rows = [("mamba2_ssd", case, ssd_inputs, ssd_work, 96 + i)
             for i, case in enumerate(F32_SSD_SHAPES)]
-    rows.append(("rwkv6_wkv", F32_WKV_SHAPE, wkv_inputs, wkv_work, 97,
-                 F32_CUDA_CORE_FLOPS_PER_S, "67"))
-    for name, case, make, work, seed, flops_per_s, rate in rows:
+    rows += [("rwkv6_wkv", case, wkv_inputs, wkv_work, 196 + i)
+             for i, case in enumerate(F32_WKV_SHAPES)]
+    flops_per_s = F32_3XTF32_FLOPS_PER_S
+    for name, case, make, work, seed in rows:
         args = make(torch, case, torch.float32, seed, dev)
         kernel, plain = _wrapper(mods, name), _plain(mods, name)
         FloatAgreement().add(kernel(*args), plain(*args), FLOAT_TOL["float32"],
@@ -4918,22 +4929,18 @@ def phase_float32_times(torch, mods, dev):
         t_ops = flops / flops_per_s
         t_bytes = nbytes / HBM_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
+        cc = max(flops / F32_CUDA_CORE_FLOPS_PER_S, t_bytes) * 1e3
         row = dict(ms=ms, ms_back_to_back=ms_10, bound_ms=bound,
-                   plain_ms=plain_ms, library_ms=None,
+                   bound_cuda_core_ms=cc, plain_ms=plain_ms, library_ms=None,
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
-        extra = ""
-        if flops_per_s != F32_CUDA_CORE_FLOPS_PER_S:
-            cc = max(flops / F32_CUDA_CORE_FLOPS_PER_S, t_bytes) * 1e3
-            row["bound_cuda_core_ms"] = cc
-            extra = (f"; at the CUDA cores' 67 TFLOP/s {cc:.6f} ms "
-                     f"({ms / cc:.2f}x)")
         out.setdefault(name, {})[case[0]] = row
         log(f"[{tag}] {name} float32 {case[0]} {tuple(case[1:])}: {ms:.6f} "
             f"ms a call (cuda events; {ms_10:.6f} in runs of 10 back to "
             f"back), bound {bound:.6f} ms "
-            f"({row['bound_by']}: {flops} flop at {rate} TFLOP/s "
+            f"({row['bound_by']}: {flops} flop at 3xTF32's 495/3 TFLOP/s "
             f"{t_ops * 1e3:.6f} ms, {nbytes} B {t_bytes * 1e3:.6f} ms), "
-            f"{ms / bound:.2f}x the bound{extra}; plain {plain_ms:.3f} ms")
+            f"{ms / bound:.2f}x the bound; at the CUDA cores' 67 TFLOP/s "
+            f"{cc:.6f} ms ({ms / cc:.2f}x); plain {plain_ms:.3f} ms")
         del args
     torch.cuda.empty_cache()
     return out
@@ -6168,8 +6175,9 @@ def main(argv=None) -> int:
     fa["kimi_bf16_ms"] = kimi["bf16"]["per_launch_ms"].get("flash_attention")
     fa["bf16_shape_ms"] = {**dense["times"], **zoo_times}
     fa["float32_max_rel_err"] = float_ok["flash_attention"].float32_worst
-    next(k for k in kernels if k["name"] == "mamba2_ssd")[
-        "float32_max_rel_err"] = float_ok["mamba2_ssd"].float32_worst
+    for name in ("mamba2_ssd", "rwkv6_wkv"):
+        next(k for k in kernels if k["name"] == name)[
+            "float32_max_rel_err"] = float_ok[name].float32_worst
     # float32, the train and mesh paths' type, at their shapes in one
     # process: each beside its bound (and SDPA for attention)
     for k in kernels:

@@ -529,43 +529,6 @@ struct Tf32Smem {
                                          // exp(la_L - la)
 };
 
-// rows [t0, t0 + kTL) of a [T, *]-strided float32 matrix, `cols` real
-// columns, into dst[kTL][LD], WIDTH columns (a multiple of 4), zero past T
-// and past cols.  vec: 16-byte cp.async (cols a multiple of 4, aligned
-// rows; the zeros by plain stores), else plain loads.
-template <int WIDTH, int LD>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          int64_t row_stride, int t0,
-                                          int t_len, int cols, bool vec) {
-  constexpr int CH = WIDTH / 4;
-  static_assert(kTL * CH % kTThreads == 0, "whole rounds of 16 bytes");
-  if (vec) {
-#pragma unroll
-    for (int k = 0; k < kTL * CH / kTThreads; ++k) {
-      const int i = threadIdx.x + k * kTThreads;
-      const int r = i / CH, c = (i % CH) * 4;
-      float* dp = dst + r * LD + c;
-      if (c < cols && t0 + r < t_len)
-        cp_async_16_full(dp, src + (t0 + r) * row_stride + c);
-      else
-        *reinterpret_cast<float4*>(dp) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kTL * WIDTH; i += kTThreads) {
-      const int r = i / WIDTH, c = i % WIDTH;
-      float val = 0.f;
-      if (t0 + r < t_len && c < cols) val = src[(t0 + r) * row_stride + c];
-      dst[r * LD + c] = val;
-    }
-  }
-}
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ uint32_t u32(float v) { return __float_as_uint(v); }
-
 // the A fragment (16 columns p x 8 steps s) of (d x)^T, split: x0 points at
 // x[s = c][p = g] of a tile of rows LDX apart, d0 and d1 scale the steps c
 // and c + 4
@@ -627,12 +590,12 @@ mamba2_ssd_kernel_tf32(const float* __restrict__ x,
   // per stage: dt, la (log2 units), exp(la), exp(la_L - la)
   auto fs = [&](int st, int which) { return fst + (st * 4 + which) * kTL; };
   auto issue = [&](int c, int st) {
-    stage_f32<kTPB, LDX>(xs(st), xb, x_stride, c * kTL, t_len, p_cols,
-                         x_vec);
-    stage_f32<NP, LDB>(Bs(st), Bb, bc_stride, c * kTL, t_len, n_state,
-                       bc_vec);
-    stage_f32<NP, LDB>(Cs(st), Cb, bc_stride, c * kTL, t_len, n_state,
-                       bc_vec);
+    stage_rows_f32<kTL, kTPB, LDX, kTThreads>(xs(st), xb, x_stride, c * kTL,
+                                              t_len, p_cols, x_vec);
+    stage_rows_f32<kTL, NP, LDB, kTThreads>(Bs(st), Bb, bc_stride, c * kTL,
+                                            t_len, n_state, bc_vec);
+    stage_rows_f32<kTL, NP, LDB, kTThreads>(Cs(st), Cb, bc_stride, c * kTL,
+                                            t_len, n_state, bc_vec);
     cp_async_commit();
   };
   // chunk c's y, which the warps left in Ys, as float4 rows where P allows

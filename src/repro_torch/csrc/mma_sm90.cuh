@@ -1,7 +1,6 @@
 // mma_sm90.cuh: the tensor-core and asynchronous-copy building blocks of
-// the bf16 kernels (flash_attention.cu, mamba2_ssd.cu, rwkv6_wkv.cu) and
-// of flash_attention's and mamba2_ssd's float32 paths, as inline PTX for
-// sm_90a.
+// the float kernels (flash_attention.cu, mamba2_ssd.cu, rwkv6_wkv.cu), in
+// bf16 and in float32 (3xTF32), as inline PTX for sm_90a.
 //
 //   * mma_bf16_16816: one warp-wide mma.sync.m16n8k16, bf16 operands,
 //     float32 accumulators (row-major A, column-major B).
@@ -15,7 +14,9 @@
 //   * cp_async_16: a 16-byte global -> shared copy that bypasses the
 //     registers (cp.async.cg); src_bytes < 16 zero-fills the rest, so a
 //     row past the end of a tensor lands as zeros.  cp_async_16_full: the
-//     same copy without that operand.
+//     same copy without that operand; stage_rows_f32 stages a float32
+//     tile's rows with it.
+//   * ld2, u32: a float2 from shared memory; a float's bits.
 //   * fast_exp2: 2^x on the special-function unit.
 //   * pack_bf16x2: two floats rounded to bf16 into one 32-bit register,
 //     the lower address in the low half (the mma operand order).
@@ -165,6 +166,45 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
+
+// rows [t0, t0 + ROWS) of a [T, *]-strided float32 matrix, `cols` real
+// columns, into dst[ROWS][LD], WIDTH columns (a multiple of 4), zero past
+// T and past cols, by THREADS threads.  vec: 16-byte cp.async without the
+// source-size operand (cols a multiple of 4, aligned rows; the zeros by
+// plain stores), else plain loads.
+template <int ROWS, int WIDTH, int LD, int THREADS>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
+                                               int64_t row_stride, int t0,
+                                               int t_len, int cols,
+                                               bool vec) {
+  constexpr int CH = WIDTH / 4;
+  static_assert(ROWS * CH % THREADS == 0, "whole rounds of 16 bytes");
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < ROWS * CH / THREADS; ++k) {
+      const int i = threadIdx.x + k * THREADS;
+      const int r = i / CH, c = (i % CH) * 4;
+      float* dp = dst + r * LD + c;
+      if (c < cols && t0 + r < t_len)
+        cp_async_16_full(dp, src + (t0 + r) * row_stride + c);
+      else
+        *reinterpret_cast<float4*>(dp) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * WIDTH; i += THREADS) {
+      const int r = i / WIDTH, c = i % WIDTH;
+      float val = 0.f;
+      if (t0 + r < t_len && c < cols) val = src[(t0 + r) * row_stride + c];
+      dst[r * LD + c] = val;
+    }
+  }
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ uint32_t u32(float v) { return __float_as_uint(v); }
 
 // 2^x on the special-function unit (ex2.approx.ftz: about 2 ulp; -inf
 // gives +0), what exp2f becomes under --use_fast_math

@@ -16,7 +16,9 @@
 // at rwkv6-7b's prefill shape (4096 tokens, 64 heads, K = V = 64, bf16)
 // 167.8 MB, 0.050 ms at 3.35 TB/s.  The sequential form does 7 K V flops a
 // step, 7.5 GFLOP (8 us at the bf16 tensor-core peak, 112 us on the
-// float32 CUDA cores).
+// float32 CUDA cores); in float32 at rwkv6-7b's train shape (2 x 1024
+// tokens) the same 167.8 MB against 3.76 GFLOP, 0.023 ms at 3xTF32's
+// 495/3 TFLOP/s.
 //
 // Two paths, picked by the element type:
 //
@@ -83,32 +85,57 @@
 //     narrower loads.  Dynamic shared memory 202,240 B at K = 64 (v in a
 //     ring of 3 chunks, two operand sets, the state's hi and lo twice).
 //
-// float32: rwkv6_wkv_kernel_f32, the sequential form on the float32 CUDA
-//   cores (TF32 would miss the float32 tolerance of 1e-4), latency-bound on
-//   its step, with the state in registers.
-//   * grid = (ceil(V / 16), H, B); a block of 128 threads owns 16 value
-//     columns of one (batch, head)'s state for the whole sequence: thread
-//     (pl, ng) keeps, of column pl, the 4 J states k = 32 j + 4 ng + e
-//     (j < J, e < 4; J = ceil(K / 32) a template parameter) in registers.
-//   * The block walks T in chunks of 32 steps.  Each chunk's r, k and w rows
-//     (K padded with zeros to 32 J) and v columns are staged in shared
-//     memory as float32.  The global loads of chunk c + 1 go to registers
-//     before chunk c's steps run, so their latency hides behind the steps
-//     (the staging loads, waited for in place, had cost the first design
-//     more than half its time).  Each thread runs the 32 steps from shared
-//     memory, reading its r, k, w slices as float4s (a column's 8 threads
-//     read 128 contiguous bytes: no bank conflicts).  A step's only
-//     dependent chain is the thread's partial sum of y_t over its k; the
-//     partials go to shared memory, and the sum over a column's 8 threads is
-//     taken once a chunk, in the coalesced store of the chunk's y tile.
-//   * Any T: the last chunk is cut short; any V: columns past V stay zero
-//     and are not stored; K <= 64: padded keys have k = 0, so their states
-//     stay 0.
+// float32: rwkv6_wkv_kernel_tf32, the same chunked form on the tensor cores
+//   in 3xTF32.  One TF32 product keeps 11 significant bits, which misses
+//   the float32 tolerance of 1e-4; three keep about 22: each operand x is
+//   split into hi = tf32(x) and lo = tf32(x - hi) (split_tf32,
+//   mma_sm90.cuh), and a product is hi * hi plus the small terms lo * hi
+//   and hi * lo, each a mma.sync.m16n8k8 with tf32 operands and float32
+//   accumulators.
+//   * Chunks of L = 32 steps; grid = (ceil(V / 64), H, B); a block of 8
+//     warps owns 64 state columns of one (batch, head), so a head's chunk
+//     operands are built once, and walks its chunks in order (rwkv6-7b's
+//     train step: 128 blocks, one an SM).
+//   * The pairs of A by levels, as above, with every factor a product of
+//     w in float32: levels 16 and 8 (X_16, X_8) on the tensor cores, the
+//     pairs closer than 8 steps (inside an aligned 8-step block) and the
+//     bonus elementwise in float32 on the CUDA cores.
+//   * A chunk, between four barriers: (1) warp (kq, j) takes the 8-step
+//     block j, thread lane the key 32 kq + lane, its r, k, w read into
+//     registers a chunk ahead: the block's decay for the others, and the
+//     block's 28 pairs and 8 bonus terms, summed over the warp's keys by a
+//     transposing butterfly of shuffles (a fixed order); (2) the two key
+//     halves' sums added into A, the key tiles r P, k Q, X_16, X_8 as tf32
+//     hi and lo planes; (3) one 16 x 8 tile of a level product a warp of
+//     the first four into A (hi, lo); (4) warp (vw, kh), state columns
+//     16 vw .. and keys KH kh .. (KH = K / 2 padded): y^T = S^T (r P)^T
+//     over its keys (hi * hi apart from the small terms) plus V^T A^T for
+//     its t-tiles (kh 0: 0 .. 2, kh 1: 3), the two halves' partials added
+//     as y goes out a chunk later in float4 rows; the carry S^T = P_L .*
+//     S^T + V^T (k Q) over its keys, the chunk's sum in a fresh
+//     accumulator added by one FMA.  V^T's A fragments are split in
+//     registers once for both products.  The state stays float32 in
+//     registers across chunks and is never rounded: the carry's C
+//     fragments, each 8-column group permuted, are the A fragments of S^T
+//     (r P)^T.
+//   * v by cp.async (double-buffered; whole rows without the source-size
+//     operand, rows past T zeroed by stores; plain loads where V is not a
+//     multiple of 4).  Every fragment read is conflict-free: float2 pairs
+//     (2c, 2c + 1) of a row g, or rows c and c + 4, by the row strides.
+//     Staging r, k and w by cp.async as well, in place of the registers,
+//     was 5 % slower: the copies' issue cost the same.
+//   * Any T (steps past T read as r = k = v = 0, w = 0), any V, K <= 64
+//     padded with zeros to a multiple of 16 (NK = K / 16); dynamic shared
+//     memory 120,640 B at K = 64 (one block an SM).
+//   * No atomics, a fixed order of every sum: equal inputs give equal bits,
+//     and a (batch, head)'s arithmetic does not depend on B, H or the grid.
 //
 // Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): the bf16 path
 // at (1, 64, 4096, 64, 64), profiler device time a call in rwkv6-7b's bf16
 // prefill, 0.206161 ms, 814 GB/s, 4.1x the byte bound (the sequential form
-// took 0.679579 ms); the float32 path 0.6824 ms a call (PERF.md).
+// took 0.679579 ms).  Float32 at rwkv6-7b's train shape (2, 64, 1024, 64,
+// 64): see PERF.md (the sequential kernel it replaced took 0.388-0.446 ms
+// a call).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -616,161 +643,487 @@ int dispatch_chunked(const void* r, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// float32: sequential on the CUDA cores
+// float32: the chunked form on the tensor cores, 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int kCols = 16;                // value columns per block
-constexpr int kGroups = 8;               // threads sharing a column (split k)
-constexpr int kThreads = kCols * kGroups;
-constexpr int kChunk = 32;               // time steps staged at once
-static_assert(kGroups == 8, "the y partials are summed as two float4s");
-static_assert(kChunk * kCols % kThreads == 0 && 32 * kChunk % kThreads == 0,
-              "the staging loops give every thread the same trip count");
+constexpr int kTL = 32;                  // chunk length
+constexpr int kTSub = 8;                 // an 8-step block: its pairs are
+constexpr int kTBlocks = kTL / kTSub;    // elementwise
+constexpr int kTPB = 64;                 // state columns per block
+constexpr int kTWarps = 8;
+constexpr int kTThreads = 32 * kTWarps;
+constexpr int kTLDA = kTL + 4;           // A's row stride
+constexpr int kTLDV = kTPB + 8;          // v's row stride
+constexpr int kTLDY = kTPB + 4;          // y's row stride
+constexpr int kTLDE = 36;                // a block's 28 pairs and 8 bonuses
+static_assert(kTWarps == 2 * kTBlocks,
+              "the operands' build: a warp a (key half, 8-step block)");
+static_assert(kTWarps == 2 * (kTPB / 16),
+              "the products: a warp a (16 columns, key half)");
+static_assert(kTL == 32 && kTSub == 8,
+              "levels 16 and 8 on the tensor cores, the rest elementwise");
 
-// one state of the column: its share of y_t, then the decayed update
-__device__ __forceinline__ void wkv_step(float r, float k, float w, float u,
-                                         float v, float& s, float& acc) {
-  const float kv = k * v;
-  acc = fmaf(r, fmaf(u, kv, s), acc);
-  s = fmaf(w, s, kv);
+// the chunk's [L][LDK] key tiles, each as tf32 hi and lo planes, by index
+constexpr int F_RP = 0;   // r_t P_t
+constexpr int F_KQ = 1;   // k_s Q_s
+constexpr int F_X16 = 2;  // level 16: rows t >= 16 r_t prod_{16<=i<t} w_i,
+                          // rows t < 16 k_t prod_{t<i<16} w_i
+constexpr int F_X8 = 3;   // level 8, in each 16-step half: the upper 8 rows
+                          // r_t prod_{ref<=i<t} w_i, the lower 8 k_t
+                          // prod_{t<i<ref} w_i (ref: the upper 8's start)
+constexpr int kFTiles = 4;
+
+template <int NK>
+struct Tf32Smem {
+  static constexpr int KP = 16 * NK;     // padded key dim
+  // row strides (floats), each so that the lanes of a fragment load fall
+  // on distinct banks: the key tiles are read as float2 pairs (2c, 2c + 1)
+  // of a row g or as rows c and c + 4, v as rows c and c + 4 (stride = 8
+  // (mod 16)); A as columns c and c + 4 of a row g (= 4 (mod 32)); y is
+  // written as rows 2c and 2c + 1 (= 4 (mod 8))
+  static constexpr int LDK = KP + 8;
+  static constexpr int kTile = kTL * LDK;
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * kFTiles * kTile   // the key tiles, hi and lo
+                       + 2 * kTL * kTLDA     // A: hi, lo
+                       + 2 * kTL * kTLDV     // v, two stages
+                       + 2 * kTL * kTLDY     // y's two partial sums
+                       + (kTBlocks + 1) * KP // the blocks' decays, P_L
+                       + kTBlocks * kTLDE);  // the upper keys' pair sums
+};
+
+// x split into tf32 hi and lo, stored at hi and lo (two floats)
+__device__ __forceinline__ void put_split2(float* hi, float* lo, float2 x) {
+  uint32_t h0, l0, h1, l1;
+  split_tf32(x.x, h0, l0);
+  split_tf32(x.y, h1, l1);
+  *reinterpret_cast<float2*>(hi) =
+      make_float2(__uint_as_float(h0), __uint_as_float(h1));
+  *reinterpret_cast<float2*>(lo) =
+      make_float2(__uint_as_float(l0), __uint_as_float(l1));
 }
 
-template <int J>
-__global__ void __launch_bounds__(kThreads)
-rwkv6_wkv_kernel_f32(const float* __restrict__ r,
-                     const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ w,
-                     const float* __restrict__ u, float* __restrict__ y,
-                     int t_len, int h_heads, int k_dim, int v_dim) {
-  constexpr int KP = 32 * J;               // padded key dim
-  __shared__ __align__(16) float rs[kChunk][KP];
-  __shared__ __align__(16) float ks[kChunk][KP];
-  __shared__ __align__(16) float ws[kChunk][KP];
-  __shared__ float vs[kChunk][kCols];
-  __shared__ __align__(16) float ys[kChunk][kCols][kGroups];  // partials
+__device__ __forceinline__ void put_split(float* hi, float* lo, float x) {
+  uint32_t h, l;
+  split_tf32(x, h, l);
+  *hi = __uint_as_float(h);
+  *lo = __uint_as_float(l);
+}
 
-  const int tid = threadIdx.x;
-  const int pl = tid / kGroups, ng = tid % kGroups;
-  const int c0 = blockIdx.x * kCols;
-  const int h = blockIdx.y;
-  const int64_t bh = int64_t(blockIdx.z) * h_heads + h;
-  const float* rb = r + bh * t_len * k_dim;
-  const float* kb = k + bh * t_len * k_dim;
-  const float* wb = w + bh * t_len * k_dim;
-  const float* vb = v + bh * t_len * v_dim;
-  float* yb = y + bh * t_len * v_dim;
-
-  float S[J][4], U[J][4];
+// v[i] of every lane summed over the warp's 32 lanes, in a fixed order:
+// each step exchanges half of the values a lane keeps with the lane O
+// apart, so after log2(N) steps lane l keeps one sum in v[0], that of
+// value 16 b4 + 8 b3 + .. (the lane's bits from 16 down, as many as N
+// needs); the steps left add that sum over the remaining lanes.  Every
+// index is a constant (a loop whose bound is not would put v in local
+// memory).
+template <int N, int O = 16>
+__device__ __forceinline__ void warp_transpose_sum(float* v, int lane) {
+  static_assert(N >= 1 && (N & (N - 1)) == 0 && (O == 0 || N <= 2 * O),
+                "N: a power of 2, 1 .. 32");
+  if constexpr (O > 0) {
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+      const bool up = lane & O;
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kk = 32 * j + 4 * ng + e;
-      U[j][e] = kk < k_dim ? u[h * k_dim + kk] : 0.f;
-      S[j][e] = 0.f;
+      for (int i = 0; i < H; ++i) {
+        const float send = up ? v[i] : v[H + i];
+        const float keep = up ? v[H + i] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      warp_transpose_sum<H, O / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      warp_transpose_sum<1, O / 2>(v, lane);
     }
   }
+}
 
-  // this thread's share of a chunk of r, k, w (NL each) and v (NV)
-  constexpr int NL = kChunk * KP / kThreads, NV = kChunk * kCols / kThreads;
-  float pr[NL], pk[NL], pw[NL], pv[NV];
-  auto fetch = [&](int t0) {
-    const int tc = min(kChunk, t_len - t0);
+template <int NK>
+__global__ void __launch_bounds__(kTThreads, 1)
+rwkv6_wkv_kernel_tf32(const float* __restrict__ r,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ w,
+                      const float* __restrict__ u, float* __restrict__ y,
+                      int t_len, int h_heads, int k_dim, int v_dim,
+                      int v_vec, int y_vec) {
+  using Sm = Tf32Smem<NK>;
+  constexpr int KP = Sm::KP, LDK = Sm::LDK, TS = Sm::kTile;
+  constexpr int KH = KP / 2;             // a product warp's keys (NK n-tiles)
+  extern __shared__ __align__(16) unsigned char wt_smem[];
+  float* tiles = reinterpret_cast<float*>(wt_smem);  // [4][hi, lo][L][LDK]
+  float* Ah = tiles + 2 * kFTiles * TS;              // [L][kTLDA]
+  float* Al = Ah + kTL * kTLDA;
+  float* vs0 = Al + kTL * kTLDA;                     // [2][L][kTLDV]
+  float* Ys = vs0 + 2 * kTL * kTLDV;                 // [2][L][kTLDY]
+  float* gh = Ys + 2 * kTL * kTLDY;                  // [kTBlocks][KP]
+  float* PL = gh + kTBlocks * KP;                    // [KP]
+  float* Es = PL + KP;                               // [kTBlocks][kTLDE]
+  auto tile_hi = [&](int f) { return tiles + 2 * f * TS; };
+  auto tile_lo = [&](int f) { return tiles + (2 * f + 1) * TS; };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, cq = lane & 3;
+  const int v0 = blockIdx.x * kTPB;
+  const int h = blockIdx.y;
+  const int64_t bh = int64_t(blockIdx.z) * h_heads + h;
+  const int64_t koff = bh * t_len * k_dim;
+  const float* vb = v + bh * t_len * v_dim + v0;
+  float* yb = y + bh * t_len * v_dim + v0;
+  const int v_cols = min(kTPB, v_dim - v0);
+  const int n_chunks = (t_len + kTL - 1) / kTL;
+
+  // ---- the operands' build: thread (key 32 kq + lane, 8-step block bj:
+  // steps 8 bj .. 8 bj + 7) ----
+  const int kq = warp / kTBlocks, bj = warp % kTBlocks;
+  const int key = 32 * kq + lane;
+  const bool k_on = key < KP;            // its key is in the tiles
+  const int b0 = kTSub * bj;
+  const float uk = key < k_dim ? u[int64_t(h) * k_dim + key] : 0.f;
+  float nr[kTSub], nk[kTSub], nw[kTSub];  // the next chunk's, in flight
+  auto fetch = [&](int c) {
+    const int t0 = c * kTL + b0;
+    const int64_t off = koff + int64_t(t0) * k_dim + key;
+    const bool on = key < k_dim;
+    if (on && t0 + kTSub <= t_len) {
 #pragma unroll
-    for (int it = 0; it < NL; ++it) {
-      const int i = tid + it * kThreads;
-      const int tt = i / KP, kk = i % KP;
-      pr[it] = pk[it] = pw[it] = 0.f;
-      if (tt < tc && kk < k_dim) {
-        const int64_t off = int64_t(t0 + tt) * k_dim + kk;
-        pr[it] = rb[off];
-        pk[it] = kb[off];
-        pw[it] = wb[off];
+      for (int i = 0; i < kTSub; ++i) {
+        nr[i] = r[off + i * k_dim];
+        nk[i] = k[off + i * k_dim];
+        nw[i] = w[off + i * k_dim];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kTSub; ++i) {
+        const bool ok = on && t0 + i < t_len;
+        nr[i] = ok ? r[off + i * k_dim] : 0.f;
+        nk[i] = ok ? k[off + i * k_dim] : 0.f;
+        nw[i] = ok ? w[off + i * k_dim] : 0.f;
       }
     }
+  };
+  // after the warp's sums, lane l holds the pair (pt, ps) of its block (l <
+  // 28: l = pt (pt - 1) / 2 + ps) or the bonus of step l - 28
+  int pt = lane - 28, ps = lane - 28;
+  if (lane < 28) {
+    pt = 1;
+    while ((pt + 1) * pt / 2 <= lane) ++pt;
+    ps = lane - pt * (pt - 1) / 2;
+  }
+  auto vst = [&](int st) { return vs0 + st * kTL * kTLDV; };
+  auto stage = [&](int c, int st) {
+    stage_rows_f32<kTL, kTPB, kTLDV, kTThreads>(vst(st), vb, v_dim, c * kTL,
+                                                t_len, v_cols, v_vec);
+    cp_async_commit();
+  };
+  // chunk c's y: the sum of the two partials the product warps left in Ys
+  auto store_y = [&](int c) {
+    constexpr int CH = kTPB / 4;
 #pragma unroll
-    for (int it = 0; it < NV; ++it) {
-      const int i = tid + it * kThreads;
-      const int tt = i / kCols, c = i % kCols;
-      pv[it] = (tt < tc && c0 + c < v_dim)
-                   ? vb[int64_t(t0 + tt) * v_dim + c0 + c]
-                   : 0.f;
+    for (int kk = 0; kk < kTL * CH / kTThreads; ++kk) {
+      const int i = threadIdx.x + kk * kTThreads;
+      const int rr = i / CH, cc = (i % CH) * 4;
+      const int t = c * kTL + rr;
+      if (t >= t_len || cc >= v_cols) continue;
+      const float4 a = *reinterpret_cast<const float4*>(Ys + rr * kTLDY + cc);
+      const float4 b = *reinterpret_cast<const float4*>(
+          Ys + (kTL + rr) * kTLDY + cc);
+      const float4 s = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+      float* dst = yb + int64_t(t) * v_dim + cc;
+      if (y_vec) {
+        *reinterpret_cast<float4*>(dst) = s;
+      } else {
+        dst[0] = s.x;
+        if (cc + 1 < v_cols) dst[1] = s.y;
+        if (cc + 2 < v_cols) dst[2] = s.z;
+        if (cc + 3 < v_cols) dst[3] = s.w;
+      }
     }
   };
 
-  fetch(0);
-  for (int t0 = 0; t0 < t_len; t0 += kChunk) {
-    const int tc = min(kChunk, t_len - t0);
-    __syncthreads();                      // previous chunk fully consumed
+  // ---- the products' view: warp (vw, kh) = (value columns 16 vw .., keys
+  // KH kh ..): S^T [16 x KH] in registers, rows v = 16 vw + g (+ 8),
+  // columns KH kh + 8 n + 2 cq (+ 1): the carry's C fragments, and with
+  // each 8-column group permuted the A fragments of S^T (r P)^T ----
+  const int vw = warp % (kTPB / 16), kh = warp / (kTPB / 16);
+  float S[NK][4];
 #pragma unroll
-    for (int it = 0; it < NL; ++it) {
-      const int i = tid + it * kThreads;
-      const int tt = i / KP, kk = i % KP;
-      rs[tt][kk] = pr[it];
-      ks[tt][kk] = pk[it];
-      ws[tt][kk] = pw[it];
-    }
+  for (int n = 0; n < NK; ++n)
 #pragma unroll
-    for (int it = 0; it < NV; ++it) {
-      const int i = tid + it * kThreads;
-      vs[i / kCols][i % kCols] = pv[it];
-    }
-    __syncthreads();
-    if (t0 + kChunk < t_len) fetch(t0 + kChunk);   // in flight during steps
+    for (int e = 0; e < 4; ++e) S[n][e] = 0.f;
 
-#pragma unroll 4
-    for (int tt = 0; tt < tc; ++tt) {
-      const float vt = vs[tt][pl];
-      float acc = 0.f;
+  // A's entries above the diagonal of the 8-step blocks stay zero
+  for (int i = threadIdx.x; i < 2 * kTL * kTLDA; i += kTThreads) Ah[i] = 0.f;
+
+  fetch(0);
+  stage(0, 0);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int st = c & 1;
+    float cr[kTSub], ck[kTSub], cw[kTSub];
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int kk = 32 * j + 4 * ng;
-        const float4 r4 = *reinterpret_cast<const float4*>(&rs[tt][kk]);
-        const float4 k4 = *reinterpret_cast<const float4*>(&ks[tt][kk]);
-        const float4 w4 = *reinterpret_cast<const float4*>(&ws[tt][kk]);
-        wkv_step(r4.x, k4.x, w4.x, U[j][0], vt, S[j][0], acc);
-        wkv_step(r4.y, k4.y, w4.y, U[j][1], vt, S[j][1], acc);
-        wkv_step(r4.z, k4.z, w4.z, U[j][2], vt, S[j][2], acc);
-        wkv_step(r4.w, k4.w, w4.w, U[j][3], vt, S[j][3], acc);
+    for (int i = 0; i < kTSub; ++i) {
+      cr[i] = nr[i];
+      ck[i] = nk[i];
+      cw[i] = nw[i];
+    }
+    cp_async_wait<0>();                  // chunk c's v has landed
+    __syncthreads();                     // and chunk c - 1's products are done
+    if (c > 0) store_y(c - 1);
+    if (c + 1 < n_chunks) {
+      fetch(c + 1);                      // in flight during this chunk
+      stage(c + 1, st ^ 1);
+    }
+
+    // ---- the block's decay, for the other warps; the pairs closer than 8
+    // steps and the bonus, elementwise in float32, summed over the warp's
+    // keys; the upper keys' sums to Es ----
+    float e[32], e4[4];
+    {
+      float G = 1.f;
+#pragma unroll
+      for (int i = 0; i < kTSub; ++i) G *= cw[i];
+      if (k_on) gh[bj * KP + key] = G;
+      // e[t (t - 1) / 2 + s] = r_t k_s prod_{s<i<t} w_i (s < t), then the
+      // bonus r_t u k_t of steps 0 .. 3; e4 that of steps 4 .. 7
+#pragma unroll
+      for (int s = 0; s < kTSub - 1; ++s) {
+        float f = ck[s];
+#pragma unroll
+        for (int t = s + 1; t < kTSub; ++t) {
+          e[t * (t - 1) / 2 + s] = cr[t] * f;
+          if (t + 1 < kTSub) f *= cw[t];
+        }
       }
-      ys[tt][pl][ng] = acc;
+#pragma unroll
+      for (int t = 0; t < kTSub; ++t) {
+        const float b = cr[t] * uk * ck[t];
+        if (t < 4) e[28 + t % 4] = b;
+        else e4[t % 4] = b;
+      }
+      warp_transpose_sum<32>(e, lane);
+      warp_transpose_sum<4>(e4, lane);
+      if (kq == 1) {
+        Es[bj * kTLDE + lane] = e[0];
+        if ((lane & 7) == 0) Es[bj * kTLDE + 32 + (lane >> 3)] = e4[0];
+      }
     }
     __syncthreads();
-    // y_t of a column: the sum of its 8 threads' partials
+
+    // ---- the block's pairs into A, the two key halves added; the key
+    // tiles ----
+    if (kq == 0) {
+      const int o = (b0 + pt) * kTLDA + b0 + ps;
+      put_split(Ah + o, Al + o, e[0] + Es[bj * kTLDE + lane]);
+      if ((lane & 7) == 0) {
+        const int tb = b0 + 4 + (lane >> 3);
+        put_split(Ah + tb * kTLDA + tb, Al + tb * kTLDA + tb,
+                  e4[0] + Es[bj * kTLDE + 32 + (lane >> 3)]);
+      }
+    }
+    if (k_on) {
+      float G[kTBlocks];
 #pragma unroll
-    for (int it = 0; it < NV; ++it) {
-      const int i = tid + it * kThreads;
-      const int tt = i / kCols, c = i % kCols;
-      if (tt < tc && c0 + c < v_dim) {
-        const float4 a = *reinterpret_cast<const float4*>(&ys[tt][c][0]);
-        const float4 b = *reinterpret_cast<const float4*>(&ys[tt][c][4]);
-        yb[int64_t(t0 + tt) * v_dim + c0 + c] =
-            ((a.x + a.y) + (a.z + a.w)) + ((b.x + b.y) + (b.z + b.w));
+      for (int j = 0; j < kTBlocks; ++j) G[j] = gh[j * KP + key];
+      float pre = 1.f, post = 1.f;       // prod G before and after the block
+#pragma unroll
+      for (int j = 0; j < kTBlocks; ++j) {
+        if (j < bj) pre *= G[j];
+        if (j > bj) post *= G[j];
+      }
+      if (bj == 0) PL[key] = (G[0] * G[1]) * (G[2] * G[3]);
+      const float g16u = bj == 3 ? G[2] : 1.f;   // rows t >= 16
+      const float g16l = bj == 0 ? G[1] : 1.f;   // rows t < 16
+      float sf[kTSub];                   // prod_{i < j < 8} w_j in the block
+      sf[kTSub - 1] = 1.f;
+#pragma unroll
+      for (int i = kTSub - 1; i > 0; --i) sf[i - 1] = sf[i] * cw[i];
+      float pr = 1.f;                    // prod_{0 <= j < i} w_j
+#pragma unroll
+      for (int i = 0; i < kTSub; ++i) {
+        const int o = (b0 + i) * LDK + key;
+        put_split(tile_hi(F_RP) + o, tile_lo(F_RP) + o, cr[i] * (pre * pr));
+        put_split(tile_hi(F_KQ) + o, tile_lo(F_KQ) + o, ck[i] * (sf[i] * post));
+        put_split(tile_hi(F_X16) + o, tile_lo(F_X16) + o,
+                  bj >= 2 ? cr[i] * (g16u * pr) : ck[i] * (sf[i] * g16l));
+        put_split(tile_hi(F_X8) + o, tile_lo(F_X8) + o,
+                  bj & 1 ? cr[i] * pr : ck[i] * sf[i]);
+        pr *= cw[i];
+      }
+    }
+    __syncthreads();
+
+    // ---- the levels' pairs, X_b X_b^T, one 16 x 8 tile a warp of the
+    // first four: 0 and 1 level 16 (rows 16 .., keys 0 .. 7 and 8 .. 15); 2
+    // and 3 level 8 (rows 0 .. 15 x keys 0 .. 7, rows 16 .. x 16 .., of
+    // which rows 8 .. 15 and 24 .. 31 are the level's).  The keys are read
+    // as pairs (2c, 2c + 1), the same permutation on both sides; hi * hi
+    // apart from the small terms, each by k-step parity ----
+    if (warp < 4) {
+      const int f = warp < 2 ? F_X16 : F_X8;
+      const float* Xh = tile_hi(f);
+      const float* Xl = tile_lo(f);
+      const int m0 = warp == 2 ? 0 : 16;
+      const int n0 = warp == 1 ? 8 : warp == 3 ? 16 : 0;
+      float sc[2][4], scl[2][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[q][e] = scl[q][e] = 0.f;
+      const int ca = (m0 + g) * LDK + 2 * cq, cb = (n0 + g) * LDK + 2 * cq;
+#pragma unroll
+      for (int kk = 0; kk < KP / 8; ++kk) {
+        const float2 h0 = ld2(Xh + ca + 8 * kk);
+        const float2 h1 = ld2(Xh + ca + 8 * LDK + 8 * kk);
+        const float2 l0 = ld2(Xl + ca + 8 * kk);
+        const float2 l1 = ld2(Xl + ca + 8 * LDK + 8 * kk);
+        const uint32_t ah[4] = {u32(h0.x), u32(h1.x), u32(h0.y), u32(h1.y)};
+        const uint32_t al[4] = {u32(l0.x), u32(l1.x), u32(l0.y), u32(l1.y)};
+        const float2 bh = ld2(Xh + cb + 8 * kk), bl = ld2(Xl + cb + 8 * kk);
+        mma_tf32_1688(scl[kk & 1], al, u32(bh.x), u32(bh.y));
+        mma_tf32_1688(scl[kk & 1], ah, u32(bl.x), u32(bl.y));
+        mma_tf32_1688(sc[kk & 1], ah, u32(bh.x), u32(bh.y));
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        if (rr == 0 && warp >= 2) continue;
+        const int o = (m0 + g + 8 * rr) * kTLDA + n0 + 2 * cq;
+        float a[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          a[q] = (sc[0][2 * rr + q] + sc[1][2 * rr + q]) +
+                 (scl[0][2 * rr + q] + scl[1][2 * rr + q]);
+        put_split2(Ah + o, Al + o, make_float2(a[0], a[1]));
+      }
+    }
+    __syncthreads();
+
+    // ---- the products of warp (vw, kh) ----
+    {
+      const float* vc = vst(st);
+      // V^T's A fragments (16 columns v x 8 steps s) for the 4 step k-steps,
+      // split: rows c and c + 4 of v
+      uint32_t vh[kTL / 8][4], vl[kTL / 8][4];
+#pragma unroll
+      for (int ks = 0; ks < kTL / 8; ++ks) {
+        const float* x0 = vc + (8 * ks + cq) * kTLDV + 16 * vw + g;
+        split_tf32(x0[0], vh[ks][0], vl[ks][0]);
+        split_tf32(x0[8], vh[ks][1], vl[ks][1]);
+        split_tf32(x0[4 * kTLDV], vh[ks][2], vl[ks][2]);
+        split_tf32(x0[4 * kTLDV + 8], vh[ks][3], vl[ks][3]);
+      }
+      // y^T over the warp's keys: S^T (r P)^T, B = (r P)^T read as pairs
+      // (2c, 2c + 1) of r P's rows t, hi * hi apart from the small terms;
+      // and A V for the t-tiles tb of the warp's half (kh 0: 0 .. 2, kh 1:
+      // 3), B = A^T read as columns c and c + 4 of A's rows, steps s <= t
+      float yi[kTL / 8][4], yil[kTL / 8][4], yo[kTL / 8][4];
+#pragma unroll
+      for (int tb = 0; tb < kTL / 8; ++tb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yi[tb][e] = yil[tb][e] = yo[tb][e] = 0.f;
+      const float* RPh = tile_hi(F_RP);
+      const float* RPl = tile_lo(F_RP);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        uint32_t ah[4], al[4];
+        split_tf32(S[n][0], ah[0], al[0]);
+        split_tf32(S[n][2], ah[1], al[1]);
+        split_tf32(S[n][1], ah[2], al[2]);
+        split_tf32(S[n][3], ah[3], al[3]);
+#pragma unroll
+        for (int tb = 0; tb < kTL / 8; ++tb) {
+          const int o = (8 * tb + g) * LDK + KH * kh + 8 * n + 2 * cq;
+          const float2 bh = ld2(RPh + o), bl = ld2(RPl + o);
+          mma_tf32_1688(yil[tb], al, u32(bh.x), u32(bh.y));
+          mma_tf32_1688(yil[tb], ah, u32(bl.x), u32(bl.y));
+          mma_tf32_1688(yi[tb], ah, u32(bh.x), u32(bh.y));
+        }
+      }
+#pragma unroll
+      for (int tb = 0; tb < kTL / 8; ++tb) {
+        if ((tb == kTL / 8 - 1) != (kh == 1)) continue;
+#pragma unroll
+        for (int ks = 0; ks <= tb; ++ks) {
+          const int m = (8 * tb + g) * kTLDA + 8 * ks + cq;
+          mma_3xtf32(yo[tb], vh[ks], vl[ks], u32(Ah[m]), u32(Ah[m + 4]),
+                     u32(Al[m]), u32(Al[m + 4]));
+        }
+      }
+      // the warp's partial y, rows t, columns v, into Ys[kh]
+      float* Y = Ys + kh * kTL * kTLDY;
+#pragma unroll
+      for (int tb = 0; tb < kTL / 8; ++tb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          Y[(8 * tb + 2 * cq + (e & 1)) * kTLDY + 16 * vw + g + 8 * (e >> 1)] =
+              (yi[tb][e] + yil[tb][e]) + yo[tb][e];
+
+      // carry: S^T = P_L .* S^T + V^T (k Q) over the warp's keys, the
+      // chunk's sum in a fresh accumulator added by one FMA (B = k Q read
+      // as rows c and c + 4)
+      const float* KQh = tile_hi(F_KQ);
+      const float* KQl = tile_lo(F_KQ);
+      float fr[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fr[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kTL / 8; ++ks) {
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          const int o = (8 * ks + cq) * LDK + KH * kh + 8 * n + g;
+          mma_3xtf32(fr[n], vh[ks], vl[ks], u32(KQh[o]), u32(KQh[o + 4 * LDK]),
+                     u32(KQl[o]), u32(KQl[o + 4 * LDK]));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const float2 d = ld2(PL + KH * kh + 8 * n + 2 * cq);
+        S[n][0] = fmaf(S[n][0], d.x, fr[n][0]);
+        S[n][1] = fmaf(S[n][1], d.y, fr[n][1]);
+        S[n][2] = fmaf(S[n][2], d.x, fr[n][2]);
+        S[n][3] = fmaf(S[n][3], d.y, fr[n][3]);
       }
     }
   }
+  __syncthreads();
+  store_y(n_chunks - 1);
 }
 
-template <int J>
-int launch_f32(const void* r, const void* k, const void* v, const void* w,
-               const void* u, void* y, int64_t b, int64_t h, int64_t t,
-               int64_t kd, int64_t vd, cudaStream_t stream) {
-  dim3 grid(unsigned((vd + kCols - 1) / kCols), unsigned(h), unsigned(b));
-  rwkv6_wkv_kernel_f32<J><<<grid, kThreads, 0, stream>>>(
+template <int NK>
+int launch_tf32(const void* r, const void* k, const void* v, const void* w,
+                const void* u, void* y, int64_t b, int64_t h, int64_t t,
+                int64_t kd, int64_t vd, cudaStream_t stream) {
+  auto kernel = rwkv6_wkv_kernel_tf32<NK>;
+  const size_t smem = Tf32Smem<NK>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto aligned = [](const void* ptr) {
+    return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+  };
+  const int v_vec = vd % 4 == 0 && aligned(v);
+  const int y_vec = vd % 4 == 0 && aligned(y);
+  dim3 grid(unsigned((vd + kTPB - 1) / kTPB), unsigned(h), unsigned(b));
+  kernel<<<grid, kTThreads, smem, stream>>>(
       static_cast<const float*>(r), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<float*>(y), int(t), int(h),
-      int(kd), int(vd));
+      int(kd), int(vd), v_vec, y_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_f32(const void* r, const void* k, const void* v, const void* w,
-                 const void* u, void* y, int64_t b, int64_t h, int64_t t,
-                 int64_t kd, int64_t vd, cudaStream_t stream) {
+int dispatch_tf32(const void* r, const void* k, const void* v, const void* w,
+                  const void* u, void* y, int64_t b, int64_t h, int64_t t,
+                  int64_t kd, int64_t vd, cudaStream_t stream) {
+  if (kd <= 16)
+    return launch_tf32<1>(r, k, v, w, u, y, b, h, t, kd, vd, stream);
   if (kd <= 32)
-    return launch_f32<1>(r, k, v, w, u, y, b, h, t, kd, vd, stream);
-  return launch_f32<2>(r, k, v, w, u, y, b, h, t, kd, vd, stream);
+    return launch_tf32<2>(r, k, v, w, u, y, b, h, t, kd, vd, stream);
+  if (kd <= 48)
+    return launch_tf32<3>(r, k, v, w, u, y, b, h, t, kd, vd, stream);
+  return launch_tf32<4>(r, k, v, w, u, y, b, h, t, kd, vd, stream);
 }
 
 }  // namespace
@@ -787,7 +1140,7 @@ extern "C" int rwkv6_wkv_launch(const void* r, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return dispatch_f32(r, k, v, w, u, y, b, h, t, kd, vd, s);
+    return dispatch_tf32(r, k, v, w, u, y, b, h, t, kd, vd, s);
   if (dtype == DT_BF16)
     return dispatch_chunked(r, k, v, w, u, y, b, h, t, kd, vd, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -11,11 +11,13 @@ with a data-dependent decay ``w_t`` in [0, 1] and the head's bonus ``u``.
 :func:`wkv6_plain` (the sequential scan of ``wkv6_ref``), CUDA tensors
 launch a kernel of ``csrc/rwkv6_wkv.cu`` or raise (fake tensors, the dry
 run's, which hold no data, give the output's shape and dtype and run no
-scan): for bfloat16 the chunked form on the tensor cores (64-step
-chunks, every pair of steps factored at a reference step between them,
-so that each decay factor is a product of w in [0, 1]), for float32 the
-sequential scan on the CUDA cores.  The kernels take any T (the TPU launcher's ``t % chunk``
-contract does not apply).
+scan).  Both dtypes take the chunked form on the tensor cores, every pair
+of steps factored at a reference step between them, so that each decay
+factor is a product of w in [0, 1]: bfloat16 in 64-step chunks, float32
+in 32-step chunks with every product in 3xTF32 (each operand split into
+two tf32 parts, three ``mma.sync`` a product) and the pairs closer than 8
+steps taken elementwise in float32.  The kernels take any T (the TPU
+launcher's ``t % chunk`` contract does not apply).
 :func:`wkv6_decode` is one step of the recurrence, plain PyTorch on every
 device, as the reference's ``wkv6_decode_ref``.
 

@@ -111,6 +111,8 @@ def _wkv_decays(rng, shape, regime):
     (1, 8, 300, 40, 64, "moderate"),     # K not a multiple of 16
     (1, 8, 1000, 64, 64, "strong"),      # exact zero decays
     (1, 8, 4096, 64, 64, "one"),         # no decay over 4096 steps
+    (2, 64, 1024, 64, 64, "moderate"),   # rwkv6-7b's train step
+    (1, 32, 1024, 64, 64, "moderate"),   # a rank's head block of it
 ])
 def test_wkv6_matches_plain(card, dtype, b, h, t, k, v, regime):
     rng = np.random.default_rng(2)
@@ -126,6 +128,27 @@ def test_wkv6_matches_plain(card, dtype, b, h, t, k, v, regime):
     assert wk.wkv6.launches == before + 1
     assert bool(got.isfinite().all())
     assert ((got - want).abs().max() / want.abs().max()).item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_is_deterministic_and_blockwise(card, dtype):
+    """Equal inputs give equal bits, and a rank's block of heads (batch 1,
+    heads 32 .. 63 of rwkv6-7b's train step) gives the same bits as those
+    heads of the whole call: no sum depends on B, H or the grid."""
+    rng = np.random.default_rng(6)
+    td = getattr(torch, dtype)
+    b, h, t, k, v = 2, 64, 1024, 64, 64
+    r = _randn(rng, (b, h, t, k), td, card)
+    kk = _randn(rng, (b, h, t, k), td, card)
+    vv = _randn(rng, (b, h, t, v), td, card)
+    w = torch.from_numpy(_wkv_decays(rng, (b, h, t, k), "moderate")).to(
+        card, td)
+    u = _randn(rng, (h, k), torch.float32, card)
+    whole = wk.wkv6(r, kk, vv, w, u)
+    assert torch.equal(wk.wkv6(r, kk, vv, w, u), whole)
+    part = [a[1:, 32:].clone() for a in (r, kk, vv, w)]
+    block = wk.wkv6(*part, u[32:].clone())
+    assert torch.equal(block, whole[1:, 32:])
 
 
 # the gradients: each Function's backward recomputes the plain version, so

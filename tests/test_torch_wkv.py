@@ -6,9 +6,11 @@ uniform on [-6, 1] (0.066 .. 0.9975, where the state carries farthest).
 The reference's Pallas ``wkv6`` is not used: it does not trace on the
 installed JAX.  The kernels run only on a card
 (``tests/test_torch_kernels_cuda.py``); ``wkv6_chunked`` below states the
-bf16 kernel's chunked algebra in float32 torch, held here against both.
+kernels' chunked algebra in float32 torch, and ``wkv6_3xtf32`` the float32
+kernel's tensor-core arithmetic in numpy, each held here against both.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 
 from repro.kernels.rwkv6_wkv.ref import wkv6_decode_ref, wkv6_ref
 from repro_torch.kernels.rwkv6_wkv import ops
+from torch_tf32 import mma_chain, split_tf32
 from torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 2e-5
@@ -151,8 +154,10 @@ def wkv6_chunked(r, k, v, w, u, chunk, sub):
     k_s prod_{s<i<ref} w_i, one tile a level, entries of X_b X_b^T.  The
     pairs closer than ``sub`` are taken elementwise, per (t, s, k): sub = 1
     is the kernel's form, sub = 16 that of Yang et al.'s sub-chunks.  Every
-    factor is a product of w in [0, 1].  The last chunk is padded with
-    r = k = v = 0 and w = 0, as the kernel reads steps past T."""
+    factor is a product of w in [0, 1].  The bf16 kernel takes chunk = 64,
+    sub = 1; the float32 kernel chunk = 32, sub = 8.  The last chunk is
+    padded with r = k = v = 0 and w = 0, as the kernels read steps past
+    T."""
     b, h, t, dk = r.shape
     pad = -t % chunk
     F = torch.nn.functional
@@ -191,11 +196,12 @@ def wkv6_chunked(r, k, v, w, u, chunk, sub):
 
 @pytest.mark.parametrize("regime", ["moderate", "strong", "one"])
 @pytest.mark.parametrize("t", [1, 37, 65, 128])
-@pytest.mark.parametrize("chunk", [16, 64])
-@pytest.mark.parametrize("sub", [1, 16])
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("sub", [1, 8, 16])
 def test_chunked_algebra_matches_the_scan(sub, chunk, t, regime):
-    """The kernel's chunked algebra (sub = 1) and the sub-chunked one
-    against wkv6_plain and wkv6_ref, in three decay regimes."""
+    """The kernels' chunked algebra (bf16: 64 and 1; float32: 32 and 8)
+    and the sub-chunked one against wkv6_plain and wkv6_ref, in three decay
+    regimes."""
     rng = np.random.default_rng(8)
     b, h, dk, dv = 2, 3, 16, 12
     r, kk, vv, _, u = rand_wkv(8, b, h, t, dk, dv)
@@ -226,3 +232,162 @@ def test_one_reference_a_chunk_is_not_finite_with_zero_decays():
     A = (r * P) @ (kk / P_next).transpose(-1, -2)
     lower = torch.ones(64, 64).tril(-1).bool()
     assert not bool(A[..., lower].isfinite().all())
+
+
+# --- the float32 kernel's arithmetic (3xTF32 on mma.sync), emulated ---------
+#
+# csrc/rwkv6_wkv.cu's float32 path computes wkv6_chunked's algebra at
+# chunk = 32, sub = 8: per 8-step block of the chunk and per key, the
+# prefix and suffix products of w inside the block, the block's total G,
+# the products of the totals before and after it, all float32 in the
+# kernel's order; r P, k Q, X_16 and X_8 split into tf32 hi and lo; the
+# level products X_16 X_16^T (rows 16 .., keys 0 .. 15) and X_8 X_8^T
+# (rows 8 .. 15 x 0 .. 7, 24 .. 31 x 16 .. 23) with hi * hi apart from the
+# small terms, each by k-step parity; the pairs inside an 8-step block and
+# the bonus in float32, summed over each half of the keys, the halves
+# added; A split; y as two partial sums, one a half of the keys: S (r P)
+# over the half's keys (hi * hi apart from the small terms) plus A V for
+# rows 0 .. 23 (first half) or 24 .. 31 (second), added as y goes out; the
+# carry (k Q)^T V in a fresh accumulator added to P_L .* S by one FMA; the
+# state carried in float32 and split for S (r P).  Every product is 8 deep
+# a tensor-core step (tests/torch_tf32.py).  The kernel runs only on a
+# card; here its arithmetic runs in numpy.
+
+# of max |wkv6_plain| and of max |wkv6_ref|: the cases below read
+# 9.1e-8 .. 5.5e-7, and 2.7e-4 .. 5.9e-4 with one pass (hi * hi alone)
+TF32_BOUND = 1e-5
+F32_CHUNK, F32_SUB = 32, 8
+# compiled once a shape: both input kinds of a case share it
+wkv6_ref_jit = jax.jit(wkv6_ref)
+
+
+def wkv6_3xtf32(r, k, v, w, u, passes=3):
+    """The float32 kernel's WKV on numpy inputs r, k, w [B,H,T,K], v
+    [B,H,T,V], u [H,K]; ``passes`` 1 keeps hi * hi alone."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    kp = -(-dk // 16) * 16
+    kh = kp // 2
+    L, nb = F32_CHUNK, F32_CHUNK // F32_SUB
+    nc = -(-t // L)
+
+    def chunks(a, width):      # [B, H, T, X] -> [B, H, nc, L, width]
+        a = np.pad(a.astype(np.float32), [(0, 0), (0, 0), (0, nc * L - t),
+                                          (0, width - a.shape[-1])])
+        return a.reshape(b, h, nc, L, width)
+
+    rs, ks, ws = (chunks(a, kp) for a in (r, k, w))
+    vs = chunks(v, dv)
+    uk = np.pad(u.astype(np.float32), [(0, 0), (0, kp - dk)])[None, :, None]
+    S = np.zeros((b, h, kp, dv), np.float32)
+    y = np.zeros((b, h, nc, L, dv), np.float32)
+    small = passes == 3
+
+    def split_pairs(x, y_):    # the passes' (x, y) pairs, small terms first
+        (xh, xl), (yh, yl) = split_tf32(x), split_tf32(y_)
+        return ([(xh, yl), (xl, yh)] if small else []) + [(xh, yh)]
+
+    def level(xa, xb):         # xa @ xb^T: hi * hi apart, by k-step parity
+        (ah, al), (bh, bl) = split_tf32(xa), split_tf32(xb.swapaxes(-1, -2))
+        zero = np.zeros(xa.shape[:-1] + xb.shape[-2:-1], np.float32)
+        hi = [mma_chain(zero, [(ah, bh)], p) for p in (0, 1)]
+        lo = [mma_chain(zero, [(al, bh), (ah, bl)], p) if small else zero
+              for p in (0, 1)]
+        return (hi[0] + hi[1]) + (lo[0] + lo[1])
+
+    for c in range(nc):
+        rc, kc, wc, vc = rs[:, :, c], ks[:, :, c], ws[:, :, c], vs[:, :, c]
+        blk = wc.reshape(b, h, nb, F32_SUB, kp)
+        pr = np.ones_like(blk)                 # prod_{block start <= j < i}
+        sf = np.ones_like(blk)                 # prod_{i < j < block end}
+        for i in range(1, F32_SUB):
+            pr[:, :, :, i] = pr[:, :, :, i - 1] * blk[:, :, :, i - 1]
+        for i in range(F32_SUB - 2, -1, -1):
+            sf[:, :, :, i] = sf[:, :, :, i + 1] * blk[:, :, :, i + 1]
+        G = pr[:, :, :, -1] * blk[:, :, :, -1]         # [B, H, nb, KP]
+        one = np.ones_like(G[:, :, 0])
+        pre, post = [], []
+        for j in range(nb):
+            a, z = one, one
+            for i in range(nb):
+                if i < j:
+                    a = a * G[:, :, i]
+                if i > j:
+                    z = z * G[:, :, i]
+            pre.append(a)
+            post.append(z)
+        pre, post = np.stack(pre, 2)[:, :, :, None], np.stack(post, 2)[
+            :, :, :, None]
+        PL = (G[:, :, 0] * G[:, :, 1]) * (G[:, :, 2] * G[:, :, 3])
+        rb, kb = rc.reshape(blk.shape), kc.reshape(blk.shape)
+        rP = (rb * (pre * pr)).reshape(rc.shape)
+        kQ = (kb * (sf * post)).reshape(kc.shape)
+        g16u = np.stack([one, one, one, G[:, :, 2]], 2)[:, :, :, None]
+        g16l = np.stack([G[:, :, 1], one, one, one], 2)[:, :, :, None]
+        x16 = np.concatenate([(kb * (sf * g16l))[:, :, :2],
+                              (rb * (g16u * pr))[:, :, 2:]], 2).reshape(
+                                  rc.shape)
+        x8 = np.stack([kb[:, :, 0] * sf[:, :, 0], rb[:, :, 1] * pr[:, :, 1],
+                       kb[:, :, 2] * sf[:, :, 2], rb[:, :, 3] * pr[:, :, 3]],
+                      2).reshape(rc.shape)
+        A = np.zeros((b, h, L, L), np.float32)
+        A[:, :, 16:, :16] = level(x16[:, :, 16:], x16[:, :, :16])
+        A[:, :, 8:16, :8] = level(x8[:, :, 8:16], x8[:, :, :8])
+        A[:, :, 24:, 16:24] = level(x8[:, :, 24:], x8[:, :, 16:24])
+        # the 8-step blocks: r_t k_s prod_{s<i<t} w_i and the bonus per key
+        # in float32, summed over each half of the keys, the halves added
+        for j in range(nb):
+            o = F32_SUB * j
+            terms = np.zeros((b, h, F32_SUB, F32_SUB, kp), np.float32)
+            for s_ in range(F32_SUB - 1):
+                f = kc[:, :, o + s_]
+                for t_ in range(s_ + 1, F32_SUB):
+                    terms[:, :, t_, s_] = rc[:, :, o + t_] * f
+                    f = f * wc[:, :, o + t_]
+            for t_ in range(F32_SUB):
+                terms[:, :, t_, t_] = rc[:, :, o + t_] * uk[:, :, 0] * \
+                    kc[:, :, o + t_]
+            halves = [terms[..., i * 32:(i + 1) * 32].sum(-1, dtype=np.float64
+                                                          ).astype(np.float32)
+                      for i in range(-(-kp // 32))]
+            A[:, :, o:o + F32_SUB, o:o + F32_SUB] = np.tril(sum(halves))
+        # y as the two halves' partial sums
+        S_pairs = [split_pairs(rP[..., i * kh:(i + 1) * kh],
+                               S[:, :, i * kh:(i + 1) * kh]) for i in (0, 1)]
+        zero_y = np.zeros((b, h, L, dv), np.float32)
+        yo = mma_chain(zero_y, split_pairs(A, vc))
+        part = []
+        for i, pairs in enumerate(S_pairs):
+            yi = mma_chain(zero_y, pairs[-1:])
+            yil = mma_chain(zero_y, pairs[:-1]) if small else zero_y
+            rows = slice(0, 24) if i == 0 else slice(24, L)
+            own = np.zeros_like(yo)
+            own[:, :, rows] = yo[:, :, rows]
+            part.append((yi + yil) + own)
+        y[:, :, c] = part[0] + part[1]
+        f = mma_chain(np.zeros_like(S), split_pairs(kQ.swapaxes(-1, -2), vc))
+        S = (S.astype(np.float64) * PL[..., None] + f).astype(np.float32)
+    return y.reshape(b, h, nc * L, dv)[:, :, :t]
+
+
+@pytest.mark.parametrize("regime", ["moderate", "strong", "one"])
+@pytest.mark.parametrize("t", [1, 37, 65, 130])
+@pytest.mark.parametrize("dk", [16, 40, 64])
+def test_3xtf32_arithmetic_is_float32_accurate(regime, t, dk):
+    """The float32 kernel's arithmetic within TF32_BOUND of max |y| of
+    wkv6_plain and of wkv6_ref, in three decay regimes; the same arithmetic
+    in one pass (the lo terms dropped) misses it."""
+    rng = np.random.default_rng(10)
+    b, h, dv = 2, 2, 24
+    r, kk, vv, _, u = rand_wkv(10, b, h, t, dk, dv)
+    w = _decays(rng, (b, h, t, dk), regime)
+    args = (r, kk, vv, w, u)
+    plain = ops.wkv6_plain(*(torch.from_numpy(a) for a in args)).numpy()
+    ref = np.asarray(wkv6_ref_jit(*(jnp.asarray(a) for a in args)))
+    got3, got1 = wkv6_3xtf32(*args), wkv6_3xtf32(*args, passes=1)
+    assert np.isfinite(got3).all()
+    for want in (plain, ref):
+        top = np.abs(want).max()
+        err3, err1 = np.abs(got3 - want).max(), np.abs(got1 - want).max()
+        assert err3 <= TF32_BOUND * top, (err3 / top, TF32_BOUND)
+        assert err1 > TF32_BOUND * top, (err1 / top, TF32_BOUND)
